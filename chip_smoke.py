@@ -9,22 +9,33 @@ and PyTorch built for CUDA (no JAX needed)::
 Phases (any failure raises and the script exits non-zero):
   0. build the hand-written kernels from ``cmhse_tpu_torch/csrc``;
   1. device facts: name, count, power limit; TF32 off for matmul and cuDNN;
-  2. the ``gru_fwd`` kernel against its plain PyTorch version at the main
-     path's shapes (plus a ragged one), with times;
+  2. the ``gru_fwd`` kernel against its plain PyTorch version at the
+     serving path's shapes (plus a ragged one), with times;
+     2b. its ``save_gates`` and ``with_h0`` variants and 2c. the ``gru_bwd``
+     kernel against their plain versions at the training path's six GRU
+     shapes (plus a ragged one with zero-length rows, with and without h0);
   3. the ``rankcount`` kernel against its plain version (counts exact) at
      Q=1024, N=100,000, D=1024 and at the main path's shape, with times;
      3b. the streaming top-k (plain torch ops) against the dense one at
      100,000 rows, ties included; both timed, with peak memory, at 100,000
      and 1,000,000 rows on both sides of the Retriever's dense budget;
-  4. the main path at full ``cmhse_full`` width (H = E = 1024, batch 64,
-     random weights from the seed): encode a 2,048-video synthetic gallery,
-     answer 8 text->video and 8 video->text top-10 requests, score it with
-     ``validate_metrics(streaming=True)``; the first batch is re-encoded on
-     the CPU (plain versions) and must agree; 4b. torch.profiler splits
-     two batches' encode device time by kernel family;
-  5. one JSON line listing each kernel with its launches on the main path,
-     error against its plain version, times and bound;
-  6. last line: ``{"ok": true, "device": {...}}``.
+     3c. the ``simhinge`` kernel against its plain version (maxima and
+     argmaxes equal, ties to the lowest index) at 512, 64 and 300 rows;
+  4. the serving path at full ``cmhse_full`` width (H = E = 1024, batch
+     64, random weights from the seed): encode a 2,048-video synthetic
+     gallery, answer 8 text->video and 8 video->text top-10 requests, score
+     it with ``validate_metrics(streaming=True)``; the first batch is
+     re-encoded on the CPU (plain versions) and must agree; 4b.
+     torch.profiler splits two batches' encode device time by kernel family;
+  5. the training path at the same width: 8 ``train_step``s on one 64-video
+     batch (finite losses and grad norms, the last loss below the first,
+     6 + 6 + 4 kernel launches per step), then ``validate_metrics`` on the
+     trained weights; 5b. torch.profiler splits one step's device time by
+     kernel family; 5c. one step at batch 8, card against the CPU's plain
+     path: loss, grad_norm and every parameter gradient;
+  6. one JSON line listing each kernel with its path, its launches there,
+     its error against its plain version, times and bound;
+  7. last line: ``{"ok": true, "device": {...}}``.
 
 With no CUDA device it exits with code 1 and prints no result.
 """
@@ -45,6 +56,22 @@ F32_FLOPS = 67e12  # FP32 outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 
 GRU_ATOL = 1e-4  # f32; K=1024 sums in another order, compounded over steps
+# gru_bwd vs the plain BPTT loop: max abs error <= this * max |reference| per
+# output (dxw, dhn, db, dh0), since the sums compound over T steps
+GRU_BWD_RTOL = 1e-4
+# one train step at batch 8, card vs CPU: loss and grad_norm relative errors;
+# each gradient tensor's max abs error relative to its largest entry (f32
+# sums in other orders through up to 64 BPTT steps and two hinge passes)
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_NORM_RTOL = 1e-3
+TRAIN_GRAD_RTOL = 1e-3
+TRAIN_STEPS = 8
+# Phase 5's learning rate, the low end of the range the config names for
+# the reference. At the preset's 1e-3, Adam's first sign-sized step from
+# random weights spreads the embeddings and the hardest-negative terms
+# rise for several steps, so the falling-loss check would test that
+# transient rather than the gradients (PERF.md, Findings).
+TRAIN_LR = 2e-4
 ENCODE_ATOL = 1e-4  # card vs CPU embeddings of one full-width batch
 SCORE_ATOL = 1e-4  # served top-k scores vs the gallery embeddings' products
 # Random weights embed every video close to every other (cosines near 1), so
@@ -82,6 +109,27 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+def card_generator(torch, rng):
+    """A generator on the card, seeded from the script's numpy stream:
+    large random inputs are drawn there, not on the host."""
+    return torch.Generator(device="cuda").manual_seed(int(rng.randint(2**31)))
+
+
+def gru_inputs(torch, rng, b: int, t: int, d: int, h: int):
+    """Random GRU inputs on the card: x [b, t, d] ~ N(0, 1) and w_i, w_h,
+    b_i, b_h uniform in +-1/sqrt(h), the port's init."""
+    gen = card_generator(torch, rng)
+    scale = 1.0 / h ** 0.5
+
+    def uniform(*shape):
+        return (torch.rand(*shape, device="cuda", generator=gen) * 2 - 1) \
+            * scale
+
+    x = torch.randn(b, t, d, device="cuda", generator=gen)
+    return (x, uniform(d, 3 * h), uniform(h, 3 * h), uniform(3 * h),
+            uniform(3 * h))
+
+
 def phase_gru(torch, rng, shapes) -> dict:
     """gru_fwd vs gru_recurrence_plain; times at each shape. ``shapes``:
     list of (label, lengths int32 [B], T, D)."""
@@ -93,14 +141,7 @@ def phase_gru(torch, rng, shapes) -> dict:
     rows = []
     for label, lengths_np, t, d in shapes:
         b = lengths_np.shape[0]
-        scale = 1.0 / h ** 0.5
-        x = torch.from_numpy(rng.randn(b, t, d).astype("float32")).to(dev)
-        w_i, w_h = [torch.from_numpy(rng.uniform(-scale, scale, s)
-                                     .astype("float32")).to(dev)
-                    for s in ((d, 3 * h), (h, 3 * h))]
-        b_i, b_h = [torch.from_numpy(rng.uniform(-scale, scale, 3 * h)
-                                     .astype("float32")).to(dev)
-                    for _ in range(2)]
+        x, w_i, w_h, b_i, b_h = gru_inputs(torch, rng, b, t, d, h)
         lengths = torch.from_numpy(lengths_np).to(dev)
         with torch.inference_mode():
             xw = gru_input_projection(x, w_i, b_i).contiguous()
@@ -120,10 +161,7 @@ def phase_gru(torch, rng, shapes) -> dict:
             library = library_gru_ms(torch, x, lengths_np, w_i, w_h, b_i,
                                      b_h, final)
         live = int(lengths_np.clip(0, t).sum())
-        flops = 2.0 * live * h * 3 * h
-        nbytes = 4.0 * (b * t * 3 * h + h * 3 * h + 3 * h + b * t * h + b * h
-                        + b)
-        bms, by = bound_ms(flops, nbytes)
+        bms, by = gru_bounds(b, t, h, live)
         row = dict(shape=label, max_abs_err=err, ms=ms, plain_ms=plain,
                    bound_ms=bms, bound_by=by, library_ms=library)
         log(f"  gru_fwd {label}: err {err:.3g}  kernel {ms:.4f} ms  plain "
@@ -133,39 +171,157 @@ def phase_gru(torch, rng, shapes) -> dict:
     return rows
 
 
-def library_gru_ms(torch, x, lengths_np, w_i, w_h, b_i, b_h, final) -> float:
+def library_gru_ms(torch, x, lengths_np, w_i, w_h, b_i, b_h, final,
+                   h0=None, mode: str = "inference") -> float:
     """torch.nn.GRU (cuDNN) over the same sequences, packed. Packing refuses
-    length-0 rows, whose result is the zero state anyway, so they are left
-    out. cuDNN includes the input projection and zero-fills padded steps, so
-    only ``final`` is compared (a check of the weight mapping)."""
+    length-0 rows, whose result is the initial state anyway, so they are
+    left out. cuDNN includes the input projection and zero-fills padded
+    steps, so only ``final`` is compared (a check of the weight mapping).
+    ``mode``: "inference" times the forward under the caller's no-grad
+    mode; "train" the training forward (it keeps cuDNN's reserve space for
+    the backward); "backward" the backward alone (input and weight
+    gradients) through one retained graph, for random cotangents."""
     nz = torch.from_numpy(lengths_np > 0).to(x.device)
     x, final = x[nz], final[nz]
+    hx = None if h0 is None else h0[nz][None].contiguous()
     lengths_np = lengths_np[lengths_np > 0]
-    gru = torch.nn.GRU(w_i.shape[0], w_h.shape[0], batch_first=True).cuda()
+    gru = torch.nn.GRU(w_i.shape[0], w_h.shape[0],
+                       batch_first=True).to(x.device)
     with torch.no_grad():
         gru.weight_ih_l0.copy_(w_i.T)
         gru.weight_hh_l0.copy_(w_h.T)
         gru.bias_ih_l0.copy_(b_i)
         gru.bias_hh_l0.copy_(b_h)
-    packed = torch.nn.utils.rnn.pack_padded_sequence(
-        x, torch.from_numpy(lengths_np).long(), batch_first=True,
-        enforce_sorted=False)
-    _, h_n = gru(packed)
-    err = (h_n[0] - final).abs().max().item()
-    if not err <= GRU_ATOL:
-        raise AssertionError(f"cuDNN GRU final differs from gru_fwd by {err}")
-    return cuda_ms(lambda: gru(packed))
+    with torch.enable_grad() if mode != "inference" else torch.no_grad():
+        xin = x.detach().requires_grad_(mode == "backward")
+        packed = torch.nn.utils.rnn.pack_padded_sequence(
+            xin, torch.from_numpy(lengths_np).long(), batch_first=True,
+            enforce_sorted=False)
+        out, h_n = gru(packed, hx)
+        err = (h_n[0] - final).abs().max().item()
+        if not err <= GRU_ATOL:
+            raise AssertionError(f"cuDNN GRU final differs from gru_fwd by "
+                                 f"{err}")
+        if mode != "backward":
+            return cuda_ms(lambda: gru(packed, hx))
+        cot = (torch.randn_like(out.data), torch.randn_like(h_n))
+        wrt = [xin, *gru.parameters()]
+        return cuda_ms(lambda: torch.autograd.grad(
+            (out.data, h_n), wrt, cot, retain_graph=True))
+
+
+def gru_bounds(b, t, h, live, gates=False, seeded=False,
+               backward=False) -> tuple[float, str]:
+    """bound_ms of one K1 or K2 call: the recurrent product's FLOPs over the
+    live row-steps, and each input read and output written once."""
+    flops = 2.0 * live * h * 3 * h
+    if not backward:
+        words = (b * t * 3 * h + h * 3 * h + 3 * h + b * t * h + b * h + b
+                 + (live * 4 * h if gates else 0) + (b * h if seeded else 0))
+    else:  # gates and h_prev of live steps, douts, dfinal, W_h, h0 in;
+        # dxw, dhn, the bias sums and dh0 out
+        words = (live * 5 * h + b * t * h + b * h + 3 * h * h + b
+                 + (b * h if seeded else 0) + b * t * 4 * h + 4 * h + b * h)
+    return bound_ms(flops, 4.0 * words)
+
+
+def phase_gru_train(torch, rng, shapes, h: int = 1024) -> tuple[list, list]:
+    """2b: gru_fwd's save_gates (and with_h0) variants and 2c: gru_bwd,
+    each against its plain version at the training path's shapes, with
+    times. ``shapes``: (label, lengths int32 [B], T, D, seeded). The saved
+    gates are compared on live steps only (the kernel leaves the others
+    unwritten); gru_bwd against the plain BPTT loop for random cotangents
+    ``douts``/``dfinal`` (and ``h0``), by max abs error relative to the
+    largest reference entry."""
+    from cmhse_tpu_torch.models.gru import gru_input_projection
+    from cmhse_tpu_torch.ops import gru_kernel as gk
+
+    dev = torch.device("cuda")
+    fwd_rows, bwd_rows = [], []
+    for label, lengths_np, t, d, seeded in shapes:
+        b = lengths_np.shape[0]
+        x, w_i, w_h, b_i, b_h = gru_inputs(torch, rng, b, t, d, h)
+        gen = card_generator(torch, rng)
+        h0 = (torch.rand(b, h, device=dev, generator=gen) * 2 - 1
+              if seeded else None)
+        douts = torch.randn(b, t, h, device=dev, generator=gen)
+        dfinal = torch.randn(b, h, device=dev, generator=gen)
+        lengths = torch.from_numpy(lengths_np).to(dev)
+        live_mask = torch.arange(t, device=dev)[None, :] < lengths[:, None]
+        live = int(lengths_np.clip(0, t).sum())
+        with torch.no_grad():
+            xw = gru_input_projection(x, w_i, b_i).contiguous()
+            outs, final, gates = gk.gru_forward(xw, w_h, b_h, lengths, h0,
+                                                save_gates=True)
+            w_outs, w_final, w_gates = gk.gru_recurrence_plain(
+                xw, w_h, b_h, lengths, h0, save_gates=True)
+            torch.cuda.synchronize()
+            err = max((outs - w_outs).abs().max().item(),
+                      (final - w_final).abs().max().item(),
+                      (gates[live_mask] - w_gates[live_mask]).abs().max()
+                      .item() if live else 0.0)
+            if not err <= GRU_ATOL:
+                raise AssertionError(f"gru_fwd save_gates {label}: max abs "
+                                     f"err {err} > {GRU_ATOL}")
+            ms = cuda_ms(lambda: gk.gru_forward(xw, w_h, b_h, lengths, h0,
+                                                save_gates=True))
+            plain = cuda_ms(lambda: gk.gru_recurrence_plain(
+                xw, w_h, b_h, lengths, h0, save_gates=True), reps=3, warmup=1)
+            library = library_gru_ms(torch, x, lengths_np, w_i, w_h, b_i, b_h,
+                                     final, h0, mode="train")
+            bms, by = gru_bounds(b, t, h, live, gates=True, seeded=seeded)
+            fwd_rows.append(dict(shape=label, max_abs_err=err, ms=ms,
+                                 plain_ms=plain, bound_ms=bms, bound_by=by,
+                                 library_ms=library, seeded=seeded))
+            log(f"  2b gru_fwd save_gates{'+h0' if seeded else ''} {label}: "
+                f"err {err:.3g}  kernel {ms:.4f} ms  plain {plain:.4f} ms  "
+                f"cuDNN train fwd {library:.4f} ms  bound {bms:.4f} ms ({by})")
+
+            got = gk.gru_backward(gates, outs, lengths, w_h, douts, dfinal, h0)
+            want = gk.gru_backward_plain(gates, outs, lengths, w_h, douts,
+                                         dfinal, h0)
+            torch.cuda.synchronize()
+            rel, abs_err = {}, 0.0
+            for name, g, w in zip(("dxw", "dhn", "db", "dh0"), got, want):
+                if not bool(torch.isfinite(g).all()):
+                    raise AssertionError(f"gru_bwd {label}: non-finite {name}")
+                e = (g - w).abs().max().item()
+                abs_err = max(abs_err, e)
+                rel[name] = e / max(w.abs().max().item(), 1e-30)
+            if not max(rel.values()) <= GRU_BWD_RTOL:
+                raise AssertionError(f"gru_bwd {label}: relative errors {rel} "
+                                     f"> {GRU_BWD_RTOL}")
+            ms = cuda_ms(lambda: gk.gru_backward(gates, outs, lengths, w_h,
+                                                 douts, dfinal, h0))
+            plain = cuda_ms(lambda: gk.gru_backward_plain(
+                gates, outs, lengths, w_h, douts, dfinal, h0), reps=3,
+                warmup=1)
+        library = library_gru_ms(torch, x, lengths_np, w_i, w_h, b_i, b_h,
+                                 final, h0, mode="backward")
+        bms, by = gru_bounds(b, t, h, live, seeded=seeded, backward=True)
+        bwd_rows.append(dict(shape=label, max_abs_err=abs_err, ms=ms,
+                             plain_ms=plain, bound_ms=bms, bound_by=by,
+                             library_ms=library, seeded=seeded,
+                             rel_err=rel))
+        log(f"  2c gru_bwd{' +h0' if seeded else ''} {label}: rel err "
+            + " ".join(f"{k} {v:.3g}" for k, v in rel.items())
+            + f"  kernel {ms:.4f} ms  plain {plain:.4f} ms  cuDNN bwd "
+            f"{library:.4f} ms  bound {bms:.4f} ms ({by})")
+        del xw, outs, final, gates, w_outs, w_final, w_gates, got, want
+    return fwd_rows, bwd_rows
 
 
 def exact_rows(rng, n: int, d: int):
-    """l2-normalized rows rounded to multiples of 2**-10: every dot product
-    is then exact in f32 whatever the summation order, so kernel and plain
-    counts must be equal, ties included."""
-    import numpy as np
+    """l2-normalized rows on the card (from a seed drawn from ``rng``),
+    rounded to multiples of 2**-10: every dot product is then exact in f32
+    whatever the summation order, so kernel and plain counts must be equal,
+    ties included."""
+    import torch
 
-    x = rng.randn(n, d)
-    x /= np.linalg.norm(x, axis=1, keepdims=True)
-    return (np.round(x * 1024) / 1024).astype(np.float32)
+    x = torch.randn(n, d, device="cuda",
+                    generator=card_generator(torch, rng))
+    x /= torch.linalg.vector_norm(x, dim=1, keepdim=True)
+    return torch.round(x * 1024) / 1024
 
 
 def phase_rankcount(torch, rng, shapes) -> list:
@@ -174,8 +330,8 @@ def phase_rankcount(torch, rng, shapes) -> list:
     dev = torch.device("cuda")
     rows = []
     for q, n, d in shapes:
-        queries = torch.from_numpy(exact_rows(rng, q, d)).to(dev)
-        gallery = torch.from_numpy(exact_rows(rng, n, d)).to(dev)
+        queries = exact_rows(rng, q, d)
+        gallery = exact_rows(rng, n, d)
         pos_idx = torch.from_numpy(rng.randint(0, n, q).astype("int32")).to(dev)
         valid = torch.from_numpy(rng.rand(n) > 0.03).to(dev)  # holes
         with torch.inference_mode():
@@ -207,6 +363,247 @@ def phase_rankcount(torch, rng, shapes) -> list:
         rows.append(dict(shape=label, max_abs_err=0.0, ms=ms, plain_ms=plain,
                          bound_ms=bms, bound_by=by, library_ms=library))
     return rows
+
+
+def phase_simhinge(torch, rng, sizes, d: int = 1024) -> list:
+    """3c: the simhinge kernel against its plain version, both passes, on
+    exact-arithmetic rows, so maxima and argmaxes must be equal. Each size
+    carries a tie at a row's maximum in each pass (duplicate columns, the
+    lowest index must win), a row with no negative, and a column with
+    none; the ragged size fills no whole tile."""
+    import numpy as np
+
+    from cmhse_tpu_torch.ops import simhinge_kernel as sk
+
+    dev = torch.device("cuda")
+    rows = []
+    for n in sizes:
+        a = exact_rows(rng, n, d)
+        p = exact_rows(rng, n, d)
+        i1, i2 = 1, n - 2  # row 10's best negatives: two equal columns
+        p[i2] = p[i1]
+        a[10] = p[i1]
+        j1, j2 = 7, n - 3  # and row 20's in the second pass
+        a[j2] = a[j1]
+        p[20] = a[j1]
+        neg = rng.rand(n, n) > 0.3
+        np.fill_diagonal(neg, False)
+        neg[10, [i1, i2]] = True
+        neg[[j1, j2], 20] = True
+        neg[4] = False     # row 4 has no negative (and column 4 of pass 2)
+        neg[:, 6] = False  # nor has row 6 of the second pass
+        ta, tp, tneg = a, p, torch.from_numpy(neg).to(dev)
+        with torch.inference_mode():
+            diag = torch.sum(ta * tp, dim=1)
+            passes = ((ta, tp, False, 10, i1, 4), (tp, ta, True, 20, j1, 6))
+            for x, y, tr, tie_row, tie_col, empty_row in passes:
+                got = sk.simhinge_rowpass(x, y, tneg, diag, 0.2, tr)
+                want = sk.simhinge_rowpass_plain(x, y, tneg, diag, 0.2, tr)
+                torch.cuda.synchronize()
+                if not (torch.equal(got[0], want[0])
+                        and torch.equal(got[1], want[1])):
+                    bad = int((got[1] != want[1]).sum())
+                    raise AssertionError(f"simhinge n={n} transposed={tr}: "
+                                         f"{bad} argmaxes differ, max err "
+                                         f"{(got[0] - want[0]).abs().max()}")
+                if int(got[1][tie_row]) != tie_col:
+                    raise AssertionError(f"simhinge tie went to "
+                                         f"{int(got[1][tie_row])}")
+                if not (got[0][empty_row] == sk.NEG_INF
+                        and int(got[1][empty_row]) == 0):
+                    raise AssertionError("simhinge: a row with no negative")
+            ms = cuda_ms(lambda: sk.simhinge_rowpass(ta, tp, tneg, diag, 0.2))
+            plain = cuda_ms(lambda: sk.simhinge_rowpass_plain(
+                ta, tp, tneg, diag, 0.2))
+            library = cuda_ms(lambda: torch.matmul(ta, tp.T))
+        n_neg = int(neg.sum())  # the products this pass's data needs
+        bms, by = bound_ms(2.0 * n_neg * d,
+                           4.0 * (2 * n * d + n) + n * n + 8.0 * n)
+        label = f"{n}x{n} D={d}"
+        log(f"  simhinge {label}: maxima and argmaxes equal (ties to the "
+            f"lowest index)  kernel {ms:.4f} ms  plain {plain:.4f} ms  "
+            f"matmul {library:.4f} ms  bound {bms:.4f} ms ({by})")
+        rows.append(dict(shape=label, max_abs_err=0.0, ms=ms, plain_ms=plain,
+                         bound_ms=bms, bound_by=by, library_ms=library))
+    return rows
+
+
+def train_counts(gk, sk, rk) -> dict:
+    """The launch counts of every kernel wrapper (gru_fwd by variant)."""
+    return {"gru_fwd": gk.launches,
+            "gru_fwd save_gates": gk.save_gates_launches,
+            "gru_fwd with_h0": gk.with_h0_launches,
+            "gru_bwd": gk.bwd_launches, "simhinge": sk.launches,
+            "rankcount": rk.launches}
+
+
+def phase_train(torch, np, seed: int) -> dict:
+    """5: the training path at full cmhse_full width: TRAIN_STEPS
+    ``train_step``s on one fixed 64-video batch (handed over from the host
+    each step, as a loader would), then ``validate_metrics(streaming=True)``
+    on that batch with the trained weights. Launch counts are read after
+    the steps and after the validation."""
+    from cmhse_tpu_torch.config import get_preset
+    from cmhse_tpu_torch.data import (SyntheticHierarchicalDataset,
+                                      batches_from_dataset)
+    from cmhse_tpu_torch.eval import format_table, validate_metrics
+    from cmhse_tpu_torch.models import CMHSE
+    from cmhse_tpu_torch.ops import gru_kernel as gk
+    from cmhse_tpu_torch.ops import rankcount_kernel as rk
+    from cmhse_tpu_torch.ops import simhinge_kernel as sk
+    from cmhse_tpu_torch.train import (create_train_state, set_learning_rate,
+                                       train_step)
+
+    cfg = get_preset("cmhse_full")
+    dc, mc = cfg.data, cfg.model
+    log(f"  lr {TRAIN_LR} clip {cfg.train.grad_clip} loss {cfg.loss}")
+    ds = SyntheticHierarchicalDataset(
+        num_videos=dc.batch_size, feat_dim=dc.feat_dim,
+        vocab_size=dc.vocab_size, max_clips=dc.max_clips,
+        max_frames=dc.max_frames, max_words=dc.max_words, seed=seed + 1)
+    batch = next(batches_from_dataset(ds, dc, shuffle=False))
+    model = CMHSE(mc, dc.vocab_size,
+                  generator=torch.Generator().manual_seed(seed))
+    state = set_learning_rate(create_train_state(cfg, model), TRAIN_LR)
+    torch.cuda.reset_peak_memory_stats()
+    for mod in (gk, sk, rk):
+        mod.launches = 0
+    gk.save_gates_launches = gk.with_h0_launches = gk.bwd_launches = 0
+    losses, norms, step_ms = [], [], []
+    for i in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, metrics = train_step(state, batch, cfg.loss)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        m = {k: float(v) for k, v in metrics.items()}
+        losses.append(m["loss"])
+        norms.append(m["grad_norm"])
+        log(f"  step {i + 1}: {step_ms[-1]:.2f} ms  "
+            + "  ".join(f"{k} {v:.6f}" for k, v in m.items()))
+    step_counts = train_counts(gk, sk, rk)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    t0 = time.perf_counter()
+    val = validate_metrics(model, [batch], streaming=True)
+    torch.cuda.synchronize()
+    t_val = time.perf_counter() - t0
+    counts = train_counts(gk, sk, rk)
+    log(f"  median step {float(np.median(step_ms)):.3f} ms over "
+        f"{TRAIN_STEPS} steps (first {step_ms[0]:.3f} ms); peak device "
+        f"memory {peak_gib:.2f} GiB; validate_metrics(streaming) on the "
+        f"trained weights: {t_val * 1e3:.1f} ms")
+    log(format_table(val))
+    log(f"  launches in {TRAIN_STEPS} steps: {step_counts}; with the "
+        f"validation: {counts}")
+
+    if not all(np.isfinite(losses)) or not all(np.isfinite(norms)):
+        raise AssertionError(f"non-finite loss or grad norm: {losses} {norms}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"loss did not fall: {losses}")
+    if not all(np.isfinite(x) for x in val.values()):
+        raise AssertionError(f"non-finite metrics {val}")
+    want = {"gru_fwd": 6, "gru_fwd save_gates": 6, "gru_fwd with_h0": 2,
+            "gru_bwd": 6, "simhinge": 4, "rankcount": 0}
+    got = {k: step_counts[k] / TRAIN_STEPS for k in want}
+    if got != want:
+        raise AssertionError(f"launches per step {got}, expected {want}")
+    return dict(counts=counts, state=state, batch=batch, loss_cfg=cfg.loss)
+
+
+def phase_train_breakdown(torch, state, batch, loss_cfg) -> None:
+    """5b: where one train step's device time goes (torch.profiler), by
+    kernel family, and the device's busy share of the step's wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from cmhse_tpu_torch.train import train_step
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        train_step(state, batch, loss_cfg)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    families = {"gru_fwd": 0.0, "gru_bwd": 0.0, "simhinge": 0.0,
+                "matrix products": 0.0, "copies": 0.0, "other kernels": 0.0}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA or \
+                e.key.startswith("Activity Buffer"):
+            continue
+        us = e.self_device_time_total
+        key = e.key.lower()
+        if "gru_fwd" in key:
+            families["gru_fwd"] += us
+        elif "gru_bwd" in key:
+            families["gru_bwd"] += us
+        elif "simhinge" in key:
+            families["simhinge"] += us
+        elif any(w in key for w in ("gemm", "gemv", "xmma", "cutlass")):
+            families["matrix products"] += us
+        elif key.startswith(("memcpy", "memset")) or "copy" in key:
+            families["copies"] += us
+        else:
+            families["other kernels"] += us
+    busy_ms = sum(families.values()) / 1e3
+    if busy_ms <= 0:
+        raise AssertionError("the profiler recorded no device time")
+    log(f"  one step: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms "
+        f"({100 * busy_ms / wall_ms:.1f}%)")
+    for name, us in families.items():
+        log(f"    {name}: {us / 1e3:.3f} ms ({100 * us / 1e3 / busy_ms:.1f}%)")
+
+
+def phase_train_parity(torch, np, seed: int) -> None:
+    """5c: one step's loss, grad_norm and every parameter gradient on a
+    batch of 8 videos at full width, card against the CPU plain path from
+    the same weights. Gradients, not post-step weights: Adam's first step
+    is about lr * sign(g), so a weight whose gradient is near 0 may move
+    either way."""
+    import dataclasses
+
+    from cmhse_tpu_torch.config import get_preset
+    from cmhse_tpu_torch.data import (SyntheticHierarchicalDataset,
+                                      batches_from_dataset)
+    from cmhse_tpu_torch.models import CMHSE
+    from cmhse_tpu_torch.train import global_norm, total_loss
+
+    cfg = get_preset("cmhse_full")
+    dc = dataclasses.replace(cfg.data, batch_size=8)
+    ds = SyntheticHierarchicalDataset(
+        num_videos=8, feat_dim=dc.feat_dim, vocab_size=dc.vocab_size,
+        max_clips=dc.max_clips, max_frames=dc.max_frames,
+        max_words=dc.max_words, seed=seed + 2)
+    host = next(batches_from_dataset(ds, dc, shuffle=False))
+    res = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        model = CMHSE(cfg.model, dc.vocab_size, device=dev,
+                      generator=torch.Generator().manual_seed(seed))
+        b = host.to(dev)
+        loss, metrics = total_loss(model(b), b, cfg.loss)
+        loss.backward()
+        grads = {k: (p.grad if p.grad is not None
+                     else torch.zeros_like(p)).cpu()
+                 for k, p in model.named_parameters()}
+        res[dev] = dict(loss=loss.item(), grads=grads,
+                        norm=global_norm(list(grads.values())).item(),
+                        metrics={k: v.item() for k, v in metrics.items()},
+                        s=time.perf_counter() - t0)
+    card, cpu = res["cuda"], res["cpu"]
+    loss_rel = abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"])
+    norm_rel = abs(card["norm"] - cpu["norm"]) / abs(cpu["norm"])
+    grad_rel = {k: float((g - cpu["grads"][k]).abs().max()
+                         / cpu["grads"][k].abs().max().clamp_min(1e-30))
+                for k, g in card["grads"].items()}
+    worst = max(grad_rel, key=grad_rel.get)
+    log(f"  batch 8: card {card['metrics']} grad_norm {card['norm']:.6f}; "
+        f"CPU {cpu['metrics']} grad_norm {cpu['norm']:.6f} "
+        f"({cpu['s']:.1f} s on the CPU)")
+    log(f"  loss rel err {loss_rel:.3g} (limit {TRAIN_LOSS_RTOL}), grad_norm "
+        f"{norm_rel:.3g} (limit {TRAIN_NORM_RTOL}), worst of "
+        f"{len(grad_rel)} gradients {worst} {grad_rel[worst]:.3g} (limit "
+        f"{TRAIN_GRAD_RTOL})")
+    if not (loss_rel <= TRAIN_LOSS_RTOL and norm_rel <= TRAIN_NORM_RTOL
+            and grad_rel[worst] <= TRAIN_GRAD_RTOL):
+        raise AssertionError("card and CPU train steps differ")
 
 
 def phase_main_path(torch, np, seed: int, n_videos: int) -> dict:
@@ -401,13 +798,13 @@ def phase_topk(torch, rng) -> None:
                                           streaming_sim_topk)
 
     dev = torch.device("cuda")
-    g = torch.from_numpy(exact_rows(rng, 100_000, 1024)).to(dev)
+    g = exact_rows(rng, 100_000, 1024)
     g[77_777] = g[3]  # an exact duplicate in another chunk: a true tie
     valid = torch.from_numpy(rng.rand(100_000) > 0.01).to(dev)
     valid[[3, 77_777]] = True
     prepared = prepare_topk_gallery(g, valid)
     for q_rows in (8, 1024):
-        q = torch.from_numpy(exact_rows(rng, q_rows, 1024)).to(dev)
+        q = exact_rows(rng, q_rows, 1024)
         q[0] = g[3]
         with torch.inference_mode():
             _, s_i = streaming_sim_topk(q, prepared, 10)
@@ -428,7 +825,7 @@ def phase_topk(torch, rng) -> None:
         torch.cuda.synchronize()
         return (torch.cuda.max_memory_allocated() - base) / 2**20, cuda_ms(fn)
 
-    gen = torch.Generator(device=dev).manual_seed(int(rng.randint(2**31)))
+    gen = card_generator(torch, rng)
     log(f"  dense vs streaming top-10, D=1024 (dense block budget "
         f"{DENSE_TOPK_MAX_BYTES / 2**20:.0f} MiB):")
     for n, q_list in ((100_000, (8, 1024)), (1_000_000, (8, 256, 1024))):
@@ -455,8 +852,12 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--videos", type=int, default=2048,
-                    help="synthetic gallery size of the main path")
+                    help="synthetic gallery size of the serving path")
     args = ap.parse_args()
+    t_start = time.perf_counter()
+
+    def phase(title: str) -> None:
+        log(f"{title}  [{time.perf_counter() - t_start:.1f} s]")
 
     import numpy as np
     import torch
@@ -472,7 +873,7 @@ def main() -> int:
         raise RuntimeError("cmhse_tpu_torch was not imported from this "
                            f"checkout ({cmhse_tpu_torch.__file__})")
 
-    log("phase 0: build kernels")
+    phase("phase 0: build kernels")
     t0 = time.perf_counter()
     cuda_lib.library()
     log(f"  built in {time.perf_counter() - t0:.1f} s")
@@ -480,7 +881,7 @@ def main() -> int:
         if "registers" in line or "spill" in line or line.startswith("=="):
             log("  " + line.strip())
 
-    log("phase 1: device")
+    phase("phase 1: device")
     kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
     smi = subprocess.run(
@@ -507,7 +908,7 @@ def main() -> int:
     b0 = next(batches_from_dataset(ds, dc, shuffle=False))
     ragged = rng.randint(0, 20, 100).astype(np.int32)
     ragged[::7] = 0
-    log("phase 2: gru_fwd vs plain (lengths of the main path's first batch)")
+    phase("phase 2: gru_fwd vs plain (lengths of the main path's first batch)")
     gru_rows = phase_gru(torch, rng, [
         ("video_low 512x64 D=500", b0.frame_len.reshape(-1), dc.max_frames,
          500),
@@ -515,42 +916,89 @@ def main() -> int:
         ("video_high 64x8 D=1024", b0.clip_len, dc.max_clips, 1024),
         ("ragged 100x20 D=1024, zero rows", ragged, 20, 1024),
     ])
-    log("phase 3: rankcount vs plain (exact-arithmetic rows)")
+    train_shapes = [
+        ("video_low 512x64 D=500", b0.frame_len.reshape(-1), dc.max_frames,
+         500, False),
+        ("text_low 512x32 D=300", b0.word_len.reshape(-1), dc.max_words, 300,
+         False),
+        ("video_high 64x8 D=1024", b0.clip_len, dc.max_clips, 1024, False),
+        ("text_high 64x8 D=1024", b0.sent_len, dc.max_sentences, 1024,
+         False),
+        ("video_decoder 64x8 D=1024 h0", b0.clip_len, dc.max_clips, 1024,
+         True),
+        ("text_decoder 64x8 D=1024 h0", b0.sent_len, dc.max_sentences, 1024,
+         True),
+        ("ragged 100x20 D=1024, zero rows", ragged, 20, 1024, False),
+        ("ragged 100x20 D=1024, zero rows, h0", ragged, 20, 1024, True),
+    ]
+    phase("phase 2b/2c: gru_fwd save_gates/with_h0 and gru_bwd vs plain "
+        "(the training path's shapes)")
+    fwd_rows, bwd_rows = phase_gru_train(torch, rng, train_shapes)
+    phase("phase 3: rankcount vs plain (exact-arithmetic rows)")
     rc_rows = phase_rankcount(torch, rng, [(1024, 100_000, 1024),
                                            (args.videos, args.videos, 1024)])
-    log("phase 3b: streaming top-k vs dense")
+    phase("phase 3b: streaming top-k vs dense")
     phase_topk(torch, rng)
-    log("phase 4: main path at full cmhse_full width")
+    phase("phase 3c: simhinge vs plain (exact-arithmetic rows)")
+    sh_rows = phase_simhinge(torch, rng, (512, 64, 300))
+    phase("phase 4: serving path at full cmhse_full width")
     main_out = phase_main_path(torch, np, args.seed, args.videos)
     counts = main_out["counts"]
     for name, n in counts.items():
         if n <= 0:
             raise AssertionError(f"kernel {name} was not launched on the "
-                                 "main path")
-    log("phase 4b: where the encode's device time goes (torch.profiler)")
+                                 "serving path")
+    phase("phase 4b: where the encode's device time goes (torch.profiler)")
     phase_breakdown(torch, main_out["model"], main_out["batches"])
+    del main_out
+    phase(f"phase 5: training path at full cmhse_full width ({TRAIN_STEPS} "
+        "train_steps, then validate_metrics)")
+    train_out = phase_train(torch, np, args.seed)
+    tcounts = train_out["counts"]
+    for name, n in tcounts.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the "
+                                 "training path")
+    phase("phase 5b: where one train step's device time goes (torch.profiler)")
+    phase_train_breakdown(torch, train_out["state"], train_out["batch"],
+                          train_out["loss_cfg"])
+    del train_out
+    phase("phase 5c: one train step at batch 8, card vs CPU")
+    phase_train_parity(torch, np, args.seed)
 
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith(("jax.", "cmhse_tpu.")))
     if leaked:
         raise AssertionError(f"the port loaded JAX modules: {leaked[:5]}")
 
-    entries = []
-    for name, src, replaces, rows in (
-        ("gru_fwd", "cmhse_tpu_torch/csrc/gru_fwd.cu",
-         "cmhse_tpu/ops/pallas_gru.py:51", gru_rows),
-        ("rankcount", "cmhse_tpu_torch/csrc/rankcount.cu",
-         "cmhse_tpu/ops/pallas_sim.py:286", rc_rows),
-    ):
+    def entry(name, replaces, rows, path, launches, **extra):
         head = rows[0]
-        entries.append(dict(
-            name=name, route="cuda", source=src, replaces=replaces,
-            launches=counts[name], max_abs_err=max(r["max_abs_err"]
-                                                   for r in rows),
-            ms=head["ms"], plain_ms=head["plain_ms"],
-            bound_ms=head["bound_ms"], bound_by=head["bound_by"],
-            library_ms=head["library_ms"], shape=head["shape"],
-            other_shapes=rows[1:]))
+        return dict(
+            name=name, route="cuda",
+            source=f"cmhse_tpu_torch/csrc/{name}.cu", replaces=replaces,
+            path=path, launches=launches,
+            max_abs_err=max(r["max_abs_err"] for r in rows), ms=head["ms"],
+            plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
+            bound_by=head["bound_by"], library_ms=head["library_ms"],
+            shape=head["shape"], other_shapes=rows[1:], **extra)
+
+    entries = [
+        entry("gru_fwd", "cmhse_tpu/ops/pallas_gru.py:51", gru_rows + fwd_rows,
+              "serve+train", counts["gru_fwd"] + tcounts["gru_fwd"],
+              launches_by_path={"serve": counts["gru_fwd"],
+                                "train": tcounts["gru_fwd"]},
+              launches_save_gates=tcounts["gru_fwd save_gates"],
+              launches_with_h0=tcounts["gru_fwd with_h0"]),
+        entry("gru_bwd", "cmhse_tpu/ops/pallas_gru_grad.py:70", bwd_rows,
+              "train", tcounts["gru_bwd"]),
+        entry("simhinge", "cmhse_tpu/ops/pallas_sim.py:58", sh_rows, "train",
+              tcounts["simhinge"]),
+        entry("rankcount", "cmhse_tpu/ops/pallas_sim.py:286", rc_rows,
+              "serve+train", counts["rankcount"] + tcounts["rankcount"],
+              launches_by_path={"serve": counts["rankcount"],
+                                "train": tcounts["rankcount"]}),
+    ]
+    phase("done")
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}), flush=True)

@@ -1,14 +1,22 @@
 // Masked GRU forward time loop for Hopper (sm_90a), f32.
 //
-// Replaces cmhse_tpu/ops/pallas_gru.py:_gru_kernel (the variant without
-// save_gates and without with_h0). The input projection x @ W_i + b_i is one
-// large matrix product outside this kernel; the kernel runs the sequential
-// part:
+// Replaces cmhse_tpu/ops/pallas_gru.py:_gru_kernel, all three of its f32
+// variants as template flags of one kernel: the encode path's (no flag), the
+// training path's save_gates (also streams the gates [r, z, n, hn] that the
+// backward kernel, gru_bwd.cu, reads) and with_h0 (the carry starts at the
+// caller's h0, the reconstruction decoder's). The input projection
+// x @ W_i + b_i is one large matrix product outside this kernel; the kernel
+// runs the sequential part:
 //
 //   hw = h @ W_h + b_h                         (gate order r, z, n)
 //   r = sigmoid(xw_r + hw_r)   z = sigmoid(xw_z + hw_z)
 //   n = tanh(xw_n + r * hw_n)  h' = (1 - z) * n + z * h
 //   h = t < len ? h' : h       outs[b, t] = h      final[b] = h
+//   gates[b, t] = [r, z, n, hw_n]                  (save_gates, t < len only)
+//
+// The gates of a step at or past a row's length are NOT written (the buffer
+// holds whatever it held): the backward selects on t < len and never reads
+// them, so no zeros are streamed for padding.
 //
 // Design. One block owns kRows batch rows and ALL H hidden units, and runs
 // the whole time loop itself: batch rows are independent in a GRU, so blocks
@@ -65,13 +73,16 @@ __device__ __forceinline__ float get(float4 v, int u) {
   return u == 0 ? v.x : u == 1 ? v.y : u == 2 ? v.z : v.w;
 }
 
+template <bool kSaveGates, bool kWithH0>
 __global__ void __launch_bounds__(kThreads, 1)
 gru_fwd_kernel(const float* __restrict__ xw,        // [B, T, 3H]
                const float* __restrict__ w_h,       // [H, 3H]
                const float* __restrict__ b_h,       // [3H]
                const int32_t* __restrict__ lengths, // [B]
+               const float* __restrict__ h_init,    // [B, H] (kWithH0)
                float* __restrict__ outs,            // [B, T, H]
                float* __restrict__ final_h,         // [B, H]
+               float* __restrict__ gates,           // [B, T, 4H] (kSaveGates)
                int B, int T, int H) {
   extern __shared__ float4 smem4[];
   float* cur = reinterpret_cast<float*>(smem4);  // [H][kRows]
@@ -88,7 +99,14 @@ gru_fwd_kernel(const float* __restrict__ xw,        // [B, T, 3H]
     len[r] = b < B ? lengths[b] : 0;
     max_len = max(max_len, min(len[r], T));
   }
-  for (int i = threadIdx.x; i < H * kRows; i += blockDim.x) cur[i] = 0.0f;
+  for (int i = threadIdx.x; i < H * kRows; i += blockDim.x) {
+    if constexpr (kWithH0) {
+      const int b = row0 + i % kRows;  // cur is k-major: [H][kRows]
+      cur[i] = b < B ? h_init[(size_t)b * H + i / kRows] : 0.0f;
+    } else {
+      cur[i] = 0.0f;
+    }
+  }
   __syncthreads();
 
   for (int t = 0; t < T; ++t) {
@@ -158,20 +176,33 @@ gru_fwd_kernel(const float* __restrict__ xw,        // [B, T, 3H]
           xz = ldg4(x + H + j);
           xn = ldg4(x + 2 * H + j);
         }
-        float hn[kUnits];
+        float hn[kUnits], gr[kUnits], gz[kUnits], gn[kUnits], ghn[kUnits];
 #pragma unroll
         for (int u = 0; u < kUnits; ++u) {
           const float h_prev = cur[(j + u) * kRows + r];
           float h_new = h_prev;
           if (live) {
-            const float rg = sigmoid_f(get(xr, u) + (get(ar[r], u) + get(br, u)));
-            const float zg = sigmoid_f(get(xz, u) + (get(az[r], u) + get(bz, u)));
-            const float ng =
-                tanhf(get(xn, u) + rg * (get(an[r], u) + get(bn, u)));
-            h_new = (1.0f - zg) * ng + zg * h_prev;
+            ghn[u] = get(an[r], u) + get(bn, u);
+            gr[u] = sigmoid_f(get(xr, u) + (get(ar[r], u) + get(br, u)));
+            gz[u] = sigmoid_f(get(xz, u) + (get(az[r], u) + get(bz, u)));
+            gn[u] = tanhf(get(xn, u) + gr[u] * ghn[u]);
+            h_new = (1.0f - gz[u]) * gn[u] + gz[u] * h_prev;
           }
           nxt[(j + u) * kRows + r] = h_new;
           hn[u] = h_new;
+        }
+        if constexpr (kSaveGates) {
+          if (live) {
+            float* g = gates + ((size_t)b * T + t) * 4 * H + j;
+            *reinterpret_cast<float4*>(g) =
+                make_float4(gr[0], gr[1], gr[2], gr[3]);
+            *reinterpret_cast<float4*>(g + H) =
+                make_float4(gz[0], gz[1], gz[2], gz[3]);
+            *reinterpret_cast<float4*>(g + 2 * H) =
+                make_float4(gn[0], gn[1], gn[2], gn[3]);
+            *reinterpret_cast<float4*>(g + 3 * H) =
+                make_float4(ghn[0], ghn[1], ghn[2], ghn[3]);
+          }
         }
         if (b < B)
           *reinterpret_cast<float4*>(&outs[((size_t)b * T + t) * H + j]) =
@@ -196,24 +227,45 @@ gru_fwd_kernel(const float* __restrict__ xw,        // [B, T, 3H]
   }
 }
 
+template <bool kSaveGates, bool kWithH0>
+int launch_gru_fwd(const float* xw, const float* w_h, const float* b_h,
+                   const int32_t* lengths, const float* h0, float* outs,
+                   float* final_h, float* gates, int B, int T, int H,
+                   cudaStream_t stream) {
+  const size_t smem = 2 * (size_t)H * kRows * sizeof(float);
+  auto kernel = gru_fwd_kernel<kSaveGates, kWithH0>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((B + kRows - 1) / kRows);
+  kernel<<<grid, kThreads, smem, stream>>>(xw, w_h, b_h, lengths, h0, outs,
+                                           final_h, gates, B, T, H);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // H must be a multiple of 4 and every pointer 16-byte aligned (the wrapper
-// checks both).
+// checks both). h0 (the seeded variant) and gates (the gate-saving variant)
+// may each be null; the instantiation is chosen by which are given.
 extern "C" int cmhse_gru_fwd(const float* xw, const float* w_h,
                              const float* b_h, const int32_t* lengths,
-                             float* outs, float* final_h, int B, int T, int H,
-                             void* stream) {
+                             const float* h0, float* outs, float* final_h,
+                             float* gates, int B, int T, int H, void* stream) {
   if (B <= 0 || T <= 0 || H <= 0 || H % kUnits != 0)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = 2 * (size_t)H * kRows * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      gru_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((B + kRows - 1) / kRows);
-  gru_fwd_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      xw, w_h, b_h, lengths, outs, final_h, B, T, H);
-  return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  if (gates != nullptr && h0 != nullptr)
+    return launch_gru_fwd<true, true>(xw, w_h, b_h, lengths, h0, outs,
+                                      final_h, gates, B, T, H, s);
+  if (gates != nullptr)
+    return launch_gru_fwd<true, false>(xw, w_h, b_h, lengths, h0, outs,
+                                       final_h, gates, B, T, H, s);
+  if (h0 != nullptr)
+    return launch_gru_fwd<false, true>(xw, w_h, b_h, lengths, h0, outs,
+                                       final_h, gates, B, T, H, s);
+  return launch_gru_fwd<false, false>(xw, w_h, b_h, lengths, h0, outs,
+                                      final_h, gates, B, T, H, s);
 }
 
 // Message for an error code returned by any launcher of this library.

@@ -2,9 +2,11 @@
 
 The port names its submodules and parameters after the JAX params tree
 (``word_embedding.embedding``, ``video_low.gru.fwd_w_i``,
-``video_low.attn_pool.proj``, ...), so the only change on the way is one
-transpose per Dense kernel: flax stores ``kernel [in, out]``, ``nn.Linear``
-stores ``weight [out, in]``. GRU weights keep the JAX layout as they are.
+``video_low.attn_pool.proj``, ``video_decoder.init``, ...), so the only
+change on the way is one transpose per Dense kernel: flax stores
+``kernel [in, out]``, ``nn.Linear`` stores ``weight [out, in]``. GRU
+weights, the decoders' ``w_i``/``w_h``/``b_i``/``b_h`` included, keep the
+JAX layout as they are.
 """
 
 from __future__ import annotations
@@ -14,24 +16,18 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
-# training-only submodules the encode path does not build yet
-SKIPPED = ("video_decoder", "text_decoder")
-
 
 def params_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
-    """JAX ``CMHSE`` params tree -> the port's ``state_dict``.
+    """JAX ``CMHSE`` params tree -> the port's ``state_dict``, every module
+    included (the reconstruction decoders too).
 
     ``params``: the tree flax ``init`` returns (``variables["params"]``),
-    leaves converted with ``np.asarray``. The reconstruction decoders
-    (``video_decoder`` / ``text_decoder``) are skipped: the port's encode
-    path has no decoder yet, so their weights are not carried.
+    leaves converted with ``np.asarray``.
     """
     out: dict[str, torch.Tensor] = {}
 
     def walk(node: Mapping, prefix: str) -> None:
         for name, value in node.items():
-            if not prefix and name in SKIPPED:
-                continue
             key = f"{prefix}{name}"
             if isinstance(value, Mapping):
                 walk(value, key + ".")

@@ -1,36 +1,106 @@
-"""The CMHSE model's encode path, counterpart of ``cmhse_tpu/models/cmhse.py``.
+"""The CMHSE model, counterpart of ``cmhse_tpu/models/cmhse.py``.
 
   * flat (``hierarchical=False``): one GRU per modality over the whole
     sequence — the VSE-style baseline;
   * hierarchical: frames->clip and clips->video GRUs on the video side,
     words->sentence and sentences->paragraph on the text side;
-  * full CMHSE: + attention pooling readouts.
+  * full CMHSE: + attention pooling readouts and the layer-wise
+    reconstruction decoders (training only).
 
-Only the encode entry points (``encode_video`` / ``encode_text``) are
-ported: the serving and evaluation path. The reconstruction decoders run
-only in training and wait for the training slice; a ``reconstruction=True``
-config builds no decoder here.
+``encode_video`` / ``encode_text`` are the serving and evaluation entry
+points; ``forward(batch)`` is the training forward and returns
+:class:`ModelOutputs`, everything the objective needs.
 """
 
 from __future__ import annotations
+
+import math
+from dataclasses import dataclass
 
 import torch
 from torch import nn
 
 from cmhse_tpu_torch.config import ModelConfig
+from cmhse_tpu_torch.data.batch import Batch
 from cmhse_tpu_torch.device import resolve_device
-from cmhse_tpu_torch.models.encoders import SequenceEncoder, WordEmbedding
+from cmhse_tpu_torch.models.encoders import (SequenceEncoder, WordEmbedding,
+                                             _dense)
+from cmhse_tpu_torch.models.gru import gru_input_projection
+from cmhse_tpu_torch.ops.gru_kernel import gru_recurrence
+
+
+@dataclass
+class ModelOutputs:
+    """Everything the objective needs from one training forward."""
+
+    video_emb: torch.Tensor  # [B, E] L2-normalized
+    para_emb: torch.Tensor  # [B, E]
+    clip_emb: torch.Tensor  # [B, Cmax, E] L2-normalized low-level video
+    sent_emb: torch.Tensor  # [B, Smax, E]
+    clip_valid: torch.Tensor  # bool [B, Cmax]
+    sent_valid: torch.Tensor  # bool [B, Smax]
+    # decoder predictions; None when the model has no reconstruction
+    # decoders (the objective then skips the term)
+    video_recon: torch.Tensor | None  # [B, Cmax, E]
+    text_recon: torch.Tensor | None  # [B, Smax, E]
+
+
+class ReconstructionDecoder(nn.Module):
+    """GRU decoder reconstructing the low-level embedding sequence from the
+    high-level embedding (the paper's layer-wise reconstruction).
+
+    Teacher-forced: the input at step t is the true low-level embedding at
+    t-1 (zeros at t = 0); the initial state is ``tanh(init(high))``; outputs
+    go through the ``out`` Dense into the joint space. ``w_i``/``w_h``/
+    ``b_i``/``b_h`` init uniform(-1/sqrt(H), 1/sqrt(H)), biases included,
+    as the JAX package's decoder and PyTorch's GRU do.
+
+    Routing: the recurrence is :func:`gru_recurrence` with the seeded h0 at
+    every T — the seeded ``gru_fwd`` / ``gru_bwd`` variants on a CUDA tensor
+    (or a refusal), their plain versions on the CPU. The JAX package sends
+    decoders shorter than ``DECODER_PALLAS_MIN_T = 16`` steps to its scan
+    instead, a threshold it measured on a TPU; the port does not carry it
+    over. Both routes compute the same function, so parity with JAX is
+    unaffected.
+    """
+
+    def __init__(self, embed_size: int, rnn_hidden: int,
+                 generator: torch.Generator | None = None) -> None:
+        super().__init__()
+        e, h = embed_size, rnn_hidden
+        self.init = _dense(e, h, True, generator)
+        scale = 1.0 / math.sqrt(h)
+        for name, shape in (("w_i", (e, 3 * h)), ("w_h", (h, 3 * h)),
+                            ("b_i", (3 * h,)), ("b_h", (3 * h,))):
+            p = torch.empty(shape)
+            nn.init.uniform_(p, -scale, scale, generator=generator)
+            self.register_parameter(name, nn.Parameter(p))
+        self.out = _dense(h, e, True, generator)
+
+    def forward(self, high_emb: torch.Tensor, low_seq: torch.Tensor,
+                lengths: torch.Tensor) -> torch.Tensor:
+        """high_emb ``[B, E]``, low_seq ``[B, T, E]``, lengths ``[B]`` ->
+        predictions ``[B, T, E]``."""
+        b, _, e = low_seq.shape
+        h0 = torch.tanh(self.init(high_emb))
+        shifted = torch.cat([low_seq.new_zeros(b, 1, e), low_seq[:, :-1]],
+                            dim=1)
+        xw = gru_input_projection(shifted, self.w_i, self.b_i)
+        outs, _ = gru_recurrence(xw.contiguous(), self.w_h, self.b_h,
+                                 lengths.to(torch.int32), h0)
+        return self.out(outs)
 
 
 class CMHSE(nn.Module):
-    """Cross-Modal Hierarchical Sequence Embedding model (encode path).
+    """Cross-Modal Hierarchical Sequence Embedding model.
 
     ``device``: None means the CUDA card (raises when there is none); pass
     ``"cpu"`` for the plain PyTorch path. ``generator``: the CPU generator
     the fresh init draws from (default: seeded with 0). Parameters are made
     on the CPU and then moved, so a seed gives the same weights on every
-    device. Submodule and parameter names follow the JAX params tree (see
-    :mod:`cmhse_tpu_torch.interop`).
+    device; the decoders are drawn after the encoders, so a seed gives the
+    same encoder weights with or without them. Submodule and parameter names
+    follow the JAX params tree (see :mod:`cmhse_tpu_torch.interop`).
     """
 
     def __init__(self, cfg: ModelConfig, vocab_size: int,
@@ -60,6 +130,9 @@ class CMHSE(nn.Module):
                                               generator=generator)
             self.text_high = SequenceEncoder(e, e, h, high_readout,
                                              generator=generator)
+        if cfg.reconstruction:  # the config refuses it without hierarchy
+            self.video_decoder = ReconstructionDecoder(e, h, generator)
+            self.text_decoder = ReconstructionDecoder(e, h, generator)
         self.to(device)
         self.eval()
 
@@ -104,6 +177,24 @@ class CMHSE(nn.Module):
             return sent_emb[:, 0], sent_emb
         para_emb, _ = self.text_high(sent_emb, sent_len)
         return para_emb, sent_emb
+
+    def forward(self, batch: Batch) -> ModelOutputs:
+        """The training forward over a :class:`Batch` of tensors on the
+        model's device (``batch.to(model.device)``)."""
+        video_emb, clip_emb = self.encode_video(batch.frames, batch.frame_len,
+                                                batch.clip_len)
+        para_emb, sent_emb = self.encode_text(batch.words, batch.word_len,
+                                              batch.sent_len)
+        video_recon = text_recon = None
+        if self.cfg.reconstruction:
+            video_recon = self.video_decoder(video_emb, clip_emb,
+                                             batch.clip_len)
+            text_recon = self.text_decoder(para_emb, sent_emb, batch.sent_len)
+        return ModelOutputs(
+            video_emb=video_emb, para_emb=para_emb, clip_emb=clip_emb,
+            sent_emb=sent_emb, clip_valid=batch.clip_valid(),
+            sent_valid=batch.sent_valid(), video_recon=video_recon,
+            text_recon=text_recon)
 
     def load_jax_params(self, params: dict) -> None:
         """Load a JAX ``CMHSE`` params tree (nested numpy arrays); see

@@ -17,7 +17,9 @@ Numerics contract (the same as the JAX package's):
 
 The input projection for all steps is one matrix product; the recurrence
 is :func:`cmhse_tpu_torch.ops.gru_kernel.gru_recurrence` — the ``gru_fwd``
-CUDA kernel on the card, its plain loop on the CPU.
+CUDA kernel on the card, its plain loop on the CPU; when autograd needs a
+gradient, its gate-saving variant and the ``gru_bwd`` backward (or their
+plain versions) through ``TrainableGRU``.
 """
 
 from __future__ import annotations

@@ -23,7 +23,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
-SOURCES = ("gru_fwd.cu", "rankcount.cu")
+SOURCES = ("gru_fwd.cu", "gru_bwd.cu", "simhinge.cu", "rankcount.cu")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "libcmhse_kernels.so"
@@ -31,8 +31,19 @@ LIB_NAME = "libcmhse_kernels.so"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # xw, w_h, b_h, lengths, outs, final, B, T, H, stream
-    "cmhse_gru_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # xw, w_h, b_h, lengths, h0, outs, final, gates, B, T, H, stream
+    "cmhse_gru_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # gates, outs, h0, douts, dfinal, lengths, w_hT, dxw, dhn, db_part, dh0,
+    # B, T, H, stream
+    "cmhse_gru_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                      _P),
+    "cmhse_gru_bwd_rows_per_block": (),
+    "cmhse_gru_bwd_max_hidden": (),
+    # a, b, mask, diag, row_max, row_arg, M, N, D, ld, transposed, margin,
+    # stream
+    "cmhse_simhinge": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                       ctypes.c_float, _P),
+    "cmhse_simhinge_max_depth": (),
     # q, g, pos, posidx, gvalid, counts, Q, N, D, splits, stream
     "cmhse_rankcount": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "cmhse_rankcount_tile_rows": (),

@@ -91,9 +91,16 @@ def test_encode_matches_live_jax(name):
 def test_params_from_jax_keys_and_layout():
     _, params, pm, _ = _models("full")
     sd = params_from_jax(jax.tree.map(np.asarray, params))
-    assert not any(k.startswith(("video_decoder", "text_decoder"))
-                   for k in sd)
+    for side in ("video_decoder", "text_decoder"):
+        for name in ("init.weight", "init.bias", "w_i", "w_h", "b_i", "b_h",
+                     "out.weight", "out.bias"):
+            assert f"{side}.{name}" in sd
     assert set(sd) == set(pm.state_dict())
+    np.testing.assert_array_equal(
+        sd["text_decoder.init.weight"],
+        np.asarray(params["text_decoder"]["init"]["kernel"]).T)
+    np.testing.assert_array_equal(
+        sd["video_decoder.w_h"], np.asarray(params["video_decoder"]["w_h"]))
     kernel = np.asarray(params["video_low"]["attn_pool"]["proj"]["kernel"])
     np.testing.assert_array_equal(sd["video_low.attn_pool.proj.weight"],
                                   kernel.T)
