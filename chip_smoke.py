@@ -14,6 +14,9 @@ Phases (any failure raises and the script exits non-zero):
      2b. its ``save_gates`` and ``with_h0`` variants and 2c. the ``gru_bwd``
      kernel against their plain versions at the training path's six GRU
      shapes (plus a ragged one with zero-length rows, with and without h0);
+     2d. the same three ``gru_fwd`` variants and ``gru_bwd`` (with and
+     without h0) in bf16 at the same shapes, against their plain versions
+     in bf16, with cuDNN's GRU in bf16 as the yardstick;
   3. the ``rankcount`` kernel against its plain version (counts exact) at
      Q=1024, N=100,000, D=1024 and at the main path's shape, with times;
      3b. the streaming top-k (plain torch ops) against the dense one at
@@ -21,20 +24,29 @@ Phases (any failure raises and the script exits non-zero):
      and 1,000,000 rows on both sides of the Retriever's dense budget;
      3c. the ``simhinge`` kernel against its plain version (maxima and
      argmaxes equal, ties to the lowest index) at 512, 64 and 300 rows;
+     3d. the ``rankcount`` lowp branch (bf16 multiplies) against its plain
+     version: exact on exact-arithmetic rows, inside the near-tie band on
+     random rows, Q=1024, N=100,000;
   4. the serving path at full ``cmhse_full`` width (H = E = 1024, batch
      64, random weights from the seed): encode a 2,048-video synthetic
      gallery, answer 8 text->video and 8 video->text top-10 requests, score
      it with ``validate_metrics(streaming=True)``; the first batch is
      re-encoded on the CPU (plain versions) and must agree; 4b.
      torch.profiler splits two batches' encode device time by kernel family;
+     4c. the same in the bf16 configuration (``dtype`` and
+     ``feature_dtype`` bfloat16) on the same weights and batches, plus the
+     lowp rank count; embeddings held against the f32 model's; a profiler
+     split of its encode;
   5. the training path at the same width: 8 ``train_step``s on one 64-video
      batch (finite losses and grad norms, the last loss below the first,
      6 + 6 + 4 kernel launches per step), then ``validate_metrics`` on the
      trained weights; 5b. torch.profiler splits one step's device time by
      kernel family; 5c. one step at batch 8, card against the CPU's plain
-     path: loss, grad_norm and every parameter gradient;
-  6. one JSON line listing each kernel with its path, its launches there,
-     its error against its plain version, times and bound;
+     path: loss, grad_norm and every parameter gradient; 5d. the same three
+     in bf16 (only the bf16 GRU kernels may launch; card vs CPU in the bf16
+     bands of ``tests/test_torch_bf16.py``);
+  6. one JSON line listing each kernel and bf16 variant with its path, its
+     launches there, its error against its plain version, times and bound;
   7. last line: ``{"ok": true, "device": {...}}``.
 
 With no CUDA device it exits with code 1 and prints no result.
@@ -53,9 +65,20 @@ ROOT = Path(__file__).resolve().parent
 
 # published H100 SXM peaks (NVIDIA data sheet), the roofline of bound_ms
 F32_FLOPS = 67e12  # FP32 outside the tensor cores
+BF16_FLOPS = 989e12  # bf16 tensor cores, dense
 HBM_BYTES_PER_S = 3.35e12
 
 GRU_ATOL = 1e-4  # f32; K=1024 sums in another order, compounded over steps
+# bf16 kernels vs their plain versions, compared in bf16: the JAX package's
+# bf16 bands (tests/test_pallas_gru.py, tests/test_pallas_gru_grad.py), as
+# in tests/test_torch_bf16.py: outputs within an absolute 1e-2, gradients
+# within a relative L2 error of 2e-2 (a last-bit carry difference can move
+# the next step's bf16 operand by an ulp)
+BF16_ATOL = 1e-2
+BF16_GRAD_RL2 = 2e-2
+# cuDNN's bf16 GRU rounds at other points than the kernel's (a bf16 carry),
+# so its final state is held only loosely: a check of the weight mapping
+LIB_BF16_ATOL = 0.25
 # gru_bwd vs the plain BPTT loop: max abs error <= this * max |reference| per
 # output (dxw, dhn, db, dh0), since the sums compound over T steps
 GRU_BWD_RTOL = 1e-4
@@ -66,6 +89,9 @@ TRAIN_LOSS_RTOL = 1e-4
 TRAIN_NORM_RTOL = 1e-3
 TRAIN_GRAD_RTOL = 1e-3
 TRAIN_STEPS = 8
+# Offset of phase 5d's batch-8 data seed from --seed: a batch where the card
+# and the CPU pick the same hardest negatives in bf16 (phase 5d's check)
+PARITY_BF16_DATA_SEED = 2
 # Phase 5's learning rate, the low end of the range the config names for
 # the reference. At the preset's 1e-3, Adam's first sign-sized step from
 # random weights spreads the embeddings and the hardest-negative terms
@@ -79,6 +105,11 @@ SCORE_ATOL = 1e-4  # served top-k scores vs the gallery embeddings' products
 # within float32 summation noise (~1e-7 at |s| ~ 1) of the positive's.
 RANK_TIE_TOL = 1e-5
 REQUESTS = 6  # each direction: the first call, then steady state
+# The bf16 model against the f32 one on the same weights (phase 4c): the
+# JAX package's bf16 band for its production-width GRU (tests/test_gru.py,
+# max abs 2e-2), and every embedding's cosine with its f32 twin
+BF16_EMB_ATOL = 2e-2
+BF16_EMB_COS = 0.99
 
 
 def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
@@ -99,9 +130,11 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
-    """Least time the card could take: the larger of the two rooflines."""
-    t_ops, t_bytes = flops / F32_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+def bound_ms(flops: float, nbytes: float,
+             peak: float = F32_FLOPS) -> tuple[float, str]:
+    """Least time the card could take: the larger of the two rooflines,
+    operations at ``peak`` (the rate of their type)."""
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -172,7 +205,8 @@ def phase_gru(torch, rng, shapes) -> dict:
 
 
 def library_gru_ms(torch, x, lengths_np, w_i, w_h, b_i, b_h, final,
-                   h0=None, mode: str = "inference") -> float:
+                   h0=None, mode: str = "inference",
+                   dtype=None) -> float | None:
     """torch.nn.GRU (cuDNN) over the same sequences, packed. Packing refuses
     length-0 rows, whose result is the initial state anyway, so they are
     left out. cuDNN includes the input projection and zero-fills padded
@@ -180,10 +214,15 @@ def library_gru_ms(torch, x, lengths_np, w_i, w_h, b_i, b_h, final,
     ``mode``: "inference" times the forward under the caller's no-grad
     mode; "train" the training forward (it keeps cuDNN's reserve space for
     the backward); "backward" the backward alone (input and weight
-    gradients) through one retained graph, for random cotangents."""
+    gradients) through one retained graph, for random cotangents.
+    ``dtype``: the type cuDNN runs in (f32 by default). In bf16 cuDNN rounds
+    at its own points, so its final is held only within LIB_BF16_ATOL; if
+    it refuses the type, the error is printed and None returned."""
+    dtype = dtype or torch.float32
+    atol = GRU_ATOL if dtype == torch.float32 else LIB_BF16_ATOL
     nz = torch.from_numpy(lengths_np > 0).to(x.device)
-    x, final = x[nz], final[nz]
-    hx = None if h0 is None else h0[nz][None].contiguous()
+    x, final = x[nz].to(dtype), final[nz].float()
+    hx = None if h0 is None else h0[nz][None].to(dtype).contiguous()
     lengths_np = lengths_np[lengths_np > 0]
     gru = torch.nn.GRU(w_i.shape[0], w_h.shape[0],
                        batch_first=True).to(x.device)
@@ -192,14 +231,21 @@ def library_gru_ms(torch, x, lengths_np, w_i, w_h, b_i, b_h, final,
         gru.weight_hh_l0.copy_(w_h.T)
         gru.bias_ih_l0.copy_(b_i)
         gru.bias_hh_l0.copy_(b_h)
+    gru = gru.to(dtype)
     with torch.enable_grad() if mode != "inference" else torch.no_grad():
         xin = x.detach().requires_grad_(mode == "backward")
         packed = torch.nn.utils.rnn.pack_padded_sequence(
             xin, torch.from_numpy(lengths_np).long(), batch_first=True,
             enforce_sorted=False)
-        out, h_n = gru(packed, hx)
-        err = (h_n[0] - final).abs().max().item()
-        if not err <= GRU_ATOL:
+        try:
+            out, h_n = gru(packed, hx)
+        except RuntimeError as e:
+            if dtype == torch.float32:
+                raise
+            log(f"    cuDNN GRU refuses {dtype}: {e}")
+            return None
+        err = (h_n[0].float() - final).abs().max().item()
+        if not err <= atol:
             raise AssertionError(f"cuDNN GRU final differs from gru_fwd by "
                                  f"{err}")
         if mode != "backward":
@@ -211,18 +257,24 @@ def library_gru_ms(torch, x, lengths_np, w_i, w_h, b_i, b_h, final,
 
 
 def gru_bounds(b, t, h, live, gates=False, seeded=False,
-               backward=False) -> tuple[float, str]:
+               backward=False, bf16=False) -> tuple[float, str]:
     """bound_ms of one K1 or K2 call: the recurrent product's FLOPs over the
-    live row-steps, and each input read and output written once."""
+    live row-steps, and each input read and output written once. In bf16
+    the streams and W_h take 2 bytes an element (b_h, lengths and the bias
+    sums stay 4) and the product runs at the bf16 tensor-core peak."""
     flops = 2.0 * live * h * 3 * h
     if not backward:
-        words = (b * t * 3 * h + h * 3 * h + 3 * h + b * t * h + b * h + b
-                 + (live * 4 * h if gates else 0) + (b * h if seeded else 0))
+        streams = (b * t * 3 * h + h * 3 * h + b * t * h + b * h
+                   + (live * 4 * h if gates else 0)
+                   + (b * h if seeded else 0))
+        words = 3 * h + b
     else:  # gates and h_prev of live steps, douts, dfinal, W_h, h0 in;
-        # dxw, dhn, the bias sums and dh0 out
-        words = (live * 5 * h + b * t * h + b * h + 3 * h * h + b
-                 + (b * h if seeded else 0) + b * t * 4 * h + 4 * h + b * h)
-    return bound_ms(flops, 4.0 * words)
+        # dxw, dhn, dh0 out; lengths in and the bias sums out
+        streams = (live * 5 * h + b * t * h + b * h + 3 * h * h
+                   + (b * h if seeded else 0) + b * t * 4 * h + b * h)
+        words = b + 4 * h
+    return bound_ms(flops, (2.0 if bf16 else 4.0) * streams + 4.0 * words,
+                    BF16_FLOPS if bf16 else F32_FLOPS)
 
 
 def phase_gru_train(torch, rng, shapes, h: int = 1024) -> tuple[list, list]:
@@ -311,6 +363,113 @@ def phase_gru_train(torch, rng, shapes, h: int = 1024) -> tuple[list, list]:
     return fwd_rows, bwd_rows
 
 
+def phase_gru_bf16(torch, rng, enc_shapes, train_shapes,
+                   h: int = 1024) -> dict:
+    """2d: K1 in bf16 (encode variant at phase 2's shapes; save_gates and
+    save_gates + with_h0 at 2b's) and K2 in bf16 (2c's shapes), each
+    against its plain version in bf16 on the same inputs, with times,
+    bounds in bf16 bytes at the bf16 tensor-core peak, and cuDNN's GRU in
+    bf16 as the library yardstick. Returns rows per variant."""
+    from cmhse_tpu_torch.models.gru import gru_input_projection
+    from cmhse_tpu_torch.ops import gru_kernel as gk
+
+    bf16 = torch.bfloat16
+    dev = torch.device("cuda")
+    rows = {"encode": [], "save_gates": [], "save_gates_h0": [],
+            "bwd": [], "bwd_h0": []}
+    shapes = ([(label, lens, t, d, False, "encode")
+               for label, lens, t, d in enc_shapes]
+              + [(label, lens, t, d, seeded, "train")
+                 for label, lens, t, d, seeded in train_shapes])
+    for label, lengths_np, t, d, seeded, kind in shapes:
+        b = lengths_np.shape[0]
+        x, w_i, w_h, b_i, b_h = gru_inputs(torch, rng, b, t, d, h)
+        gen = card_generator(torch, rng)
+        h0 = ((torch.rand(b, h, device=dev, generator=gen) * 2 - 1).to(bf16)
+              if seeded else None)
+        lengths = torch.from_numpy(lengths_np).to(dev)
+        live_mask = torch.arange(t, device=dev)[None, :] < lengths[:, None]
+        live = int(lengths_np.clip(0, t).sum())
+        save = kind == "train"
+        with torch.no_grad():
+            xw = gru_input_projection(x.to(bf16), w_i, b_i).contiguous()
+            w_hb = w_h.to(bf16)
+            got = gk.gru_forward(xw, w_hb, b_h, lengths, h0, save_gates=save)
+            want = gk.gru_recurrence_plain(xw, w_hb, b_h, lengths, h0,
+                                           save_gates=save)
+            torch.cuda.synchronize()
+            errs = [(got[0] - want[0]).abs().max().item(),
+                    (got[1] - want[1]).abs().max().item()]
+            if save and live:
+                errs.append((got[2][live_mask].float()
+                             - want[2][live_mask].float()).abs().max().item())
+            err = max(errs)
+            name = ("encode" if not save else
+                    "save_gates_h0" if seeded else "save_gates")
+            if not err <= BF16_ATOL:
+                raise AssertionError(f"gru_fwd bf16 {name} {label}: max abs "
+                                     f"err {err} > {BF16_ATOL}")
+            ms = cuda_ms(lambda: gk.gru_forward(xw, w_hb, b_h, lengths, h0,
+                                                save_gates=save))
+            plain = cuda_ms(lambda: gk.gru_recurrence_plain(
+                xw, w_hb, b_h, lengths, h0, save_gates=save), reps=3,
+                warmup=1)
+            library = library_gru_ms(
+                torch, x, lengths_np, w_i, w_h, b_i, b_h, got[1], h0,
+                mode="train" if save else "inference", dtype=bf16)
+        bms, by = gru_bounds(b, t, h, live, gates=save, seeded=seeded,
+                             bf16=True)
+        rows[name].append(dict(shape=label, max_abs_err=err, ms=ms,
+                               plain_ms=plain, bound_ms=bms, bound_by=by,
+                               library_ms=library))
+        log(f"  2d gru_fwd bf16 {name} {label}: err {err:.3g}  kernel "
+            f"{ms:.4f} ms  plain {plain:.4f} ms  cuDNN bf16 "
+            f"{'refused' if library is None else f'{library:.4f} ms'}  "
+            f"bound {bms:.4f} ms ({by})")
+        if not save:
+            continue
+
+        outs, final, gates = got
+        douts = torch.randn(b, t, h, device=dev, generator=gen).to(bf16)
+        dfinal = torch.randn(b, h, device=dev, generator=gen).to(bf16)
+        with torch.no_grad():
+            got = gk.gru_backward(gates, outs, lengths, w_hb, douts, dfinal,
+                                  h0)
+            want = gk.gru_backward_plain(gates, outs, lengths, w_hb, douts,
+                                         dfinal, h0)
+            torch.cuda.synchronize()
+            rel, abs_err = {}, 0.0
+            for part, g, w in zip(("dxw", "dhn", "db", "dh0"), got, want):
+                g, w = g.float(), w.float()
+                if not bool(torch.isfinite(g).all()):
+                    raise AssertionError(f"gru_bwd bf16 {label}: non-finite "
+                                         f"{part}")
+                abs_err = max(abs_err, (g - w).abs().max().item())
+                rel[part] = ((g - w).norm() / w.norm().clamp_min(1e-30)
+                             ).item()
+            if not max(rel.values()) <= BF16_GRAD_RL2:
+                raise AssertionError(f"gru_bwd bf16 {label}: relative L2 "
+                                     f"errors {rel} > {BF16_GRAD_RL2}")
+            ms = cuda_ms(lambda: gk.gru_backward(gates, outs, lengths, w_hb,
+                                                 douts, dfinal, h0))
+            plain = cuda_ms(lambda: gk.gru_backward_plain(
+                gates, outs, lengths, w_hb, douts, dfinal, h0), reps=3,
+                warmup=1)
+        library = library_gru_ms(torch, x, lengths_np, w_i, w_h, b_i, b_h,
+                                 final, h0, mode="backward", dtype=bf16)
+        bms, by = gru_bounds(b, t, h, live, seeded=seeded, backward=True,
+                             bf16=True)
+        rows["bwd_h0" if seeded else "bwd"].append(dict(
+            shape=label, max_abs_err=abs_err, ms=ms, plain_ms=plain,
+            bound_ms=bms, bound_by=by, library_ms=library, rel_l2=rel))
+        log(f"  2d gru_bwd bf16{' +h0' if seeded else ''} {label}: rel L2 "
+            + " ".join(f"{k} {v:.3g}" for k, v in rel.items())
+            + f"  kernel {ms:.4f} ms  plain {plain:.4f} ms  cuDNN bf16 bwd "
+            f"{'refused' if library is None else f'{library:.4f} ms'}  "
+            f"bound {bms:.4f} ms ({by})")
+    return rows
+
+
 def exact_rows(rng, n: int, d: int):
     """l2-normalized rows on the card (from a seed drawn from ``rng``),
     rounded to multiples of 2**-10: every dot product is then exact in f32
@@ -363,6 +522,76 @@ def phase_rankcount(torch, rng, shapes) -> list:
         rows.append(dict(shape=label, max_abs_err=0.0, ms=ms, plain_ms=plain,
                          bound_ms=bms, bound_by=by, library_ms=library))
     return rows
+
+
+def phase_rankcount_lowp(torch, rng, q: int = 1024, n: int = 100_000,
+                         d: int = 1024) -> list:
+    """3d: the rankcount kernel's lowp branch (precision="bfloat16": both
+    operands rounded to bf16, f32 accumulation) against its plain version.
+    On exact-arithmetic rows the rounded products sum exactly in any order,
+    so the counts must be equal; on random rows each count must lie in the
+    near-tie band (RANK_TIE_TOL) of the plain version's dense block. Timed
+    beside ``torch.matmul`` of the bf16 block."""
+    from cmhse_tpu_torch.ops import rankcount_kernel as rk
+
+    dev = torch.device("cuda")
+    bf16 = torch.bfloat16
+    queries = exact_rows(rng, q, d)
+    gallery = exact_rows(rng, n, d)
+    pos_idx = torch.from_numpy(rng.randint(0, n, q).astype("int32")).to(dev)
+    valid = torch.from_numpy(rng.rand(n) > 0.03).to(dev)
+    with torch.inference_mode():
+        pos = (queries * gallery[pos_idx.long()]).sum(1)
+        pos[q // 2] = float("nan")
+        got = rk.violation_counts(queries, gallery, pos, valid, pos_idx,
+                                  precision="bfloat16")
+        want = rk.violation_counts_plain(queries, gallery, pos, valid,
+                                         pos_idx, precision="bfloat16")
+        n_diff = int((got != want).sum())
+        if n_diff:
+            raise AssertionError(f"rankcount lowp: {n_diff} counts differ "
+                                 "from the plain version on exact rows")
+        ms = cuda_ms(lambda: rk.violation_counts(
+            queries, gallery, pos, valid, pos_idx, precision="bfloat16"))
+        plain = cuda_ms(lambda: rk.violation_counts_plain(
+            queries, gallery, pos, valid, pos_idx, precision="bfloat16"),
+            reps=5)
+        qb, gb = queries.to(bf16), gallery.to(bf16)
+        library = cuda_ms(lambda: torch.matmul(qb, gb.T))
+
+        # random rows: the kernel's count within the plain block's band
+        gen = card_generator(torch, rng)
+        rq = torch.randn(q, d, device=dev, generator=gen)
+        rg = torch.randn(n, d, device=dev, generator=gen)
+        rq /= rq.norm(dim=1, keepdim=True)
+        rg /= rg.norm(dim=1, keepdim=True)
+        rpos = (rq * rg[pos_idx.long()]).sum(1)
+        got = rk.violation_counts(rq, rg, rpos, valid, pos_idx,
+                                  precision="bfloat16")
+        gq, gg = rq.to(bf16).float(), rg.to(bf16).float()
+        lo, hi = [], []
+        for s in range(0, q, 128):
+            sims = gq[s:s + 128] @ gg.T
+            sims[:, ~valid] = float("-inf")
+            sims.scatter_(1, pos_idx[s:s + 128, None].long(), float("-inf"))
+            p = rpos[s:s + 128, None]
+            lo.append((sims > p + RANK_TIE_TOL).sum(1))
+            hi.append((sims > p - RANK_TIE_TOL).sum(1))
+        lo, hi = torch.cat(lo), torch.cat(hi)
+        if not bool(((lo <= got) & (got <= hi)).all()):
+            raise AssertionError("rankcount lowp: counts on random rows "
+                                 "outside the plain block's near-tie band")
+        n_band = int((lo != hi).sum())
+    n_valid = int(valid.sum())
+    bms, by = bound_ms(2.0 * q * n_valid * d,
+                       4.0 * (q * d + n * d + 2 * q + q) + n, BF16_FLOPS)
+    label = f"Q={q} N={n} D={d}"
+    log(f"  rankcount lowp {label}: counts equal on exact rows; on random "
+        f"rows within the +-{RANK_TIE_TOL} band ({n_band} queries have a "
+        f"score inside it)  kernel {ms:.4f} ms  plain {plain:.4f} ms  bf16 "
+        f"matmul {library:.4f} ms  bound {bms:.4f} ms ({by})")
+    return [dict(shape=label, max_abs_err=0.0, ms=ms, plain_ms=plain,
+                 bound_ms=bms, bound_by=by, library_ms=library)]
 
 
 def phase_simhinge(torch, rng, sizes, d: int = 1024) -> list:
@@ -429,20 +658,40 @@ def phase_simhinge(torch, rng, sizes, d: int = 1024) -> list:
 
 
 def train_counts(gk, sk, rk) -> dict:
-    """The launch counts of every kernel wrapper (gru_fwd by variant)."""
+    """The launch counts of every kernel wrapper (gru_fwd by variant and
+    element type)."""
     return {"gru_fwd": gk.launches,
             "gru_fwd save_gates": gk.save_gates_launches,
             "gru_fwd with_h0": gk.with_h0_launches,
-            "gru_bwd": gk.bwd_launches, "simhinge": sk.launches,
-            "rankcount": rk.launches}
+            "gru_bwd": gk.bwd_launches,
+            "gru_fwd bf16": gk.bf16_launches,
+            "gru_fwd bf16 save_gates": gk.bf16_save_gates_launches,
+            "gru_fwd bf16 with_h0": gk.bf16_with_h0_launches,
+            "gru_bwd bf16": gk.bf16_bwd_launches,
+            "gru_bwd bf16 with_h0": gk.bf16_bwd_with_h0_launches,
+            "simhinge": sk.launches, "rankcount": rk.launches,
+            "rankcount lowp": rk.lowp_launches}
 
 
-def phase_train(torch, np, seed: int) -> dict:
-    """5: the training path at full cmhse_full width: TRAIN_STEPS
+def reset_counts(gk, sk, rk) -> None:
+    for name in ("launches", "save_gates_launches", "with_h0_launches",
+                 "bwd_launches", "bf16_launches", "bf16_save_gates_launches",
+                 "bf16_with_h0_launches", "bf16_bwd_launches",
+                 "bf16_bwd_with_h0_launches"):
+        setattr(gk, name, 0)
+    sk.launches = rk.launches = rk.lowp_launches = 0
+
+
+def phase_train(torch, np, seed: int, bf16: bool = False) -> dict:
+    """5 (f32) and 5d (``bf16``: ``dtype`` and ``feature_dtype`` bfloat16):
+    the training path at full cmhse_full width: TRAIN_STEPS
     ``train_step``s on one fixed 64-video batch (handed over from the host
     each step, as a loader would), then ``validate_metrics(streaming=True)``
     on that batch with the trained weights. Launch counts are read after
-    the steps and after the validation."""
+    the steps and after the validation; a bf16 step must launch only the
+    bf16 GRU kernels."""
+    import dataclasses
+
     from cmhse_tpu_torch.config import get_preset
     from cmhse_tpu_torch.data import (SyntheticHierarchicalDataset,
                                       batches_from_dataset)
@@ -455,8 +704,13 @@ def phase_train(torch, np, seed: int) -> dict:
                                        train_step)
 
     cfg = get_preset("cmhse_full")
+    if bf16:
+        cfg = dataclasses.replace(
+            cfg, model=dataclasses.replace(cfg.model, dtype="bfloat16"),
+            data=dataclasses.replace(cfg.data, feature_dtype="bfloat16"))
     dc, mc = cfg.data, cfg.model
-    log(f"  lr {TRAIN_LR} clip {cfg.train.grad_clip} loss {cfg.loss}")
+    log(f"  dtype {mc.dtype} features {dc.feature_dtype} lr {TRAIN_LR} clip "
+        f"{cfg.train.grad_clip} loss {cfg.loss}")
     ds = SyntheticHierarchicalDataset(
         num_videos=dc.batch_size, feat_dim=dc.feat_dim,
         vocab_size=dc.vocab_size, max_clips=dc.max_clips,
@@ -466,9 +720,7 @@ def phase_train(torch, np, seed: int) -> dict:
                   generator=torch.Generator().manual_seed(seed))
     state = set_learning_rate(create_train_state(cfg, model), TRAIN_LR)
     torch.cuda.reset_peak_memory_stats()
-    for mod in (gk, sk, rk):
-        mod.launches = 0
-    gk.save_gates_launches = gk.with_h0_launches = gk.bwd_launches = 0
+    reset_counts(gk, sk, rk)
     losses, norms, step_ms = [], [], []
     for i in range(TRAIN_STEPS):
         t0 = time.perf_counter()
@@ -501,9 +753,14 @@ def phase_train(torch, np, seed: int) -> dict:
         raise AssertionError(f"loss did not fall: {losses}")
     if not all(np.isfinite(x) for x in val.values()):
         raise AssertionError(f"non-finite metrics {val}")
-    want = {"gru_fwd": 6, "gru_fwd save_gates": 6, "gru_fwd with_h0": 2,
-            "gru_bwd": 6, "simhinge": 4, "rankcount": 0}
-    got = {k: step_counts[k] / TRAIN_STEPS for k in want}
+    want = dict.fromkeys(step_counts, 0)
+    prefix = "gru_fwd bf16" if bf16 else "gru_fwd"
+    bwd = "gru_bwd bf16" if bf16 else "gru_bwd"
+    want.update({prefix: 6, f"{prefix} save_gates": 6,
+                 f"{prefix} with_h0": 2, bwd: 6, "simhinge": 4})
+    if bf16:
+        want["gru_bwd bf16 with_h0"] = 2
+    got = {k: v / TRAIN_STEPS for k, v in step_counts.items()}
     if got != want:
         raise AssertionError(f"launches per step {got}, expected {want}")
     return dict(counts=counts, state=state, batch=batch, loss_cfg=cfg.loss)
@@ -606,45 +863,111 @@ def phase_train_parity(torch, np, seed: int) -> None:
         raise AssertionError("card and CPU train steps differ")
 
 
-def phase_main_path(torch, np, seed: int, n_videos: int) -> dict:
-    """Encode -> serve both directions -> validate, at cmhse_full width."""
+def hardest_negatives(torch, out) -> list:
+    """Each valid query's hardest negative in both directions at both
+    levels of a ModelOutputs (the batch's video ids are distinct, so each
+    level's positives are its diagonal)."""
+    picks = []
+    low_valid = (out.clip_valid & out.sent_valid).reshape(-1).cpu()
+    for a, b, valid in ((out.video_emb, out.para_emb, None),
+                        (out.clip_emb, out.sent_emb, low_valid)):
+        a = a.detach().float().cpu().reshape(-1, a.shape[-1])
+        b = b.detach().float().cpu().reshape(-1, b.shape[-1])
+        if valid is None:
+            valid = torch.ones(a.shape[0], dtype=torch.bool)
+        sims = a @ b.T
+        sims[torch.eye(a.shape[0], dtype=torch.bool) | ~valid[None, :]
+             | ~valid[:, None]] = float("-inf")
+        picks += [sims.argmax(1)[valid], sims.argmax(0)[valid]]
+    return picks
+
+
+def phase_train_parity_bf16(torch, np, seed: int) -> None:
+    """5d: one bf16 step at batch 8, full width, card against the CPU's
+    plain path from the same weights, in the bands of
+    tests/test_torch_bf16.py: loss within rtol 1e-2, all gradients together
+    within relative L2 2e-2, each within 2e-2 plus three times the distance
+    between the CPU's bf16 and f32 gradients of that parameter (bf16's own
+    spread there). The card and the CPU must pick the same hardest
+    negatives: at a near-tie a bf16 ulp may pick another, which sends a
+    row's gradient elsewhere (the data seed is one where they agree)."""
+    import dataclasses
+
     from cmhse_tpu_torch.config import get_preset
     from cmhse_tpu_torch.data import (SyntheticHierarchicalDataset,
-                                      batches_from_dataset, pad_batch)
-    from cmhse_tpu_torch.data.bucketing import BucketSpec
+                                      batches_from_dataset)
+    from cmhse_tpu_torch.models import CMHSE
+    from cmhse_tpu_torch.train import total_loss
+
+    cfg = get_preset("cmhse_full")
+    dc = dataclasses.replace(cfg.data, batch_size=8,
+                             feature_dtype="bfloat16")
+    ds = SyntheticHierarchicalDataset(
+        num_videos=8, feat_dim=dc.feat_dim, vocab_size=dc.vocab_size,
+        max_clips=dc.max_clips, max_frames=dc.max_frames,
+        max_words=dc.max_words, seed=seed + PARITY_BF16_DATA_SEED)
+    host = next(batches_from_dataset(ds, dc, shuffle=False))
+    res = {}
+    for dev, dtype in (("cuda", "bfloat16"), ("cpu", "bfloat16"),
+                       ("cpu", "float32")):
+        t0 = time.perf_counter()
+        model = CMHSE(dataclasses.replace(cfg.model, dtype=dtype),
+                      dc.vocab_size, device=dev,
+                      generator=torch.Generator().manual_seed(seed))
+        b = host.to(dev)
+        out = model(b)
+        loss, _ = total_loss(out, b, cfg.loss)
+        loss.backward()
+        res[(dev, dtype)] = dict(
+            loss=loss.item(), picks=hardest_negatives(torch, out),
+            grads={k: (p.grad if p.grad is not None
+                       else torch.zeros_like(p)).float().cpu()
+                   for k, p in model.named_parameters()},
+            s=time.perf_counter() - t0)
+    card, cpu, f32 = (res[("cuda", "bfloat16")], res[("cpu", "bfloat16")],
+                      res[("cpu", "float32")])
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+    keys = sorted(card["grads"])
+    cat = lambda r: torch.cat([r["grads"][k].ravel() for k in keys])
+    loss_rel = abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"])
+    total = rel(cat(card), cat(cpu))
+    share = {k: rel(card["grads"][k], cpu["grads"][k])
+             / (BF16_GRAD_RL2 + 3 * rel(cpu["grads"][k], f32["grads"][k]))
+             for k in keys}
+    worst = max(share, key=share.get)
+    same = [bool(torch.equal(a, b)) for a, b in zip(card["picks"],
+                                                     cpu["picks"])]
+    log(f"  batch 8, bf16: loss card {card['loss']:.6f} CPU "
+        f"{cpu['loss']:.6f} (CPU f32 {f32['loss']:.6f}; {cpu['s']:.1f} + "
+        f"{f32['s']:.1f} s on the CPU); same hardest negatives {same}")
+    log(f"  loss rel err {loss_rel:.3g} (limit 1e-2), all gradients rel L2 "
+        f"{total:.3g} (limit {BF16_GRAD_RL2}), worst of {len(keys)} against "
+        f"its band {worst} {share[worst]:.3g} (limit 1)")
+    if not all(same):
+        raise AssertionError("card and CPU picked other hardest negatives")
+    if not (loss_rel <= 1e-2 and total <= BF16_GRAD_RL2
+            and share[worst] <= 1.0):
+        raise AssertionError("card and CPU bf16 train steps differ")
+
+
+def serve(torch, np, model, batches, qb, picks) -> dict:
+    """Encode -> serve both directions -> validate, with the checks of the
+    served answers: encode the gallery (``encode_gallery_device``), answer
+    REQUESTS text->video and video->text top-10 requests for the 8 videos
+    ``picks`` (query batch ``qb``), score with
+    ``validate_metrics(streaming=True)``. Checks: shape and finite values,
+    served top-k against the gallery's own f32 product, streaming ranks
+    against the dense block's near-tie band."""
     from cmhse_tpu_torch.eval import (Retriever, encode_gallery_device,
                                       format_table, validate_metrics)
-    from cmhse_tpu_torch.eval.encode import encode_batch
-    from cmhse_tpu_torch.models import CMHSE
-    from cmhse_tpu_torch.ops import gru_kernel, rankcount_kernel
     from cmhse_tpu_torch.ops.ranking import bidirectional_metrics
     from cmhse_tpu_torch.ops.similarity import cosine_sim
     from cmhse_tpu_torch.ops.topk import topk_lowest_index
 
-    cfg = get_preset("cmhse_full")
-    dc, mc = cfg.data, cfg.model
-    log(f"  config cmhse_full: vocab {dc.vocab_size} word_dim {mc.word_dim} "
-        f"feat {mc.feat_dim} H {mc.rnn_hidden} E {mc.embed_size} Cmax "
-        f"{dc.max_clips} Fmax {dc.max_frames} Smax {dc.max_sentences} Wmax "
-        f"{dc.max_words} batch {dc.batch_size} attention_pool "
-        f"{mc.attention_pool}")
-    ds = SyntheticHierarchicalDataset(
-        num_videos=n_videos, feat_dim=dc.feat_dim, vocab_size=dc.vocab_size,
-        max_clips=dc.max_clips, max_frames=dc.max_frames,
-        max_words=dc.max_words, seed=seed)
-    model = CMHSE(mc, dc.vocab_size,
-                  generator=torch.Generator().manual_seed(seed))
-
-    t0 = time.perf_counter()
-    batches = list(batches_from_dataset(ds, dc, shuffle=False))
-    t_data = time.perf_counter() - t0
-    picks = np.linspace(0, n_videos - 1, 8).astype(int)
-    spec = BucketSpec(8, dc.max_clips, dc.max_frames, dc.max_sentences,
-                      dc.max_words, dc.feat_dim)
-    qb = pad_batch([ds[int(i)] for i in picks], spec)
-
-    gru_kernel.launches = 0
-    rankcount_kernel.launches = 0
+    n_videos = sum(int(np.asarray(b.valid).sum()) for b in batches)
     t0 = time.perf_counter()
     encoded = encode_gallery_device(model, batches)
     torch.cuda.synchronize()
@@ -669,10 +992,7 @@ def phase_main_path(torch, np, seed: int, n_videos: int) -> dict:
                                       return_ranks=True)
     torch.cuda.synchronize()
     t_validate = time.perf_counter() - t0
-    counts = {"gru_fwd": gru_kernel.launches,
-              "rankcount": rankcount_kernel.launches}
-    log(f"  synthetic data, {len(batches)} padded batches (host): "
-        f"{t_data:.3f} s; encode {n_videos} videos: {t_encode:.3f} s "
+    log(f"  encode {n_videos} videos ({v.dtype}): {t_encode:.3f} s "
         f"({n_videos / t_encode:.1f} videos/s); validate_metrics(streaming, "
         f"re-encode + rank): {t_validate:.3f} s")
     for side, ms in req_ms.items():
@@ -683,17 +1003,18 @@ def phase_main_path(torch, np, seed: int, n_videos: int) -> dict:
         for row, i in zip(idx, picks):
             log(f"  {name} query {i}: {row.tolist()}")
     log(format_table(metrics))
-    log(f"  launches on the main path: {counts}")
 
     # ---- checks -----------------------------------------------------------
-    if tuple(v.shape) != (n_videos, mc.embed_size) or not bool(valid.all()):
+    if tuple(v.shape) != (n_videos, model.cfg.embed_size) or \
+            not bool(valid.all()):
         raise AssertionError(f"gallery shape {tuple(v.shape)}")
     if not (torch.isfinite(v).all() and torch.isfinite(p).all()):
         raise AssertionError("non-finite embeddings")
     for name, scores, idx, qside, gside in (
             ("text->video", t2v_scores, t2v_idx, p, v),
             ("video->text", v2t_scores, v2t_idx, v, p)):
-        ref = qside[torch.as_tensor(picks, device=qside.device)] @ gside.T
+        ref = (qside[torch.as_tensor(picks, device=qside.device)].float()
+               @ gside.float().T)
         want_s, want_i = topk_lowest_index(ref, 10)
         got_i = torch.as_tensor(idx, device=ref.device)
         got_ref = torch.gather(ref, 1, got_i)
@@ -720,18 +1041,76 @@ def phase_main_path(torch, np, seed: int, n_videos: int) -> dict:
     dense = bidirectional_metrics(sims, return_ranks=True)
     n_rank_diff = 0
     for key, s in (("v2p_ranks", sims), ("p2v_ranks", sims.T)):
+        check_rank_band(torch, ranks[key], s, key)
         got = torch.as_tensor(ranks[key], device=s.device)
-        pos = torch.diagonal(s)[:, None]
-        lo = 1 + (s > pos + RANK_TIE_TOL).sum(1)
-        hi = 1 + (s > pos - RANK_TIE_TOL).sum(1)
-        if not bool(((lo <= got) & (got <= hi)).all()):
-            raise AssertionError(f"{key}: streaming ranks outside the "
-                                 "dense near-tie band")
         n_rank_diff += int((dense[key] != got).sum())
     log(f"  streaming vs dense ranks: {n_rank_diff} of {2 * n_videos} differ, "
         f"all within the +-{RANK_TIE_TOL} near-tie band")
     if not all(np.isfinite(x) for x in metrics.values()):
         raise AssertionError(f"non-finite metrics {metrics}")
+    return dict(encoded=encoded, metrics=metrics, sims=sims)
+
+
+def check_rank_band(torch, ranks, sims, key: str) -> None:
+    """Each rank (1-based, of the diagonal's score in its row of ``sims``)
+    must lie in [1 + #(s > pos + tol), 1 + #(s > pos - tol)]."""
+    got = torch.as_tensor(ranks, device=sims.device)
+    pos = torch.diagonal(sims)[:, None]
+    lo = 1 + (sims > pos + RANK_TIE_TOL).sum(1)
+    hi = 1 + (sims > pos - RANK_TIE_TOL).sum(1)
+    if not bool(((lo <= got) & (got <= hi)).all()):
+        raise AssertionError(f"{key}: ranks outside the dense near-tie band")
+
+
+def serving_data(torch, np, seed: int, n_videos: int):
+    """Phase 4's synthetic gallery batches (made on the host, timed as
+    set-up), the 8 picked videos and their query batch."""
+    from cmhse_tpu_torch.config import get_preset
+    from cmhse_tpu_torch.data import (SyntheticHierarchicalDataset,
+                                      batches_from_dataset, pad_batch)
+    from cmhse_tpu_torch.data.bucketing import BucketSpec
+
+    dc = get_preset("cmhse_full").data
+    ds = SyntheticHierarchicalDataset(
+        num_videos=n_videos, feat_dim=dc.feat_dim, vocab_size=dc.vocab_size,
+        max_clips=dc.max_clips, max_frames=dc.max_frames,
+        max_words=dc.max_words, seed=seed)
+    t0 = time.perf_counter()
+    batches = list(batches_from_dataset(ds, dc, shuffle=False))
+    log(f"  synthetic data, {len(batches)} padded batches (host): "
+        f"{time.perf_counter() - t0:.3f} s")
+    picks = np.linspace(0, n_videos - 1, 8).astype(int)
+    spec = BucketSpec(8, dc.max_clips, dc.max_frames, dc.max_sentences,
+                      dc.max_words, dc.feat_dim)
+    qb = pad_batch([ds[int(i)] for i in picks], spec)
+    return batches, picks, qb
+
+
+def phase_main_path(torch, np, seed: int, n_videos: int) -> dict:
+    """4: encode -> serve both directions -> validate, at cmhse_full width,
+    in f32; the first batch re-encoded on the CPU must agree."""
+    from cmhse_tpu_torch.config import get_preset
+    from cmhse_tpu_torch.eval.encode import encode_batch
+    from cmhse_tpu_torch.models import CMHSE
+    from cmhse_tpu_torch.ops import gru_kernel, rankcount_kernel
+
+    cfg = get_preset("cmhse_full")
+    dc, mc = cfg.data, cfg.model
+    log(f"  config cmhse_full: vocab {dc.vocab_size} word_dim {mc.word_dim} "
+        f"feat {mc.feat_dim} H {mc.rnn_hidden} E {mc.embed_size} Cmax "
+        f"{dc.max_clips} Fmax {dc.max_frames} Smax {dc.max_sentences} Wmax "
+        f"{dc.max_words} batch {dc.batch_size} attention_pool "
+        f"{mc.attention_pool}")
+    batches, picks, qb = serving_data(torch, np, seed, n_videos)
+    model = CMHSE(mc, dc.vocab_size,
+                  generator=torch.Generator().manual_seed(seed))
+    gru_kernel.launches = 0
+    rankcount_kernel.launches = 0
+    out = serve(torch, np, model, batches, qb, picks)
+    counts = {"gru_fwd": gru_kernel.launches,
+              "rankcount": rankcount_kernel.launches}
+    log(f"  launches on the main path: {counts}")
+    v, p, _ = out["encoded"]
     first = batches[0]
     cpu_model = CMHSE(mc, dc.vocab_size, device="cpu",
                       generator=torch.Generator().manual_seed(seed))
@@ -744,6 +1123,69 @@ def phase_main_path(torch, np, seed: int, n_videos: int) -> dict:
         f"err {err:.3g} (limit {ENCODE_ATOL})")
     if not err <= ENCODE_ATOL:
         raise AssertionError(f"card and CPU embeddings differ by {err}")
+    return dict(counts=counts, model=model, batches=batches, picks=picks,
+                qb=qb, encoded=out["encoded"])
+
+
+def phase_serving_bf16(torch, np, f32: dict) -> dict:
+    """4c: the serving path of the bf16 configuration (``dtype`` and
+    ``feature_dtype`` bfloat16) at full width, on phase 4's weights and
+    synthetic batches (their frames rounded to bf16 on the host, as
+    ``pad_batch`` rounds them: set-up, not timed). Then the bf16-multiply
+    rank count (``precision="bfloat16"``) over the bf16 gallery, whose
+    ranks must lie in the f32 count's near-tie band. The embeddings are
+    held against phase 4's f32 model on the same weights."""
+    import dataclasses
+
+    from cmhse_tpu_torch.eval.retrieval import streaming_bidirectional_metrics
+    from cmhse_tpu_torch.models import CMHSE
+    from cmhse_tpu_torch.ops import gru_kernel as gk
+    from cmhse_tpu_torch.ops import rankcount_kernel as rk
+
+    f32_model = f32["model"]
+    mc = dataclasses.replace(f32_model.cfg, dtype="bfloat16")
+    model = CMHSE(mc, f32_model.vocab_size)
+    model.load_state_dict(f32_model.state_dict())
+    t0 = time.perf_counter()
+    batches = [dataclasses.replace(
+        b, frames=torch.from_numpy(b.frames).to(torch.bfloat16))
+        for b in f32["batches"]]
+    qb = f32["qb"]
+    qb = dataclasses.replace(qb, frames=torch.from_numpy(qb.frames).to(
+        torch.bfloat16))
+    log(f"  frames rounded to bf16 on the host: "
+        f"{time.perf_counter() - t0:.3f} s")
+    gk.launches = gk.bf16_launches = 0
+    rk.launches = rk.lowp_launches = 0
+    out = serve(torch, np, model, batches, qb, f32["picks"])
+    v, p, valid = out["encoded"]
+    with torch.inference_mode():
+        lowp = streaming_bidirectional_metrics(v, p, valid=valid,
+                                               return_ranks=True,
+                                               precision="bfloat16")
+    for key, s in (("v2p_ranks", out["sims"]), ("p2v_ranks", out["sims"].T)):
+        check_rank_band(torch, lowp[key], s, f"lowp {key}")
+    counts = {"gru_fwd f32": gk.launches, "gru_fwd bf16": gk.bf16_launches,
+              "rankcount f32": rk.launches, "rankcount lowp": rk.lowp_launches}
+    log(f"  lowp rank count over the bf16 gallery: rsum "
+        f"{float(lowp['rsum']):.1f} (f32 count {out['metrics']['rsum']:.1f}),"
+        f" ranks within the +-{RANK_TIE_TOL} band of the dense block")
+    log(f"  launches on the bf16 serving path: {counts}")
+    if counts["gru_fwd f32"] or not counts["gru_fwd bf16"] or \
+            not counts["rankcount lowp"] or not counts["rankcount f32"]:
+        raise AssertionError(f"bf16 serving launches {counts}")
+    # the same weights in f32: one GRU stack rounds at every bf16 point
+    fv, fp, _ = f32["encoded"]
+    err = max((v.float() - fv).abs().max().item(),
+              (p.float() - fp).abs().max().item())
+    cos = min(torch.nn.functional.cosine_similarity(v.float(), fv).min()
+              .item(), torch.nn.functional.cosine_similarity(p.float(), fp)
+              .min().item())
+    log(f"  bf16 vs f32 embeddings, same weights: max abs err {err:.3g} "
+        f"(limit {BF16_EMB_ATOL}), lowest cosine {cos:.6f} (limit "
+        f"{BF16_EMB_COS})")
+    if not (err <= BF16_EMB_ATOL and cos >= BF16_EMB_COS):
+        raise AssertionError("bf16 embeddings stray from the f32 model's")
     return dict(counts=counts, model=model, batches=batches)
 
 
@@ -909,13 +1351,14 @@ def main() -> int:
     ragged = rng.randint(0, 20, 100).astype(np.int32)
     ragged[::7] = 0
     phase("phase 2: gru_fwd vs plain (lengths of the main path's first batch)")
-    gru_rows = phase_gru(torch, rng, [
+    enc_shapes = [
         ("video_low 512x64 D=500", b0.frame_len.reshape(-1), dc.max_frames,
          500),
         ("text_low 512x32 D=300", b0.word_len.reshape(-1), dc.max_words, 300),
         ("video_high 64x8 D=1024", b0.clip_len, dc.max_clips, 1024),
         ("ragged 100x20 D=1024, zero rows", ragged, 20, 1024),
-    ])
+    ]
+    gru_rows = phase_gru(torch, rng, enc_shapes)
     train_shapes = [
         ("video_low 512x64 D=500", b0.frame_len.reshape(-1), dc.max_frames,
          500, False),
@@ -932,8 +1375,11 @@ def main() -> int:
         ("ragged 100x20 D=1024, zero rows, h0", ragged, 20, 1024, True),
     ]
     phase("phase 2b/2c: gru_fwd save_gates/with_h0 and gru_bwd vs plain "
-        "(the training path's shapes)")
+          "(the training path's shapes)")
     fwd_rows, bwd_rows = phase_gru_train(torch, rng, train_shapes)
+    phase("phase 2d: gru_fwd (three variants) and gru_bwd in bf16 vs plain "
+          "(phase 2's and 2b/2c's shapes)")
+    bf16_rows = phase_gru_bf16(torch, rng, enc_shapes, train_shapes)
     phase("phase 3: rankcount vs plain (exact-arithmetic rows)")
     rc_rows = phase_rankcount(torch, rng, [(1024, 100_000, 1024),
                                            (args.videos, args.videos, 1024)])
@@ -941,6 +1387,8 @@ def main() -> int:
     phase_topk(torch, rng)
     phase("phase 3c: simhinge vs plain (exact-arithmetic rows)")
     sh_rows = phase_simhinge(torch, rng, (512, 64, 300))
+    phase("phase 3d: rankcount lowp (bf16 multiplies) vs plain")
+    lowp_rows = phase_rankcount_lowp(torch, rng)
     phase("phase 4: serving path at full cmhse_full width")
     main_out = phase_main_path(torch, np, args.seed, args.videos)
     counts = main_out["counts"]
@@ -950,54 +1398,93 @@ def main() -> int:
                                  "serving path")
     phase("phase 4b: where the encode's device time goes (torch.profiler)")
     phase_breakdown(torch, main_out["model"], main_out["batches"])
-    del main_out
+    phase("phase 4c: serving path in bf16 (dtype and feature_dtype "
+          "bfloat16), same weights and batches")
+    bf16_serve = phase_serving_bf16(torch, np, main_out)
+    bf16_counts = bf16_serve["counts"]
+    phase("phase 4c: where the bf16 encode's device time goes "
+          "(torch.profiler)")
+    phase_breakdown(torch, bf16_serve["model"], bf16_serve["batches"])
+    del main_out, bf16_serve
     phase(f"phase 5: training path at full cmhse_full width ({TRAIN_STEPS} "
-        "train_steps, then validate_metrics)")
+          "train_steps, then validate_metrics)")
     train_out = phase_train(torch, np, args.seed)
     tcounts = train_out["counts"]
-    for name, n in tcounts.items():
-        if n <= 0:
-            raise AssertionError(f"kernel {name} was not launched on the "
-                                 "training path")
     phase("phase 5b: where one train step's device time goes (torch.profiler)")
     phase_train_breakdown(torch, train_out["state"], train_out["batch"],
                           train_out["loss_cfg"])
     del train_out
     phase("phase 5c: one train step at batch 8, card vs CPU")
     phase_train_parity(torch, np, args.seed)
+    phase(f"phase 5d: training path in bf16 ({TRAIN_STEPS} train_steps, "
+          "then validate_metrics)")
+    bf16_train = phase_train(torch, np, args.seed, bf16=True)
+    bcounts = bf16_train["counts"]
+    phase("phase 5d: where one bf16 train step's device time goes "
+          "(torch.profiler)")
+    phase_train_breakdown(torch, bf16_train["state"], bf16_train["batch"],
+                          bf16_train["loss_cfg"])
+    del bf16_train
+    phase("phase 5d: one bf16 train step at batch 8, card vs CPU")
+    phase_train_parity_bf16(torch, np, args.seed)
 
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith(("jax.", "cmhse_tpu.")))
     if leaked:
         raise AssertionError(f"the port loaded JAX modules: {leaked[:5]}")
 
-    def entry(name, replaces, rows, path, launches, **extra):
+    def entry(name, source, replaces, rows, path, launches, **extra):
         head = rows[0]
         return dict(
-            name=name, route="cuda",
-            source=f"cmhse_tpu_torch/csrc/{name}.cu", replaces=replaces,
-            path=path, launches=launches,
+            name=name, route="cuda", source=f"cmhse_tpu_torch/csrc/{source}",
+            replaces=replaces, path=path, launches=launches,
             max_abs_err=max(r["max_abs_err"] for r in rows), ms=head["ms"],
             plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
             bound_by=head["bound_by"], library_ms=head["library_ms"],
             shape=head["shape"], other_shapes=rows[1:], **extra)
 
+    k1, k2 = "cmhse_tpu/ops/pallas_gru.py:51", \
+        "cmhse_tpu/ops/pallas_gru_grad.py:70"
+    k4 = "cmhse_tpu/ops/pallas_sim.py:286"
     entries = [
-        entry("gru_fwd", "cmhse_tpu/ops/pallas_gru.py:51", gru_rows + fwd_rows,
+        entry("gru_fwd", "gru_fwd.cu", k1, gru_rows + fwd_rows,
               "serve+train", counts["gru_fwd"] + tcounts["gru_fwd"],
               launches_by_path={"serve": counts["gru_fwd"],
                                 "train": tcounts["gru_fwd"]},
               launches_save_gates=tcounts["gru_fwd save_gates"],
               launches_with_h0=tcounts["gru_fwd with_h0"]),
-        entry("gru_bwd", "cmhse_tpu/ops/pallas_gru_grad.py:70", bwd_rows,
-              "train", tcounts["gru_bwd"]),
-        entry("simhinge", "cmhse_tpu/ops/pallas_sim.py:58", sh_rows, "train",
-              tcounts["simhinge"]),
-        entry("rankcount", "cmhse_tpu/ops/pallas_sim.py:286", rc_rows,
-              "serve+train", counts["rankcount"] + tcounts["rankcount"],
+        entry("gru_bwd", "gru_bwd.cu", k2, bwd_rows, "train",
+              tcounts["gru_bwd"]),
+        entry("simhinge", "simhinge.cu", "cmhse_tpu/ops/pallas_sim.py:58",
+              sh_rows, "train", tcounts["simhinge"] + bcounts["simhinge"],
+              launches_by_path={"train": tcounts["simhinge"],
+                                "train bf16": bcounts["simhinge"]}),
+        entry("rankcount", "rankcount.cu", k4, rc_rows, "serve+train",
+              counts["rankcount"] + tcounts["rankcount"],
               launches_by_path={"serve": counts["rankcount"],
                                 "train": tcounts["rankcount"]}),
+        entry("gru_fwd bf16", "gru_fwd.cu", k1, bf16_rows["encode"],
+              "serve bf16", bf16_counts["gru_fwd bf16"]),
+        entry("gru_fwd bf16 save_gates", "gru_fwd.cu", k1,
+              bf16_rows["save_gates"], "train bf16",
+              bcounts["gru_fwd bf16 save_gates"]
+              - bcounts["gru_fwd bf16 with_h0"]),
+        entry("gru_fwd bf16 save_gates+with_h0", "gru_fwd.cu", k1,
+              bf16_rows["save_gates_h0"], "train bf16",
+              bcounts["gru_fwd bf16 with_h0"]),
+        entry("gru_bwd bf16", "gru_bwd.cu", k2, bf16_rows["bwd"],
+              "train bf16",
+              bcounts["gru_bwd bf16"] - bcounts["gru_bwd bf16 with_h0"]),
+        entry("gru_bwd bf16 with_h0", "gru_bwd.cu", k2, bf16_rows["bwd_h0"],
+              "train bf16", bcounts["gru_bwd bf16 with_h0"]),
+        entry("rankcount lowp", "rankcount.cu", k4, lowp_rows, "serve bf16",
+              bf16_counts["rankcount lowp"],
+              branch="lowp, cmhse_tpu/ops/pallas_sim.py:297-304"),
     ]
+    for e in entries:
+        if e["launches"] <= 0:
+            raise AssertionError(f"kernel {e['name']} was not launched on "
+                                 f"its path ({e['path']})")
     phase("done")
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,7 +1,8 @@
-// Masked GRU backward time loop (BPTT) for Hopper (sm_90a), f32.
+// Masked GRU backward time loop (BPTT) for Hopper (sm_90a), f32 and bf16.
 //
 // Replaces cmhse_tpu/ops/pallas_gru_grad.py:_gru_bwd_kernel, with and
-// without the seeded h0. It reads the gates [r, z, n, hn] that the
+// without the seeded h0, in both of its element types (the template
+// parameter E). It reads the gates [r, z, n, hn] that the
 // gate-saving forward (gru_fwd.cu) wrote and walks time backwards:
 //
 //   dh  = dh_carry + douts[t]             (dfinal seeds dh_carry at t = T-1)
@@ -20,6 +21,13 @@
 // [4H] partial per block, which the wrapper sums: no float atomics, so the
 // result does not change from run to run.
 //
+// bf16 (E = __nv_bfloat16) keeps the TPU kernel's rounding points: gates,
+// outs (h_prev is the bf16 output, not the forward's f32 carry), douts,
+// dfinal, h0 and W_h^T are bf16 in memory; the carried dh, the gate
+// gradients and the bias sums are f32; [dr', dz', dhn] is rounded to bf16
+// before the W_h^T product (f32 accumulation: exact products, f32 FMAs);
+// dxw, dhn and dh0 are rounded to nearest even on store.
+//
 // Design. The forward's shape: one block owns kRows = 8 batch rows and ALL
 // H units and runs the reversed time loop itself, so blocks never talk to
 // each other. Each thread owns kUnits consecutive units (j..j+3, and
@@ -36,15 +44,25 @@
 // from overwriting dhw while phase 2 still reads it. Shared memory is
 // 4 * 32 * H bytes (128 KB at H = 1024), so H is at most 1,816.
 //
-// What bounds it on an H100: as in the forward, W_h^T (12.6 MB at H = 1024)
-// does not fit on chip, so every block streams all of it from L2 once per
+// bf16 reads W_h^T and the streams with 8-byte loads of 4 columns, for the
+// forward's reasons (gru_fwd.cu): one thread-to-unit map and one shared
+// layout for both types. Shared memory does not change with the type: the
+// carry and dhw are f32 (dhw holds bf16-rounded values in the bf16 kernel).
+// The bf16 kernel measured the f32 one's time (PERF.md): halving the bytes
+// of W_h^T does not shorten a step.
+//
+// What bounds it on an H100: as in the forward, W_h^T (12.6 MB f32, 6.3 MB
+// bf16 at H = 1024) does not fit on chip, so every block streams all of it from L2 once per
 // live step at 8 FMAs per element read, and a call costs T steps of one
 // SM's work on B / 8 blocks (64 of 132 SMs at 512 rows, 8 at 64 rows).
 // Steps where all 8 rows are masked skip the product. Splitting W_h^T
 // across the SMs is the same later redesign as the forward's.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -57,6 +75,63 @@ static_assert(kRows == 8, "the float4 dhw loads below assume 8 rows");
 
 __device__ __forceinline__ float4 ldg4(const float* p) {
   return __ldg(reinterpret_cast<const float4*>(p));
+}
+
+// The raw bits of 4 consecutive elements: one 16-byte load (f32) or one
+// 8-byte load (bf16). The prefetch registers hold them raw and widen4 turns
+// them into f32 where the FMAs use them: a conversion at the load would wait
+// for the load there and drain the rows in flight.
+template <typename E> struct Raw4;
+template <> struct Raw4<float> { using type = float4; };
+template <> struct Raw4<__nv_bfloat16> { using type = uint2; };
+
+__device__ __forceinline__ float4 ldraw4(const float* p) { return ldg4(p); }
+__device__ __forceinline__ uint2 ldraw4(const __nv_bfloat16* p) {
+  return __ldg(reinterpret_cast<const uint2*>(p));
+}
+
+// two bf16 (the low half first) widened exactly: one instruction each
+__device__ __forceinline__ float2 widen2(unsigned int bits) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&bits));
+}
+
+__device__ __forceinline__ float4 widen4(float4 v) { return v; }
+__device__ __forceinline__ float4 widen4(uint2 v) {
+  const float2 a = widen2(v.x), b = widen2(v.y);
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+// 4 consecutive elements as f32
+template <typename E>
+__device__ __forceinline__ float4 load4(const E* p) {
+  return widen4(ldraw4(p));
+}
+
+__device__ __forceinline__ float load1(const float* p) { return *p; }
+__device__ __forceinline__ float load1(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+
+__device__ __forceinline__ void store4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+
+// round to nearest even, as astype(jnp.bfloat16) does
+__device__ __forceinline__ unsigned int rn_bits(float x) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(x));
+}
+
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
+  *reinterpret_cast<uint2*>(p) =
+      make_uint2(rn_bits(v.x) | (rn_bits(v.y) << 16),
+                 rn_bits(v.z) | (rn_bits(v.w) << 16));
+}
+
+// the product operand: the value itself (f32) or rounded to bf16
+template <typename E>
+__device__ __forceinline__ float operand(float x) {
+  if constexpr (std::is_same<E, float>::value) return x;
+  return __bfloat162float(__float2bfloat16_rn(x));
 }
 
 __device__ __forceinline__ void fma4(float4& acc, float h, float4 w) {
@@ -74,18 +149,19 @@ __device__ __forceinline__ float4 add4(float4 a, float4 b) {
   return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
 }
 
+template <typename E>
 __global__ void __launch_bounds__(kThreads, 1)
-gru_bwd_kernel(const float* __restrict__ gates,     // [B, T, 4H]
-               const float* __restrict__ outs,      // [B, T, H]
-               const float* __restrict__ h_init,    // [B, H] or null
-               const float* __restrict__ douts,     // [B, T, H] or null
-               const float* __restrict__ dfinal,    // [B, H] or null
+gru_bwd_kernel(const E* __restrict__ gates,         // [B, T, 4H]
+               const E* __restrict__ outs,          // [B, T, H]
+               const E* __restrict__ h_init,        // [B, H] or null
+               const E* __restrict__ douts,         // [B, T, H] or null
+               const E* __restrict__ dfinal,        // [B, H] or null
                const int32_t* __restrict__ lengths, // [B]
-               const float* __restrict__ w_hT,      // [3H, H]
-               float* __restrict__ dxw,             // [B, T, 3H]
-               float* __restrict__ dhn_out,         // [B, T, H]
+               const E* __restrict__ w_hT,          // [3H, H]
+               E* __restrict__ dxw,                 // [B, T, 3H]
+               E* __restrict__ dhn_out,             // [B, T, H]
                float* __restrict__ db_part,         // [gridDim.x, 4H]
-               float* __restrict__ dh0,             // [B, H] or null
+               E* __restrict__ dh0,                 // [B, H] or null
                int B, int T, int H) {
   extern __shared__ float4 smem4[];
   float* dh_s = reinterpret_cast<float*>(smem4);  // [H][kRows] the carry
@@ -104,8 +180,9 @@ gru_bwd_kernel(const float* __restrict__ gates,     // [B, T, 4H]
   }
   for (int i = threadIdx.x; i < H * kRows; i += blockDim.x) {
     const int b = row0 + i % kRows;  // k-major: [H][kRows]
-    dh_s[i] = (dfinal != nullptr && b < B) ? dfinal[(size_t)b * H + i / kRows]
-                                           : 0.0f;
+    dh_s[i] = (dfinal != nullptr && b < B)
+                  ? load1(dfinal + (size_t)b * H + i / kRows)
+                  : 0.0f;
   }
   float4 db[kMaxGroups][4];
 #pragma unroll
@@ -128,18 +205,18 @@ gru_bwd_kernel(const float* __restrict__ gates,     // [B, T, 4H]
                                 dh_s[(j + 2) * kRows + r],
                                 dh_s[(j + 3) * kRows + r]);
         if (douts != nullptr && b < B)
-          dh = add4(dh, ldg4(douts + ((size_t)b * T + t) * H + j));
+          dh = add4(dh, load4(douts + ((size_t)b * T + t) * H + j));
         float4 carry = dh, dr4 = zero4, dz4 = zero4, dn4 = zero4,
                dhn4 = zero4;
         if (live) {
-          const float* gp = gates + ((size_t)b * T + t) * 4 * H + j;
-          float4 rg = ldg4(gp), zg = ldg4(gp + H), ng = ldg4(gp + 2 * H),
-                 hng = ldg4(gp + 3 * H);
+          const E* gp = gates + ((size_t)b * T + t) * 4 * H + j;
+          float4 rg = load4(gp), zg = load4(gp + H), ng = load4(gp + 2 * H),
+                 hng = load4(gp + 3 * H);
           float4 hp = zero4;
           if (t > 0)
-            hp = ldg4(outs + ((size_t)b * T + t - 1) * H + j);
+            hp = load4(outs + ((size_t)b * T + t - 1) * H + j);
           else if (h_init != nullptr)
-            hp = ldg4(h_init + (size_t)b * H + j);
+            hp = load4(h_init + (size_t)b * H + j);
 #pragma unroll
           for (int u = 0; u < kUnits; ++u) {
             const float d = at(dh, u), r_ = at(rg, u), z_ = at(zg, u),
@@ -158,17 +235,16 @@ gru_bwd_kernel(const float* __restrict__ gates,     // [B, T, 4H]
 #pragma unroll
         for (int u = 0; u < kUnits; ++u) {
           dh_s[(j + u) * kRows + r] = at(carry, u);
-          dhw_s[(j + u) * kRows + r] = at(dr4, u);
-          dhw_s[(H + j + u) * kRows + r] = at(dz4, u);
-          dhw_s[(2 * H + j + u) * kRows + r] = at(dhn4, u);
+          dhw_s[(j + u) * kRows + r] = operand<E>(at(dr4, u));
+          dhw_s[(H + j + u) * kRows + r] = operand<E>(at(dz4, u));
+          dhw_s[(2 * H + j + u) * kRows + r] = operand<E>(at(dhn4, u));
         }
         if (b < B) {
-          float* dx = dxw + ((size_t)b * T + t) * 3 * H + j;
-          *reinterpret_cast<float4*>(dx) = dr4;
-          *reinterpret_cast<float4*>(dx + H) = dz4;
-          *reinterpret_cast<float4*>(dx + 2 * H) = dn4;
-          *reinterpret_cast<float4*>(dhn_out + ((size_t)b * T + t) * H + j) =
-              dhn4;
+          E* dx = dxw + ((size_t)b * T + t) * 3 * H + j;
+          store4(dx, dr4);
+          store4(dx + H, dz4);
+          store4(dx + 2 * H, dn4);
+          store4(dhn_out + ((size_t)b * T + t) * H + j, dhn4);
         }
         db[g][0] = add4(db[g][0], dr4);
         db[g][1] = add4(db[g][1], dz4);
@@ -188,18 +264,19 @@ gru_bwd_kernel(const float* __restrict__ gates,     // [B, T, 4H]
       float4 acc[kRows];
 #pragma unroll
       for (int r = 0; r < kRows; ++r) acc[r] = zero4;
-      const float* wcol = w_hT + j;
-      float4 pw[kPrefetch];
+      const E* wcol = w_hT + j;
+      typename Raw4<E>::type pw[kPrefetch];
 #pragma unroll
-      for (int p = 0; p < kPrefetch; ++p) pw[p] = ldg4(wcol + (size_t)p * H);
+      for (int p = 0; p < kPrefetch; ++p) pw[p] = ldraw4(wcol + (size_t)p * H);
       // 3H is a multiple of kPrefetch (the wrapper checks H % 4 == 0)
       for (int k0 = 0; k0 < 3 * H; k0 += kPrefetch) {
 #pragma unroll
         for (int p = 0; p < kPrefetch; ++p) {
           const int k = k0 + p;
-          const float4 w = pw[p];
+          const auto raw = pw[p];
           if (k + kPrefetch < 3 * H)
-            pw[p] = ldg4(wcol + (size_t)(k + kPrefetch) * H);
+            pw[p] = ldraw4(wcol + (size_t)(k + kPrefetch) * H);
+          const float4 w = widen4(raw);
           const float4 d0 = dhw4[2 * k];
           const float4 d1 = dhw4[2 * k + 1];
           const float dv[kRows] = {d0.x, d0.y, d0.z, d0.w,
@@ -232,36 +309,57 @@ gru_bwd_kernel(const float* __restrict__ gates,     // [B, T, 4H]
     for (int r = 0; r < kRows; ++r) {
       const int b = row0 + r;
       if (b < B)
-        *reinterpret_cast<float4*>(dh0 + (size_t)b * H + j) =
-            make_float4(dh_s[j * kRows + r], dh_s[(j + 1) * kRows + r],
-                        dh_s[(j + 2) * kRows + r], dh_s[(j + 3) * kRows + r]);
+        store4(dh0 + (size_t)b * H + j,
+               make_float4(dh_s[j * kRows + r], dh_s[(j + 1) * kRows + r],
+                           dh_s[(j + 2) * kRows + r],
+                           dh_s[(j + 3) * kRows + r]));
     }
   }
+}
+
+template <typename E>
+int launch_gru_bwd(const void* gates, const void* outs, const void* h0,
+                   const void* douts, const void* dfinal,
+                   const int32_t* lengths, const void* w_hT, void* dxw,
+                   void* dhn, float* db_part, void* dh0, int B, int T, int H,
+                   cudaStream_t stream) {
+  const size_t smem = 4 * (size_t)H * kRows * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      gru_bwd_kernel<E>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((B + kRows - 1) / kRows);
+  gru_bwd_kernel<E><<<grid, kThreads, smem, stream>>>(
+      static_cast<const E*>(gates), static_cast<const E*>(outs),
+      static_cast<const E*>(h0), static_cast<const E*>(douts),
+      static_cast<const E*>(dfinal), lengths, static_cast<const E*>(w_hT),
+      static_cast<E*>(dxw), static_cast<E*>(dhn), db_part,
+      static_cast<E*>(dh0), B, T, H);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // H must be a multiple of 4, at most cmhse_gru_bwd_max_hidden(), and every
-// pointer 16-byte aligned (the wrapper checks all three). h0, douts, dfinal
-// and dh0 may each be null; db_part has one [4H] row per block of 8 rows.
-extern "C" int cmhse_gru_bwd(const float* gates, const float* outs,
-                             const float* h0, const float* douts,
-                             const float* dfinal, const int32_t* lengths,
-                             const float* w_hT, float* dxw, float* dhn,
-                             float* db_part, float* dh0, int B, int T, int H,
-                             void* stream) {
+// pointer 16-byte aligned (the wrapper checks all three). Every tensor but
+// db_part is f32, or bf16 when bf16 != 0; db_part is f32 either way, one
+// [4H] row per block of 8 rows. h0, douts, dfinal and dh0 may each be null.
+extern "C" int cmhse_gru_bwd(const void* gates, const void* outs,
+                             const void* h0, const void* douts,
+                             const void* dfinal, const int32_t* lengths,
+                             const void* w_hT, void* dxw, void* dhn,
+                             float* db_part, void* dh0, int B, int T, int H,
+                             int bf16, void* stream) {
   if (B <= 0 || T <= 0 || H <= 0 || H % kUnits != 0 ||
       H > kMaxGroups * kUnits * kThreads)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = 4 * (size_t)H * kRows * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      gru_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((B + kRows - 1) / kRows);
-  gru_bwd_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      gates, outs, h0, douts, dfinal, lengths, w_hT, dxw, dhn, db_part, dh0,
-      B, T, H);
-  return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  if (bf16)
+    return launch_gru_bwd<__nv_bfloat16>(gates, outs, h0, douts, dfinal,
+                                         lengths, w_hT, dxw, dhn, db_part,
+                                         dh0, B, T, H, s);
+  return launch_gru_bwd<float>(gates, outs, h0, douts, dfinal, lengths, w_hT,
+                               dxw, dhn, db_part, dh0, B, T, H, s);
 }
 
 // Rows per block: the number of db_part rows is ceil(B / this).

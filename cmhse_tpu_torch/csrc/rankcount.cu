@@ -1,8 +1,9 @@
-// Streaming rank count for Hopper (sm_90a), f32.
+// Streaming rank count for Hopper (sm_90a), f32 and its lowp branch.
 //
-// Replaces cmhse_tpu/ops/pallas_sim.py:_rankcount_kernel (its f32 branch;
-// the bf16-multiply `lowp` branch is not ported). For each query q it counts
-// the gallery rows n with
+// Replaces cmhse_tpu/ops/pallas_sim.py:_rankcount_kernel, both branches as a
+// template flag: f32, and `lowp` (precision="bfloat16": both operands
+// rounded to bf16, f32 accumulation). For each query q it counts the gallery
+// rows n with
 //
 //   s = <queries[q], gallery[n]> > pos[q]  &&  valid[n]  &&  n != posidx[q]
 //
@@ -27,6 +28,14 @@
 // Ragged Q and N are masked in the kernel; D must be a multiple of 4 and the
 // operands 16-byte aligned (the wrapper checks).
 //
+// lowp rounds each operand to bf16 (nearest even) where its slab is staged
+// into shared memory, once per element per tile, and keeps the f32 FMAs: a
+// product of two bf16 values is exact in f32, so this is the TPU branch's
+// "bf16 multiplies, f32 accumulate" up to summation order. The inputs stay
+// f32 in memory, as the TPU kernel takes them. On this card the branch
+// saves nothing (same FMAs, same bytes; the rounding costs ~17% more time,
+// PERF.md); it exists for the TPU's counts.
+//
 // What bounds it on an H100: the 2*Q*N*D FLOPs (2.1e11 at Q=1024, N=100k,
 // D=1024; 3.1 ms at the 67 TFLOP/s f32 peak). The gallery is read once per
 // query tile (Q/BM times), mostly from L2, far below the compute time at
@@ -34,6 +43,7 @@
 // shared loads and address math); tensor cores would need tf32 or bf16
 // inputs, which changes the counts, so they are not used.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -46,16 +56,26 @@ constexpr int BK = 8;    // depth of one shared-memory slab
 constexpr int NT = 256;  // threads: a 16 x 16 grid, 8 x 8 scores each
 static_assert(BM * BK == 4 * NT && BN * BK == 4 * NT, "one float4 per thread");
 
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
 // Fetch one BK-deep slab of 128 rows starting at row0 / depth k0: thread t
 // loads row t / 2, depths k0 + 4 * (t % 2) .. + 3. Rows past `rows` and
-// depths past D read as 0.
+// depths past D read as 0. kLowp rounds the values to bf16.
+template <bool kLowp>
 __device__ __forceinline__ float4 load_slab(const float* __restrict__ src,
                                             int row0, int rows, int k0, int D,
                                             int tid) {
   const int r = row0 + tid / 2;
   const int k = k0 + 4 * (tid % 2);
-  if (r < rows && k < D)
-    return __ldg(reinterpret_cast<const float4*>(src + (size_t)r * D + k));
+  if (r < rows && k < D) {
+    float4 v = __ldg(reinterpret_cast<const float4*>(src + (size_t)r * D + k));
+    if constexpr (kLowp)
+      v = make_float4(round_bf16(v.x), round_bf16(v.y), round_bf16(v.z),
+                      round_bf16(v.w));
+    return v;
+  }
   return make_float4(0.0f, 0.0f, 0.0f, 0.0f);
 }
 
@@ -69,6 +89,7 @@ __device__ __forceinline__ void store_slab(float (*dst)[BM], float4 v,
   dst[k + 3][r] = v.w;
 }
 
+template <bool kLowp>
 __global__ void __launch_bounds__(NT, 2)
 rankcount_kernel(const float* __restrict__ q,         // [Q, D]
                  const float* __restrict__ g,         // [N, D]
@@ -107,8 +128,8 @@ rankcount_kernel(const float* __restrict__ q,         // [Q, D]
 #pragma unroll
       for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
 
-    float4 a_next = load_slab(q, q0, Q, 0, D, tid);
-    float4 b_next = load_slab(g, n0, N, 0, D, tid);
+    float4 a_next = load_slab<kLowp>(q, q0, Q, 0, D, tid);
+    float4 b_next = load_slab<kLowp>(g, n0, N, 0, D, tid);
     __syncthreads();  // the previous tile's last reads of buffer 0 are done
     store_slab(As[0], a_next, tid);
     store_slab(Bs[0], b_next, tid);
@@ -116,8 +137,8 @@ rankcount_kernel(const float* __restrict__ q,         // [Q, D]
     for (int s = 0; s < n_slabs; ++s) {
       const int cur = s % 2;
       if (s + 1 < n_slabs) {
-        a_next = load_slab(q, q0, Q, (s + 1) * BK, D, tid);
-        b_next = load_slab(g, n0, N, (s + 1) * BK, D, tid);
+        a_next = load_slab<kLowp>(q, q0, Q, (s + 1) * BK, D, tid);
+        b_next = load_slab<kLowp>(g, n0, N, (s + 1) * BK, D, tid);
       }
 #pragma unroll
       for (int k = 0; k < BK; ++k) {
@@ -170,16 +191,21 @@ rankcount_kernel(const float* __restrict__ q,         // [Q, D]
 
 }  // namespace
 
-// splits: how many blocks share one query tile's gallery (grid.y).
+// splits: how many blocks share one query tile's gallery (grid.y); lowp:
+// the bf16-multiply branch.
 extern "C" int cmhse_rankcount(const float* q, const float* g, const float* pos,
                                const int32_t* posidx, const uint8_t* gvalid,
                                int32_t* counts, int Q, int N, int D,
-                               int splits, void* stream) {
+                               int splits, int lowp, void* stream) {
   if (Q <= 0 || N <= 0 || D <= 0 || D % 4 != 0 || splits <= 0)
     return (int)cudaErrorInvalidValue;
   const dim3 grid((Q + BM - 1) / BM, splits);
-  rankcount_kernel<<<grid, NT, 0, (cudaStream_t)stream>>>(
-      q, g, pos, posidx, gvalid, counts, Q, N, D);
+  if (lowp)
+    rankcount_kernel<true><<<grid, NT, 0, (cudaStream_t)stream>>>(
+        q, g, pos, posidx, gvalid, counts, Q, N, D);
+  else
+    rankcount_kernel<false><<<grid, NT, 0, (cudaStream_t)stream>>>(
+        q, g, pos, posidx, gvalid, counts, Q, N, D);
   return (int)cudaGetLastError();
 }
 

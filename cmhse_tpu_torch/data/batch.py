@@ -3,7 +3,8 @@
 Shapes are static per bucket; raggedness lives in the length fields and
 padding rows of a short batch are flagged by ``valid``. The loader builds
 batches of numpy arrays on the host; :meth:`Batch.to` moves them to a torch
-device.
+device. bf16 ``frames`` are already a CPU ``torch.bfloat16`` tensor on the
+host (see :func:`cmhse_tpu_torch.data.bucketing.pad_batch`).
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ class Batch:
     """One padded video-paragraph batch at both hierarchy levels.
 
     Video side:
-      frames:    f32[B, Cmax, Fmax, feat]  clip frame features
+      frames:    f32|bf16[B, Cmax, Fmax, feat]  clip frame features
       frame_len: i32[B, Cmax]              valid frames per clip (0 = pad clip)
       clip_len:  i32[B]                    valid clips per video
     Text side:

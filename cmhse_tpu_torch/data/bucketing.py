@@ -2,7 +2,8 @@
 
 Counterpart of ``cmhse_tpu/data/bucketing.py`` (numpy, host side). Shapes are
 static per bucket and raggedness is carried by the length fields, so the
-batches are array-equal to the JAX package's for the same examples.
+batches are array-equal to the JAX package's for the same examples; bf16
+``frames`` are bit-equal to its ``feature_dtype="bfloat16"`` batches.
 """
 
 from __future__ import annotations
@@ -12,16 +13,22 @@ from dataclasses import dataclass
 
 import numpy as np
 
+import torch
+
 from cmhse_tpu_torch.data.batch import Batch
+
+FEATURE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 @dataclass(frozen=True)
 class BucketSpec:
     """Static shape caps for one bucket.
 
-    ``feature_dtype``: dtype of the emitted ``frames`` array. Only
-    ``"float32"`` is ported; the JAX package's bf16 feature option waits for
-    the port's bf16 models.
+    ``feature_dtype``: dtype of the emitted ``frames``: ``"float32"`` (a
+    numpy array) or ``"bfloat16"`` (a CPU ``torch.bfloat16`` tensor, since
+    numpy has no bf16 without ``ml_dtypes``), for bf16 models: half the
+    bytes to copy to the card, and the same values, since such a model
+    rounds its inputs to bf16 at once.
     """
 
     batch_size: int
@@ -44,12 +51,11 @@ class BucketSpec:
             self.feature_dtype,
         )
 
-    def np_feature_dtype(self) -> np.dtype:
-        if self.feature_dtype != "float32":
-            raise ValueError(
-                f"feature_dtype {self.feature_dtype!r} is not supported by "
-                "the port yet; use 'float32'")
-        return np.dtype(np.float32)
+    def __post_init__(self):
+        if self.feature_dtype not in FEATURE_DTYPES:
+            raise ValueError(f"feature_dtype must be one of "
+                             f"{sorted(FEATURE_DTYPES)}, got "
+                             f"{self.feature_dtype!r}")
 
 
 def pick_bucket(value: int, edges: tuple[int, ...]) -> int:
@@ -70,8 +76,7 @@ def pad_batch(examples: list, spec: BucketSpec) -> Batch:
     cmax, fmax = spec.max_clips, spec.max_frames
     smax, wmax = spec.max_sentences, spec.max_words
 
-    frames = np.zeros((b, cmax, fmax, spec.feat_dim),
-                      spec.np_feature_dtype())
+    frames = np.zeros((b, cmax, fmax, spec.feat_dim), np.float32)
     frame_len = np.zeros((b, cmax), np.int32)
     clip_len = np.zeros((b,), np.int32)
     words = np.zeros((b, smax, wmax), np.int32)
@@ -98,6 +103,9 @@ def pad_batch(examples: list, spec: BucketSpec) -> Batch:
         video_ids[i] = ex.video_id
         valid[i] = True
 
+    if spec.feature_dtype == "bfloat16":
+        # torch rounds to nearest even, as astype(jnp.bfloat16) does
+        frames = torch.from_numpy(frames).to(torch.bfloat16)
     return Batch(
         frames=frames,
         frame_len=frame_len,

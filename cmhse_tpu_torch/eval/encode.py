@@ -33,18 +33,20 @@ def encode_batch(model: CMHSE, batch: Batch):
 def encode_data(model: CMHSE, batches, return_low_level: bool = False):
     """Host-collecting encode: returns (video_embs [N, E], para_embs
     [N, E], video_ids [N]) as numpy with padded rows dropped, plus
-    optionally the low-level (clip, sentence) embeddings and their masks."""
+    optionally the low-level (clip, sentence) embeddings and their masks.
+    bf16 embeddings come back as f32 arrays of the same values (numpy has
+    no bf16)."""
     v_all, p_all, ids_all = [], [], []
     clip_all, sent_all, cmask_all, smask_all = [], [], [], []
     for batch in batches:
         v, p, clip, sent = encode_batch(model, batch)
         keep = np.asarray(batch.valid)
-        v_all.append(v.cpu().numpy()[keep])
-        p_all.append(p.cpu().numpy()[keep])
+        v_all.append(v.float().cpu().numpy()[keep])
+        p_all.append(p.float().cpu().numpy()[keep])
         ids_all.append(np.asarray(batch.video_ids)[keep])
         if return_low_level:
-            clip_all.append(clip.cpu().numpy()[keep])
-            sent_all.append(sent.cpu().numpy()[keep])
+            clip_all.append(clip.float().cpu().numpy()[keep])
+            sent_all.append(sent.float().cpu().numpy()[keep])
             cmask_all.append(np.asarray(batch.clip_valid())[keep])
             smask_all.append(np.asarray(batch.sent_valid())[keep])
     if not v_all:
@@ -61,8 +63,9 @@ def encode_gallery_device(model: CMHSE, batches, return_ids: bool = False):
     """Device-resident gallery encode.
 
     Returns (video_embs [Np, E], para_embs [Np, E], valid bool[Np]) on the
-    model's device, padded rows kept in place (aligned across both
-    modalities) and flagged by ``valid``. ``return_ids`` adds the host
+    model's device, in its compute dtype (a bf16 model's gallery is stored
+    bf16), padded rows kept in place (aligned across both modalities) and
+    flagged by ``valid``. ``return_ids`` adds the host
     ``video_ids`` int32[Np], used by serving to map rows back to keys.
     """
     v_all, p_all, valid_all, ids_all = [], [], [], []

@@ -23,12 +23,16 @@ def streaming_bidirectional_metrics(
     ks: tuple[int, ...] = (1, 5, 10, 50),
     valid: torch.Tensor | None = None,
     return_ranks: bool = False,
+    precision: str = "float32",
 ) -> dict:
     """Bidirectional metrics via the streaming rank count. Same rank
     semantics as :func:`bidirectional_metrics` (strict-greater counting,
-    NaN positives rank worst); the positive score is the row-wise dot.
-    ``valid``: row validity; invalid rows are excluded as queries and as
-    gallery items."""
+    NaN positives rank worst); the positive score is the row-wise dot,
+    reduced in f32. ``valid``: row validity; invalid rows are excluded as
+    queries and as gallery items. ``precision``: the rank count's product,
+    ``"float32"`` or ``"bfloat16"`` (bf16 multiplies, f32 accumulation; see
+    :func:`cmhse_tpu_torch.ops.rankcount_kernel.violation_counts`). Either
+    takes f32 copies of bf16 embeddings, exactly."""
     pos_score = torch.sum(v_emb.float() * p_emb.float(), dim=1)
     if valid is not None:
         # invalid rows must not look like (possibly NaN) real queries
@@ -38,7 +42,8 @@ def streaming_bidirectional_metrics(
 
     def rank_fn(a, b):
         return rank_counts(a.float().contiguous(), b.float().contiguous(),
-                           pos_score, gallery_valid=valid, pos_idx=pos_idx)
+                           pos_score, gallery_valid=valid, pos_idx=pos_idx,
+                           precision=precision)
 
     return bidirectional_metrics_from_ranks(rank_fn, v_emb, p_emb, ks=ks,
                                             valid=valid,

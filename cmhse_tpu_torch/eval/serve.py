@@ -70,7 +70,9 @@ class Retriever:
         self._prepared = None
 
     def _query(self, arrays) -> list:
-        return [torch.as_tensor(np.asarray(a)).to(self.model.device)
+        # bf16 frames arrive as a torch tensor (numpy has no bf16)
+        return [(a if isinstance(a, torch.Tensor)
+                 else torch.as_tensor(np.asarray(a))).to(self.model.device)
                 for a in arrays]
 
     def _empty(self, q_rows: int) -> tuple[np.ndarray, np.ndarray]:

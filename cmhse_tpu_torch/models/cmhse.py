@@ -10,6 +10,10 @@
 ``encode_video`` / ``encode_text`` are the serving and evaluation entry
 points; ``forward(batch)`` is the training forward and returns
 :class:`ModelOutputs`, everything the objective needs.
+
+``ModelConfig.dtype`` is the compute dtype: ``"float32"``, or
+``"bfloat16"`` for the JAX package's mixed-precision configuration (bf16
+activations and embeddings, f32 parameters, f32 GRU carry and loss).
 """
 
 from __future__ import annotations
@@ -27,6 +31,8 @@ from cmhse_tpu_torch.models.encoders import (SequenceEncoder, WordEmbedding,
                                              _dense)
 from cmhse_tpu_torch.models.gru import gru_input_projection
 from cmhse_tpu_torch.ops.gru_kernel import gru_recurrence
+
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 @dataclass
@@ -60,22 +66,26 @@ class ReconstructionDecoder(nn.Module):
     (or a refusal), their plain versions on the CPU. The JAX package sends
     decoders shorter than ``DECODER_PALLAS_MIN_T = 16`` steps to its scan
     instead, a threshold it measured on a TPU; the port does not carry it
-    over. Both routes compute the same function, so parity with JAX is
-    unaffected.
+    over. In f32 the two routes compute the same function. In bf16 they do
+    not: the JAX scan carries h in bf16, the kernels carry it in f32 and
+    round only what they store, so the port's bf16 decoders agree with the
+    JAX package's within the bf16 band, not to f32 accuracy.
     """
 
     def __init__(self, embed_size: int, rnn_hidden: int,
-                 generator: torch.Generator | None = None) -> None:
+                 generator: torch.Generator | None = None,
+                 dtype: torch.dtype = torch.float32) -> None:
         super().__init__()
         e, h = embed_size, rnn_hidden
-        self.init = _dense(e, h, True, generator)
+        self.dtype = dtype
+        self.init = _dense(e, h, True, generator, dtype)
         scale = 1.0 / math.sqrt(h)
         for name, shape in (("w_i", (e, 3 * h)), ("w_h", (h, 3 * h)),
                             ("b_i", (3 * h,)), ("b_h", (3 * h,))):
             p = torch.empty(shape)
             nn.init.uniform_(p, -scale, scale, generator=generator)
             self.register_parameter(name, nn.Parameter(p))
-        self.out = _dense(h, e, True, generator)
+        self.out = _dense(h, e, True, generator, dtype)
 
     def forward(self, high_emb: torch.Tensor, low_seq: torch.Tensor,
                 lengths: torch.Tensor) -> torch.Tensor:
@@ -85,7 +95,8 @@ class ReconstructionDecoder(nn.Module):
         h0 = torch.tanh(self.init(high_emb))
         shifted = torch.cat([low_seq.new_zeros(b, 1, e), low_seq[:, :-1]],
                             dim=1)
-        xw = gru_input_projection(shifted, self.w_i, self.b_i)
+        xw = gru_input_projection(shifted.to(self.dtype), self.w_i,
+                                  self.b_i)
         outs, _ = gru_recurrence(xw.contiguous(), self.w_h, self.b_h,
                                  lengths.to(torch.int32), h0)
         return self.out(outs)
@@ -107,11 +118,13 @@ class CMHSE(nn.Module):
                  device: str | torch.device | None = None,
                  generator: torch.Generator | None = None) -> None:
         super().__init__()
-        if cfg.dtype != "float32" or cfg.param_dtype != "float32":
+        if cfg.dtype not in COMPUTE_DTYPES or cfg.param_dtype != "float32":
             raise NotImplementedError(
-                "the port runs float32 models only so far (got dtype="
-                f"{cfg.dtype!r}, param_dtype={cfg.param_dtype!r})")
+                "the port computes in float32 or bfloat16 with float32 "
+                f"parameters (got dtype={cfg.dtype!r}, "
+                f"param_dtype={cfg.param_dtype!r})")
         device = resolve_device(device)
+        dtype = COMPUTE_DTYPES[cfg.dtype]
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         self.cfg = cfg
@@ -122,17 +135,18 @@ class CMHSE(nn.Module):
         self.word_embedding = WordEmbedding(vocab_size, cfg.word_dim,
                                             generator)
         self.video_low = SequenceEncoder(cfg.feat_dim, e, h, low_readout,
-                                         cfg.bidirectional, generator)
+                                         cfg.bidirectional, generator, dtype)
         self.text_low = SequenceEncoder(cfg.word_dim, e, h, low_readout,
-                                        cfg.bidirectional, generator)
+                                        cfg.bidirectional, generator, dtype)
         if cfg.hierarchical:
             self.video_high = SequenceEncoder(e, e, h, high_readout,
-                                              generator=generator)
+                                              generator=generator,
+                                              dtype=dtype)
             self.text_high = SequenceEncoder(e, e, h, high_readout,
-                                             generator=generator)
+                                             generator=generator, dtype=dtype)
         if cfg.reconstruction:  # the config refuses it without hierarchy
-            self.video_decoder = ReconstructionDecoder(e, h, generator)
-            self.text_decoder = ReconstructionDecoder(e, h, generator)
+            self.video_decoder = ReconstructionDecoder(e, h, generator, dtype)
+            self.text_decoder = ReconstructionDecoder(e, h, generator, dtype)
         self.to(device)
         self.eval()
 
@@ -143,8 +157,8 @@ class CMHSE(nn.Module):
     def encode_video(self, frames: torch.Tensor, frame_len: torch.Tensor,
                      clip_len: torch.Tensor
                      ) -> tuple[torch.Tensor, torch.Tensor]:
-        """frames f32[B, C, F, feat] -> (video_emb [B, E], clip_emb
-        [B, C, E])."""
+        """frames f32|bf16[B, C, F, feat] -> (video_emb [B, E], clip_emb
+        [B, C, E]) in the compute dtype."""
         b, cmax, fmax, feat = frames.shape
         flat = frames.reshape(b * cmax, fmax, feat)
         clip_emb, _ = self.video_low(flat, frame_len.reshape(b * cmax))
@@ -163,7 +177,8 @@ class CMHSE(nn.Module):
     def encode_text(self, words: torch.Tensor, word_len: torch.Tensor,
                     sent_len: torch.Tensor
                     ) -> tuple[torch.Tensor, torch.Tensor]:
-        """words i32[B, S, W] -> (para_emb [B, E], sent_emb [B, S, E])."""
+        """words i32[B, S, W] -> (para_emb [B, E], sent_emb [B, S, E]) in
+        the compute dtype."""
         b, smax, wmax = words.shape
         vecs = self.word_embedding(words.reshape(b * smax, wmax))
         sent_emb, _ = self.text_low(vecs, word_len.reshape(b * smax))

@@ -6,10 +6,14 @@ Hierarchy:
 Every embedding is projected to the joint space (when its width differs)
 and L2-normalized. The low-level GRUs run over ``[B * Cmax]`` flattened rows.
 
-Dense layers are ``nn.Linear`` named as the JAX package's ``nn.Dense``
-modules, so a JAX kernel ``[in, out]`` maps to ``weight`` by one transpose.
-Fresh init follows flax (lecun-normal kernels, zero biases), not torch's
-``nn.Linear`` default.
+Dense layers are :class:`Dense` (an ``nn.Linear``) named as the JAX
+package's ``nn.Dense`` modules, so a JAX kernel ``[in, out]`` maps to
+``weight`` by one transpose. Fresh init follows flax (lecun-normal kernels,
+zero biases), not torch's ``nn.Linear`` default.
+
+``dtype`` is the compute dtype (f32, or bf16 for mixed precision); the
+parameters stay f32 and the word-embedding table f32, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -23,11 +27,29 @@ from cmhse_tpu_torch.models.gru import MaskedGRU, masked_mean
 from cmhse_tpu_torch.ops.similarity import l2norm
 
 
+class Dense(nn.Linear):
+    """``nn.Linear`` with flax ``nn.Dense(dtype=...)``'s rule: input, weight
+    and bias are cast to the compute dtype, so a bf16 layer multiplies bf16
+    operands (f32 accumulation) and returns bf16; its f32 parameters get
+    their gradients through the casts, rounded to bf16 as flax's are."""
+
+    def __init__(self, in_dim: int, out_dim: int, bias: bool,
+                 dtype: torch.dtype) -> None:
+        super().__init__(in_dim, out_dim, bias=bias)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        bias = None if self.bias is None else self.bias.to(dt)
+        return nn.functional.linear(x.to(dt), self.weight.to(dt), bias)
+
+
 def _dense(in_dim: int, out_dim: int, bias: bool,
-           generator: torch.Generator | None) -> nn.Linear:
-    """``nn.Linear`` with flax's ``nn.Dense`` default init: a truncated
+           generator: torch.Generator | None,
+           dtype: torch.dtype = torch.float32) -> Dense:
+    """:class:`Dense` with flax's ``nn.Dense`` default init: a truncated
     normal of variance 1/fan_in (lecun_normal) and a zero bias."""
-    layer = nn.Linear(in_dim, out_dim, bias=bias)
+    layer = Dense(in_dim, out_dim, bias, dtype)
     std = math.sqrt(1.0 / in_dim) / 0.87962566103423978  # truncation fix-up
     with torch.no_grad():
         nn.init.trunc_normal_(layer.weight, 0.0, std, -2.0 * std, 2.0 * std,
@@ -43,10 +65,11 @@ class AttentionPool(nn.Module):
     ``pooled = sum_t alpha_t h_t``. Length-0 rows pool to zeros."""
 
     def __init__(self, width: int, attn_dim: int = 256,
-                 generator: torch.Generator | None = None) -> None:
+                 generator: torch.Generator | None = None,
+                 dtype: torch.dtype = torch.float32) -> None:
         super().__init__()
-        self.proj = _dense(width, attn_dim, True, generator)
-        self.score = _dense(attn_dim, 1, False, generator)
+        self.proj = _dense(width, attn_dim, True, generator, dtype)
+        self.score = _dense(attn_dim, 1, False, generator, dtype)
 
     def forward(self, states: torch.Tensor,
                 lengths: torch.Tensor) -> torch.Tensor:
@@ -67,22 +90,26 @@ class SequenceEncoder(nn.Module):
 
     def __init__(self, in_dim: int, embed_size: int, rnn_hidden: int,
                  readout: str = "last", bidirectional: bool = False,
-                 generator: torch.Generator | None = None) -> None:
+                 generator: torch.Generator | None = None,
+                 dtype: torch.dtype = torch.float32) -> None:
         super().__init__()
         if readout not in ("last", "mean", "attn"):
             raise ValueError(f"unknown readout {readout!r}")
         self.readout = readout
         width = rnn_hidden * (2 if bidirectional else 1)
-        self.gru = MaskedGRU(in_dim, rnn_hidden, bidirectional, generator)
+        self.gru = MaskedGRU(in_dim, rnn_hidden, bidirectional, generator,
+                             dtype)
         if readout == "attn":
-            self.attn_pool = AttentionPool(width, generator=generator)
+            self.attn_pool = AttentionPool(width, generator=generator,
+                                           dtype=dtype)
         # the JAX package projects only when the readout width differs
-        self.proj = (_dense(width, embed_size, True, generator)
+        self.proj = (_dense(width, embed_size, True, generator, dtype)
                      if width != embed_size else None)
 
     def forward(self, x: torch.Tensor, lengths: torch.Tensor
                 ) -> tuple[torch.Tensor, torch.Tensor]:
-        """Returns (embedding ``[B, E]``, states ``[B, T, H]``)."""
+        """Returns (embedding ``[B, E]``, states ``[B, T, H]``), both in the
+        compute dtype (``l2norm`` reduces in f32)."""
         outs, final = self.gru(x, lengths)
         if self.readout == "last":
             emb = final

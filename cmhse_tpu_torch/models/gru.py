@@ -20,6 +20,12 @@ is :func:`cmhse_tpu_torch.ops.gru_kernel.gru_recurrence` — the ``gru_fwd``
 CUDA kernel on the card, its plain loop on the CPU; when autograd needs a
 gradient, its gate-saving variant and the ``gru_bwd`` backward (or their
 plain versions) through ``TrainableGRU``.
+
+Mixed precision (``dtype=torch.bfloat16``): the input is rounded to bf16,
+the projection multiplies bf16 operands with f32 accumulation, adds the f32
+``b_i`` and rounds once; the recurrence runs in bf16 with an f32 carry; the
+parameters and their gradients stay f32, as in the JAX package's
+``pallas_gru_trainable``.
 """
 
 from __future__ import annotations
@@ -32,10 +38,41 @@ from torch import nn
 from cmhse_tpu_torch.ops.gru_kernel import gru_recurrence, gru_recurrence_plain
 
 
+class _InputProjection(torch.autograd.Function):
+    """``x @ w_i + b_i`` in ``x``'s dtype, with f32 accumulation and f32
+    gradients of the parameters. In bf16 autograd of the casts would round
+    ``dW_i`` to bf16 before it reaches the f32 parameter, a rounding the JAX
+    package's custom VJP does not make (``pallas_gru_grad.py:335-341``)."""
+
+    @staticmethod
+    def forward(ctx, x, w_i, b_i):
+        w = w_i.to(x.dtype)
+        ctx.save_for_backward(x, w)
+        ctx.dtypes = (w_i.dtype, b_i.dtype)
+        return (x.float() @ w.float() + b_i.float()).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.float().reshape(-1, g.shape[-1])
+        dx = dw = db = None
+        if ctx.needs_input_grad[0]:
+            dx = (g @ w.float().T).to(x.dtype).reshape(x.shape)
+        if ctx.needs_input_grad[1]:
+            dw = (x.float().reshape(-1, x.shape[-1]).T @ g).to(ctx.dtypes[0])
+        if ctx.needs_input_grad[2]:
+            db = g.sum(dim=0).to(ctx.dtypes[1])
+        return dx, dw, db
+
+
 def gru_input_projection(x: torch.Tensor, w_i: torch.Tensor,
                          b_i: torch.Tensor) -> torch.Tensor:
-    """``x [B, T, D] @ w_i [D, 3H] + b_i`` for every step at once."""
-    return x @ w_i + b_i
+    """``x [B, T, D] @ w_i [D, 3H] + b_i`` for every step at once, in
+    ``x``'s dtype: ``w_i`` rounded to it, f32 products of the (exact)
+    operands, the f32 ``b_i`` added, one rounding (the JAX package's
+    ``gru_input_projection``). The backward gives f32 ``dW_i``/``db_i`` and
+    ``dx`` rounded to ``x``'s dtype."""
+    return _InputProjection.apply(x, w_i, b_i)
 
 
 def gru_sequence(
@@ -71,16 +108,19 @@ def flip_padded(x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
 class MaskedGRU(nn.Module):
     """Masked GRU, optionally bidirectional. Parameters ``fwd_w_i``,
     ``fwd_w_h``, ``fwd_b_i``, ``fwd_b_h`` (and ``bwd_*``) carry the JAX
-    package's names and layouts. Init is uniform(-1/sqrt(H), 1/sqrt(H)) for
-    every parameter, biases included, as PyTorch's GRU and the JAX package
-    do."""
+    package's names and layouts; they stay f32 whatever ``dtype``, the
+    compute dtype the input is cast to. Init is uniform(-1/sqrt(H),
+    1/sqrt(H)) for every parameter, biases included, as PyTorch's GRU and
+    the JAX package do."""
 
     def __init__(self, in_dim: int, features: int,
                  bidirectional: bool = False,
-                 generator: torch.Generator | None = None) -> None:
+                 generator: torch.Generator | None = None,
+                 dtype: torch.dtype = torch.float32) -> None:
         super().__init__()
         self.features = features
         self.bidirectional = bidirectional
+        self.dtype = dtype
         scale = 1.0 / math.sqrt(features)
         shapes = {"w_i": (in_dim, 3 * features),
                   "w_h": (features, 3 * features),
@@ -103,7 +143,7 @@ class MaskedGRU(nn.Module):
                 ) -> tuple[torch.Tensor, torch.Tensor]:
         """Returns (outputs ``[B, T, H]`` or ``[B, T, 2H]``, final ``[B, H]``
         or ``[B, 2H]``)."""
-        x = x.float()
+        x = x.to(self.dtype)
         lengths = lengths.to(torch.int32)
         outs_f, final_f = self._run(x, lengths, "fwd")
         if not self.bidirectional:

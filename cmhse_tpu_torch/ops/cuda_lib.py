@@ -31,12 +31,12 @@ LIB_NAME = "libcmhse_kernels.so"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # xw, w_h, b_h, lengths, h0, outs, final, gates, B, T, H, stream
-    "cmhse_gru_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # xw, w_h, b_h, lengths, h0, outs, final, gates, B, T, H, bf16, stream
+    "cmhse_gru_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # gates, outs, h0, douts, dfinal, lengths, w_hT, dxw, dhn, db_part, dh0,
-    # B, T, H, stream
+    # B, T, H, bf16, stream
     "cmhse_gru_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                      _P),
+                      _I, _P),
     "cmhse_gru_bwd_rows_per_block": (),
     "cmhse_gru_bwd_max_hidden": (),
     # a, b, mask, diag, row_max, row_arg, M, N, D, ld, transposed, margin,
@@ -44,8 +44,8 @@ _SIGNATURES = {
     "cmhse_simhinge": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                        ctypes.c_float, _P),
     "cmhse_simhinge_max_depth": (),
-    # q, g, pos, posidx, gvalid, counts, Q, N, D, splits, stream
-    "cmhse_rankcount": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # q, g, pos, posidx, gvalid, counts, Q, N, D, splits, lowp, stream
+    "cmhse_rankcount": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "cmhse_rankcount_tile_rows": (),
     "cmhse_rankcount_tile_queries": (),
 }

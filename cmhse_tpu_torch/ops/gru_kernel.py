@@ -3,13 +3,17 @@
 and the ``torch.autograd.Function`` that trains through them.
 
 ``gru_fwd`` replaces ``cmhse_tpu/ops/pallas_gru.py:_gru_kernel`` (launched by
-``pallas_gru_sequence``), f32, in all three variants: the encode path's, the
+``pallas_gru_sequence``) in all three variants: the encode path's, the
 gate-saving one (``save_gates``: also writes ``[r, z, n, hn]`` per step for
 the backward) and the seeded one (``h0``: the carry starts at the caller's
 state, the reconstruction decoder's). ``gru_bwd`` replaces
 ``cmhse_tpu/ops/pallas_gru_grad.py:_gru_bwd_kernel``, with and without
-``h0``. The input projection ``x @ W_i + b_i`` and the weight-gradient
-products (``dW_h``, and ``dW_i``/``dx`` through autograd) stay plain matrix
+``h0``. Each runs in f32 or in bf16, the compute dtype of ``xw``; in bf16
+the streams, ``W_h`` and ``h0`` are bf16 while the carried state (and
+gradient), ``b_h`` and the bias sums stay f32, at the TPU kernels' rounding
+points (see the sources). The input projection ``x @ W_i + b_i`` and the
+weight-gradient products (``dW_h`` here, ``dW_i``/``dx`` in
+:func:`cmhse_tpu_torch.models.gru.gru_input_projection`) stay plain matrix
 products outside the kernels, as the JAX package leaves them to XLA.
 
 What bounds both on an H100: one block owns 8 batch rows and all H units and
@@ -22,7 +26,8 @@ splitting ``W_h`` across all SMs is the later redesign. See the sources for
 the full notes.
 
 Dispatch: a CPU tensor takes the plain versions; a CUDA tensor launches the
-kernels or raises. There is no fallback between the two.
+kernels or raises. There is no fallback between the two, and a bf16 tensor
+never goes through the f32 instantiation.
 """
 
 from __future__ import annotations
@@ -32,10 +37,17 @@ import torch
 from cmhse_tpu_torch.ops import cuda_lib
 
 # kernel launches, for proof that a run went through the kernels
-launches = 0  # gru_fwd, every variant
-save_gates_launches = 0  # gru_fwd with save_gates (the training forward)
-with_h0_launches = 0  # gru_fwd with a seeded h0 (the decoders)
-bwd_launches = 0  # gru_bwd
+launches = 0  # gru_fwd f32, every variant
+save_gates_launches = 0  # gru_fwd f32 with save_gates (the training forward)
+with_h0_launches = 0  # gru_fwd f32 with a seeded h0 (the decoders)
+bwd_launches = 0  # gru_bwd f32
+bf16_launches = 0  # gru_fwd bf16, every variant
+bf16_save_gates_launches = 0  # gru_fwd bf16 with save_gates
+bf16_with_h0_launches = 0  # gru_fwd bf16 with a seeded h0
+bf16_bwd_launches = 0  # gru_bwd bf16
+bf16_bwd_with_h0_launches = 0  # gru_bwd bf16 with a seeded h0
+
+KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def gru_recurrence_plain(
@@ -50,7 +62,7 @@ def gru_recurrence_plain(
 
     Args:
       xw: ``[B, T, 3H]`` input projections ``x @ W_i + b_i``, gate order
-        (r, z, n).
+        (r, z, n); its dtype is the compute dtype.
       w_h: ``[H, 3H]``; b_h: ``[3H]``.
       lengths: ``[B]`` int true lengths (0 allowed).
       h0: optional ``[B, H]`` initial state (zeros by default).
@@ -59,18 +71,25 @@ def gru_recurrence_plain(
     Returns: outputs ``[B, T, H]`` (padded steps hold the carried state) and
     final ``[B, H]``, the state at each row's true length; with
     ``save_gates`` also the gates ``[B, T, 4H]`` = ``[r, z, n, hn]`` per
-    step (``hn = h @ W_hn + b_hn``). The kernel leaves the gates of masked
-    steps unwritten; this version computes them, and neither backward reads
-    them.
+    step (``hn = h @ W_hn + b_hn``), all in the compute dtype. The kernel
+    leaves the gates of masked steps unwritten; this version computes them,
+    and neither backward reads them.
+
+    The carry is f32. In bf16, ``w_h`` and ``h0`` are rounded to bf16 and
+    the product takes the carry rounded to bf16, as f32 products of
+    bf16-valued operands (exact) with f32 accumulation; the outputs and
+    gates are rounded once.
     """
     b, t, h3 = xw.shape
     hdim = h3 // 3
+    dt = xw.dtype
     h = (torch.zeros(b, hdim, dtype=torch.float32, device=xw.device)
-         if h0 is None else h0.float())
+         if h0 is None else h0.to(dt).float())
+    w = w_h.to(dt).float()
     lengths = lengths.to(xw.device)
     outs, gates = [], []
     for tt in range(t):
-        hw = h @ w_h.float() + b_h.float()
+        hw = h.to(dt).float() @ w + b_h.float()
         xr, xz, xn = xw[:, tt].float().split(hdim, dim=-1)
         hr, hz, hn = hw.split(hdim, dim=-1)
         r = torch.sigmoid(xr + hr)
@@ -82,14 +101,14 @@ def gru_recurrence_plain(
         if save_gates:
             gates.append(torch.cat([r, z, n, hn], dim=-1))
     if outs:
-        outs = torch.stack(outs, dim=1).to(xw.dtype)
+        outs = torch.stack(outs, dim=1).to(dt)
     else:
         outs = xw.new_zeros(b, 0, hdim)
     if not save_gates:
-        return outs, h.to(xw.dtype)
-    gates = (torch.stack(gates, dim=1) if gates
-             else xw.new_zeros(b, 0, 4 * hdim, dtype=torch.float32))
-    return outs, h.to(xw.dtype), gates
+        return outs, h.to(dt)
+    gates = (torch.stack(gates, dim=1).to(dt) if gates
+             else xw.new_zeros(b, 0, 4 * hdim))
+    return outs, h.to(dt), gates
 
 
 def gru_backward_plain(
@@ -117,14 +136,20 @@ def gru_backward_plain(
     included; ``dfinal`` enters at t = T-1; a masked step (t >= length)
     passes the carried gradient through and emits zeros; it selects on the
     mask, so whatever the gates hold at masked steps never enters.
+
+    The compute dtype is the gates' dtype; ``dxw``, ``dhn`` and ``dh0`` come
+    back in it, ``db`` in f32. The carried gradient and the bias sums are
+    f32; in bf16 ``[dr', dz', dhn]`` is rounded to bf16 before the ``W_h^T``
+    product (f32 products of bf16-valued operands, f32 accumulation).
     """
     b, t, h4 = gates.shape
     hdim = h4 // 4
     dev = gates.device
+    dt = gates.dtype
     dh = (torch.zeros(b, hdim, dtype=torch.float32, device=dev)
           if dfinal is None else dfinal.float())
     lengths = lengths.to(dev)
-    w_ht = w_h.float().T
+    w_ht = w_h.to(dt).float().T
     dxw = torch.zeros(b, t, 3 * hdim, dtype=torch.float32, device=dev)
     dhn_all = torch.zeros(b, t, hdim, dtype=torch.float32, device=dev)
     for tt in reversed(range(t)):
@@ -149,10 +174,10 @@ def gru_backward_plain(
                                        for x in (dr_pre, dz_pre, dn_pre, dhn)]
         dxw[:, tt] = torch.cat([dr_pre, dz_pre, dn_pre], dim=-1)
         dhn_all[:, tt] = dhn
-        dhw = torch.cat([dr_pre, dz_pre, dhn], dim=-1)
+        dhw = torch.cat([dr_pre, dz_pre, dhn], dim=-1).to(dt).float()
         dh = torch.where(live, dh * z + dhw @ w_ht, dh)
     db = torch.cat([dxw.sum(dim=(0, 1)), dhn_all.sum(dim=(0, 1))])
-    return dxw, dhn_all, db, dh
+    return dxw.to(dt), dhn_all.to(dt), db, dh.to(dt)
 
 
 def _check(xw, w_h, b_h, lengths, h0) -> None:
@@ -179,19 +204,24 @@ def _check(xw, w_h, b_h, lengths, h0) -> None:
                          f"{xw.device.type}")
 
 
-def _kernel_operands(kernel: str, named: dict, lengths: torch.Tensor
-                     ) -> list[torch.Tensor | None]:
-    """Check what a CUDA kernel takes (f32, contiguous, int32 lengths) and
-    give each tensor 16-byte alignment (an offset view gets an aligned
-    copy). None entries pass through."""
+def _kernel_operands(kernel: str, dtype: torch.dtype, named: dict,
+                     lengths: torch.Tensor) -> list[torch.Tensor | None]:
+    """Check what a CUDA kernel takes (every tensor in the compute ``dtype``
+    but an f32 ``b_h``, contiguous, int32 lengths) and give each tensor
+    16-byte alignment (an offset view gets an aligned copy). None entries
+    pass through."""
+    if dtype not in KERNEL_DTYPES:
+        raise TypeError(f"the {kernel} kernel computes in float32 or "
+                        f"bfloat16, not {dtype}")
     out = []
     for name, x in named.items():
         if x is None:
             out.append(None)
             continue
-        if x.dtype != torch.float32:
-            raise TypeError(f"the {kernel} kernel takes float32 {name}, got "
-                            f"{x.dtype}")
+        want = torch.float32 if name == "b_h" else dtype
+        if x.dtype != want:
+            raise TypeError(f"the {kernel} kernel takes {want} {name} here, "
+                            f"got {x.dtype}")
         if not x.is_contiguous():
             raise ValueError(f"the {kernel} kernel takes a contiguous {name}")
         out.append(x if x.data_ptr() % 16 == 0 else x.clone())
@@ -222,25 +252,28 @@ def gru_forward(
     :func:`gru_recurrence_plain`.
 
     On the CPU it is the plain version. On a CUDA device it launches
-    ``gru_fwd`` in the variant the arguments ask for, which takes f32
-    contiguous ``xw``/``w_h``/``b_h``/``h0``, int32 ``lengths`` and H a
-    multiple of 4; anything else raises.
+    ``gru_fwd`` in the variant the arguments ask for and the instantiation
+    of ``xw``'s dtype (f32 or bf16), which takes contiguous
+    ``xw``/``w_h``/``h0`` in that dtype, an f32 ``b_h``, int32 ``lengths``
+    and H a multiple of 4; anything else raises.
     """
     global launches, save_gates_launches, with_h0_launches
+    global bf16_launches, bf16_save_gates_launches, bf16_with_h0_launches
     _check(xw, w_h, b_h, lengths, h0)
     if xw.device.type == "cpu":
         return gru_recurrence_plain(xw, w_h, b_h, lengths, h0, save_gates)
+    dt = xw.dtype
     xw, w_h, b_h, h0 = _kernel_operands(
-        "gru_fwd", {"xw": xw, "w_h": w_h, "b_h": b_h, "h0": h0}, lengths)
+        "gru_fwd", dt, {"xw": xw, "w_h": w_h, "b_h": b_h, "h0": h0}, lengths)
     b, t, h3 = xw.shape
     hdim = h3 // 3
     if hdim % 4:
         raise ValueError(f"the gru_fwd kernel takes H a multiple of 4, got "
                          f"{hdim}")
     dev = xw.device
-    outs = torch.empty(b, t, hdim, dtype=torch.float32, device=dev)
-    final = torch.empty(b, hdim, dtype=torch.float32, device=dev)
-    gates = (torch.empty(b, t, 4 * hdim, dtype=torch.float32, device=dev)
+    outs = torch.empty(b, t, hdim, dtype=dt, device=dev)
+    final = torch.empty(b, hdim, dtype=dt, device=dev)
+    gates = (torch.empty(b, t, 4 * hdim, dtype=dt, device=dev)
              if save_gates else None)
     result = (outs, final, gates) if save_gates else (outs, final)
     if b == 0:
@@ -257,11 +290,16 @@ def gru_forward(
         err = lib.cmhse_gru_fwd(
             xw.data_ptr(), w_h.data_ptr(), b_h.data_ptr(), lengths.data_ptr(),
             _ptr(h0), outs.data_ptr(), final.data_ptr(), _ptr(gates), b, t,
-            hdim, stream)
+            hdim, int(dt == torch.bfloat16), stream)
     cuda_lib.check(err, "gru_fwd launch")
-    launches += 1
-    save_gates_launches += int(save_gates)
-    with_h0_launches += int(h0 is not None)
+    if dt == torch.bfloat16:
+        bf16_launches += 1
+        bf16_save_gates_launches += int(save_gates)
+        bf16_with_h0_launches += int(h0 is not None)
+    else:
+        launches += 1
+        save_gates_launches += int(save_gates)
+        with_h0_launches += int(h0 is not None)
     return result
 
 
@@ -277,11 +315,12 @@ def gru_backward(
     """BPTT from the saved gates: same contract as
     :func:`gru_backward_plain`.
 
-    On the CPU it is the plain version. On a CUDA device it launches
-    ``gru_bwd``, which takes f32 contiguous tensors, int32 ``lengths`` and H
-    a multiple of 4 up to :func:`bwd_max_hidden`; anything else raises.
+    On the CPU it is the plain version. On a CUDA device it launches the
+    ``gru_bwd`` instantiation of the gates' dtype (f32 or bf16), which takes
+    contiguous tensors all in that dtype, int32 ``lengths`` and H a multiple
+    of 4 up to :func:`bwd_max_hidden`; anything else raises.
     """
-    global bwd_launches
+    global bwd_launches, bf16_bwd_launches, bf16_bwd_with_h0_launches
     b, t, h4 = gates.shape
     hdim = h4 // 4
     for name, x, shape in (("outs", outs, (b, t, hdim)),
@@ -299,11 +338,12 @@ def gru_backward(
     if gates.device.type != "cuda":
         raise ValueError(f"gru_backward runs on cpu or cuda, not "
                          f"{gates.device.type}")
+    dt = gates.dtype
     douts = None if douts is None else douts.contiguous()
     dfinal = None if dfinal is None else dfinal.contiguous()
     gates, outs, w_h, douts, dfinal, h0 = _kernel_operands(
-        "gru_bwd", {"gates": gates, "outs": outs, "w_h": w_h, "douts": douts,
-                    "dfinal": dfinal, "h0": h0}, lengths)
+        "gru_bwd", dt, {"gates": gates, "outs": outs, "w_h": w_h,
+                        "douts": douts, "dfinal": dfinal, "h0": h0}, lengths)
     if hdim % 4:
         raise ValueError(f"the gru_bwd kernel takes H a multiple of 4, got "
                          f"{hdim}")
@@ -312,9 +352,9 @@ def gru_backward(
         raise ValueError(f"the gru_bwd kernel takes H up to "
                          f"{lib.cmhse_gru_bwd_max_hidden()}, got {hdim}")
     dev = gates.device
-    dxw = torch.empty(b, t, 3 * hdim, dtype=torch.float32, device=dev)
-    dhn = torch.empty(b, t, hdim, dtype=torch.float32, device=dev)
-    dh0 = torch.empty(b, hdim, dtype=torch.float32, device=dev)
+    dxw = torch.empty(b, t, 3 * hdim, dtype=dt, device=dev)
+    dhn = torch.empty(b, t, hdim, dtype=dt, device=dev)
+    dh0 = torch.empty(b, hdim, dtype=dt, device=dev)
     if b == 0 or t == 0:
         if dfinal is None:
             dh0.zero_()
@@ -331,19 +371,26 @@ def gru_backward(
             gates.data_ptr(), outs.data_ptr(), _ptr(h0), _ptr(douts),
             _ptr(dfinal), lengths.data_ptr(), w_ht.data_ptr(),
             dxw.data_ptr(), dhn.data_ptr(), db_part.data_ptr(),
-            dh0.data_ptr(), b, t, hdim, stream)
+            dh0.data_ptr(), b, t, hdim, int(dt == torch.bfloat16), stream)
     cuda_lib.check(err, "gru_bwd launch")
-    bwd_launches += 1
+    if dt == torch.bfloat16:
+        bf16_bwd_launches += 1
+        bf16_bwd_with_h0_launches += int(h0 is not None)
+    else:
+        bwd_launches += 1
     return dxw, dhn, db_part.sum(dim=0), dh0
 
 
 class TrainableGRU(torch.autograd.Function):
     """``(xw, w_h, b_h, lengths, h0) -> (outs, final)`` with the
     gate-saving forward and the BPTT backward: the port's
-    ``pallas_gru_trainable``. The backward returns ``dxw`` (autograd carries
-    it back through ``x @ W_i + b_i`` to ``x``, ``W_i`` and ``b_i``),
-    ``dW_h = h_prev^T [dr', dz', dhn]`` as one matrix product, ``db_h`` from
-    the kernel's bias sums, and ``dh0`` in the seeded variant."""
+    ``pallas_gru_trainable`` after the input projection. The compute dtype
+    is ``xw``'s: ``w_h`` and ``h0`` are rounded to it here, so an f32
+    parameter gets an f32 gradient. The backward returns ``dxw`` in the
+    compute dtype (for the projection's backward), ``dW_h = h_prev^T [dr',
+    dz', dhn]`` as one f32 matrix product of the compute-dtype streams (f32
+    accumulation, never rounded to bf16), ``db_h`` from the kernel's f32
+    bias sums, and ``dh0`` in the seeded variant."""
 
     @staticmethod
     def forward(ctx, xw, w_h, b_h, lengths, h0):
@@ -351,25 +398,31 @@ class TrainableGRU(torch.autograd.Function):
         if xw.device.type == "cuda" and xw.shape[-1] // 3 > bwd_max_hidden():
             raise ValueError(f"the gru_bwd kernel takes H up to "
                              f"{bwd_max_hidden()}, got {xw.shape[-1] // 3}")
-        outs, final, gates = gru_forward(xw, w_h, b_h, lengths, h0,
+        w_c = w_h.to(xw.dtype)
+        h0_c = None if h0 is None else h0.to(xw.dtype)
+        outs, final, gates = gru_forward(xw, w_c, b_h, lengths, h0_c,
                                          save_gates=True)
-        ctx.save_for_backward(gates, outs, w_h, lengths, h0)
+        ctx.save_for_backward(gates, outs, w_c, lengths, h0_c)
+        ctx.dtypes = (w_h.dtype, b_h.dtype, None if h0 is None else h0.dtype)
         return outs, final
 
     @staticmethod
     def backward(ctx, douts, dfinal):
-        gates, outs, w_h, lengths, h0 = ctx.saved_tensors
+        gates, outs, w_c, lengths, h0 = ctx.saved_tensors
         b, t, hdim = outs.shape
-        dxw, dhn, db, dh0 = gru_backward(gates, outs, lengths, w_h, douts,
+        dxw, dhn, db, dh0 = gru_backward(gates, outs, lengths, w_c, douts,
                                          dfinal, h0)
         first = (h0.float() if h0 is not None
-                 else outs.new_zeros(b, hdim))[:, None]
-        h_prev = torch.cat([first, outs[:, :-1]], dim=1).reshape(b * t, hdim)
-        dw_h = torch.cat([h_prev.T @ dxw[..., :2 * hdim].reshape(b * t, -1),
-                          h_prev.T @ dhn.reshape(b * t, hdim)], dim=1)
+                 else outs.new_zeros(b, hdim, dtype=torch.float32))[:, None]
+        h_prev = torch.cat([first, outs[:, :-1].float()], dim=1).reshape(
+            b * t, hdim)
+        dw_h = torch.cat(
+            [h_prev.T @ dxw[..., :2 * hdim].reshape(b * t, -1).float(),
+             h_prev.T @ dhn.reshape(b * t, hdim).float()], dim=1)
         db_h = torch.cat([db[:2 * hdim], db[3 * hdim:]])
-        return (dxw, dw_h, db_h, None,
-                dh0 if ctx.needs_input_grad[4] else None)
+        w_dtype, b_dtype, h0_dtype = ctx.dtypes
+        return (dxw, dw_h.to(w_dtype), db_h.to(b_dtype), None,
+                dh0.to(h0_dtype) if ctx.needs_input_grad[4] else None)
 
 
 def gru_recurrence(
@@ -379,8 +432,10 @@ def gru_recurrence(
     lengths: torch.Tensor,
     h0: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Masked GRU recurrence: same contract as :func:`gru_recurrence_plain`
-    without ``save_gates``.
+    """Masked GRU recurrence in ``xw``'s dtype: same contract as
+    :func:`gru_recurrence_plain` without ``save_gates``. ``w_h`` and ``h0``
+    may be f32 whatever that dtype (the parameters are); they are rounded
+    to it, as ``pallas_gru_sequence`` does; ``b_h`` stays f32.
 
     When autograd needs a gradient of any input it runs
     :class:`TrainableGRU` (the gate-saving ``gru_fwd`` and ``gru_bwd`` on
@@ -391,4 +446,5 @@ def gru_recurrence(
     if torch.is_grad_enabled() and any(
             x is not None and x.requires_grad for x in (xw, w_h, b_h, h0)):
         return TrainableGRU.apply(xw, w_h, b_h, lengths, h0)
-    return gru_forward(xw, w_h, b_h, lengths, h0)
+    return gru_forward(xw, w_h.to(xw.dtype), b_h, lengths,
+                       None if h0 is None else h0.to(xw.dtype))

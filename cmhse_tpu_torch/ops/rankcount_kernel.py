@@ -2,9 +2,11 @@
 and its plain PyTorch version.
 
 Replaces ``cmhse_tpu/ops/pallas_sim.py:_rankcount_kernel`` (launched by
-``pallas_violation_counts`` <- ``pallas_rank_counts``), f32 branch. For each
-query it counts the valid gallery rows scoring strictly above the query's
-positive, without materializing the ``[Q, N]`` similarity block.
+``pallas_violation_counts`` <- ``pallas_rank_counts``), both branches: f32,
+and ``lowp`` (``precision="bfloat16"``: both operands rounded to bf16, f32
+accumulation). For each query it counts the valid gallery rows scoring
+strictly above the query's positive, without materializing the ``[Q, N]``
+similarity block.
 
 What bounds it on an H100: the ``2*Q*N*D`` f32 FLOPs (compute, not bytes:
 the gallery is re-read once per 128-query tile, mostly from L2). The
@@ -23,7 +25,11 @@ import torch
 
 from cmhse_tpu_torch.ops import cuda_lib
 
-launches = 0  # kernel launches, for proof that a run went through the kernel
+# kernel launches, for proof that a run went through the kernel
+launches = 0  # the f32 branch
+lowp_launches = 0  # the bf16-multiply branch
+
+PRECISIONS = ("float32", "bfloat16")
 
 # Galleries of at least this many rows take the streaming count on the card
 # (the JAX package's crossover, kept so that the two packages choose the
@@ -45,7 +51,11 @@ def should_stream(n_gallery: int, device: torch.device,
             and n_gallery >= STREAMING_GALLERY_MIN)
 
 
-def _prepare(queries, gallery, pos_score, gallery_valid, pos_idx):
+def _prepare(queries, gallery, pos_score, gallery_valid, pos_idx,
+             precision):
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision must be one of {PRECISIONS}, got "
+                         f"{precision!r}")
     q, d = queries.shape
     n = gallery.shape[0]
     if gallery.dim() != 2 or gallery.shape[1] != d:
@@ -72,16 +82,19 @@ def violation_counts_plain(
     pos_score: torch.Tensor,
     gallery_valid: torch.Tensor | None = None,
     pos_idx: torch.Tensor | None = None,
+    precision: str = "float32",
 ) -> torch.Tensor:
-    """Plain version: a chunked ``q @ g^T`` with the kernel's masks.
-    Returns int32 ``[Q]`` counts."""
+    """Plain version: a chunked ``q @ g^T`` with the kernel's masks; with
+    ``precision="bfloat16"`` both operands are rounded to bf16 first (f32
+    products of them are exact). Returns int32 ``[Q]`` counts."""
     q = queries.shape[0]
     n = gallery.shape[0]
-    g = gallery.float()
+    dt = torch.bfloat16 if precision == "bfloat16" else torch.float32
+    g = gallery.to(dt).float()
     cols = torch.arange(n, device=gallery.device)
     counts = []
     for s in range(0, q, _PLAIN_CHUNK):
-        sims = queries[s : s + _PLAIN_CHUNK].float() @ g.T
+        sims = queries[s : s + _PLAIN_CHUNK].to(dt).float() @ g.T
         gt = sims > pos_score[s : s + _PLAIN_CHUNK].float()[:, None]
         if gallery_valid is not None:
             gt &= gallery_valid.bool()[None, :]
@@ -99,6 +112,7 @@ def violation_counts(
     pos_score: torch.Tensor,
     gallery_valid: torch.Tensor | None = None,
     pos_idx: torch.Tensor | None = None,
+    precision: str = "float32",
 ) -> torch.Tensor:
     """Strictly-greater counts ``[Q]`` int32: how many valid gallery rows
     score above each query's positive. Same contract as the JAX package's
@@ -110,19 +124,23 @@ def violation_counts(
       gallery_valid: optional bool ``[N]``; False rows never count.
       pos_idx: optional int ``[Q]`` gallery index of each query's positive,
         excluded by index (None = no exclusion).
+      precision: ``"float32"`` (exact; the default) or ``"bfloat16"``
+        (bf16 multiplies, f32 accumulation: the TPU's default matmul
+        precision, so near-tie counts may differ from the f32 ones).
 
     On the CPU it is the plain version. On a CUDA device it launches the
-    ``rankcount`` kernel, which takes f32 contiguous inputs; anything else
+    ``rankcount`` kernel's branch for ``precision``, which takes f32
+    contiguous inputs (the lowp branch rounds them itself); anything else
     raises.
     """
-    global launches
+    global launches, lowp_launches
     if queries.dim() != 2:
         raise ValueError(f"queries must be [Q, D], got "
                          f"{tuple(queries.shape)}")
-    _prepare(queries, gallery, pos_score, gallery_valid, pos_idx)
+    _prepare(queries, gallery, pos_score, gallery_valid, pos_idx, precision)
     if queries.device.type == "cpu":
         return violation_counts_plain(queries, gallery, pos_score,
-                                      gallery_valid, pos_idx)
+                                      gallery_valid, pos_idx, precision)
     if queries.device.type != "cuda":
         raise ValueError(f"violation_counts runs on cpu or cuda, not "
                          f"{queries.device.type}")
@@ -160,9 +178,13 @@ def violation_counts(
             queries.data_ptr(), gallery.data_ptr(), pos_score.data_ptr(),
             None if posidx is None else posidx.data_ptr(),
             None if gvalid is None else gvalid.data_ptr(),
-            counts.data_ptr(), q, n, d, splits, stream)
+            counts.data_ptr(), q, n, d, splits, int(precision == "bfloat16"),
+            stream)
     cuda_lib.check(err, "rankcount launch")
-    launches += 1
+    if precision == "bfloat16":
+        lowp_launches += 1
+    else:
+        launches += 1
     return counts
 
 
@@ -172,12 +194,13 @@ def rank_counts(
     pos_score: torch.Tensor,
     gallery_valid: torch.Tensor | None = None,
     pos_idx: torch.Tensor | None = None,
+    precision: str = "float32",
 ) -> torch.Tensor:
     """1-based rank of each query's positive via :func:`violation_counts`;
     a NaN positive ranks worst: the valid gallery size when a mask is given
     (the dense path drops invalid rows before ranking), else N."""
     ranks = violation_counts(queries, gallery, pos_score, gallery_valid,
-                             pos_idx) + 1
+                             pos_idx, precision) + 1
     n = gallery.shape[0]
     worst = (torch.tensor(n, dtype=torch.int32, device=ranks.device)
              if gallery_valid is None

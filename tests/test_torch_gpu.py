@@ -364,3 +364,212 @@ def test_train_step_on_card_matches_cpu(cuda):
         assert _rel_err(g, grads["cpu"][k]) <= 1e-4, k
     for k, v in metrics["cuda"].items():
         assert abs(v - metrics["cpu"][k]) <= 1e-4 * abs(metrics["cpu"][k]), k
+
+
+# ---- bf16 (the mixed-precision configuration) ------------------------------
+# Each bf16 kernel against its plain version on the card, compared in bf16:
+# outputs within atol 1e-2 and gradients within relative L2 2e-2, the JAX
+# package's own bf16 bands (tests/test_pallas_gru.py,
+# tests/test_pallas_gru_grad.py). The two sum in other orders, and a last-bit
+# difference in the f32 carry can move the bf16 operand of the next step's
+# product by an ulp.
+
+BF16 = torch.bfloat16
+BF16_ATOL = 1e-2
+BF16_GRAD_RL2 = 2e-2
+
+# (B, T, H): rows not a multiple of 8; T = 1 at H = 1024; H > 4 * 256 (two
+# unit groups per thread) with zero-length rows
+BF16_SHAPES = [(8, 6, 16), (37, 9, 64), (9, 1, 1024), (21, 7, 1100)]
+
+
+def _bf16_gru_inputs(b, t, h, seed, cuda):
+    xw, w_h, b_h, lengths = [a.to(cuda) for a in _gru_inputs(
+        b, t, h, seed, zero_rows=(0, b - 1))]
+    h0 = (torch.randn(b, h, device=cuda) * 0.5).to(BF16)
+    return xw.to(BF16), w_h.to(BF16), b_h, lengths, h0
+
+
+def _rel_l2(got, want):
+    g, w = got.float(), want.float()
+    return float((g - w).norm() / w.norm().clamp_min(1e-30))
+
+
+@pytest.mark.parametrize("variant", ["encode", "save_gates", "save_gates_h0"])
+@pytest.mark.parametrize("b,t,h", BF16_SHAPES)
+def test_gru_fwd_bf16_matches_plain(cuda, variant, b, t, h):
+    xw, w_h, b_h, lengths, h0 = _bf16_gru_inputs(b, t, h, b * t + h, cuda)
+    save = variant != "encode"
+    h0 = h0 if variant == "save_gates_h0" else None
+    want = gru_kernel.gru_recurrence_plain(xw, w_h, b_h, lengths, h0,
+                                           save_gates=save)
+    f32_before = gru_kernel.launches
+    before = (gru_kernel.bf16_launches, gru_kernel.bf16_save_gates_launches,
+              gru_kernel.bf16_with_h0_launches)
+    got = gru_kernel.gru_forward(xw, w_h, b_h, lengths, h0, save_gates=save)
+    torch.cuda.synchronize()
+    assert (gru_kernel.bf16_launches, gru_kernel.bf16_save_gates_launches,
+            gru_kernel.bf16_with_h0_launches) == (
+        before[0] + 1, before[1] + int(save), before[2] + int(h0 is not None))
+    assert gru_kernel.launches == f32_before  # not the f32 instantiation
+    assert all(g.dtype == BF16 for g in got)
+    torch.testing.assert_close(got[0], want[0], atol=BF16_ATOL, rtol=0)
+    torch.testing.assert_close(got[1], want[1], atol=BF16_ATOL, rtol=0)
+    if save:
+        live = (torch.arange(t, device=cuda)[None, :] < lengths[:, None])
+        torch.testing.assert_close(got[2][live], want[2][live],
+                                   atol=BF16_ATOL, rtol=0)
+    start = h0[0] if h0 is not None else torch.zeros_like(got[1][0])
+    assert torch.equal(got[1][0], start)  # a length-0 row keeps its start
+
+
+@pytest.mark.parametrize("seeded", [False, True])
+@pytest.mark.parametrize("b,t,h", BF16_SHAPES)
+def test_gru_bwd_bf16_matches_plain(cuda, seeded, b, t, h):
+    xw, w_h, b_h, lengths, h0 = _bf16_gru_inputs(b, t, h, b + 2 * t + h,
+                                                 cuda)
+    h0 = h0 if seeded else None
+    outs, _, gates = gru_kernel.gru_forward(xw, w_h, b_h, lengths, h0,
+                                            save_gates=True)
+    douts = torch.randn(b, t, h, device=cuda).to(BF16)
+    dfinal = torch.randn(b, h, device=cuda).to(BF16)
+    want = gru_kernel.gru_backward_plain(gates, outs, lengths, w_h, douts,
+                                         dfinal, h0)
+    f32_before = gru_kernel.bwd_launches
+    before = (gru_kernel.bf16_bwd_launches,
+              gru_kernel.bf16_bwd_with_h0_launches)
+    got = gru_kernel.gru_backward(gates, outs, lengths, w_h, douts, dfinal,
+                                  h0)
+    torch.cuda.synchronize()
+    assert (gru_kernel.bf16_bwd_launches,
+            gru_kernel.bf16_bwd_with_h0_launches) == (before[0] + 1,
+                                                      before[1] + int(seeded))
+    assert gru_kernel.bwd_launches == f32_before
+    assert [g.dtype for g in got] == [BF16, BF16, torch.float32, BF16]
+    for name, g, w in zip(("dxw", "dhn", "db", "dh0"), got, want):
+        assert torch.isfinite(g.float()).all(), name
+        assert _rel_l2(g, w) <= BF16_GRAD_RL2, (name, _rel_l2(g, w))
+    for r in (0, b - 1):  # length-0 rows: no gate gradient
+        assert not got[0][r].any() and not got[1][r].any()
+
+
+def test_bf16_kernels_take_no_mixed_types(cuda):
+    """A bf16 stream with an f32 W_h (or cotangent) raises: nothing is cast
+    up or down behind the caller's back, and no f32 kernel runs."""
+    xw, w_h, b_h, lengths, h0 = _bf16_gru_inputs(6, 4, 8, 5, cuda)
+    f32 = (gru_kernel.launches, gru_kernel.bwd_launches)
+    with pytest.raises(TypeError):
+        gru_kernel.gru_forward(xw, w_h.float(), b_h, lengths)
+    with pytest.raises(TypeError):
+        gru_kernel.gru_forward(xw, w_h, b_h, lengths, h0.float())
+    with pytest.raises(TypeError):  # b_h stays f32
+        gru_kernel.gru_forward(xw, w_h, b_h.to(BF16), lengths)
+    outs, _, gates = gru_kernel.gru_forward(xw, w_h, b_h, lengths,
+                                            save_gates=True)
+    with pytest.raises(TypeError):
+        gru_kernel.gru_backward(gates, outs, lengths, w_h,
+                                torch.randn_like(outs.float()))
+    with pytest.raises(TypeError):
+        gru_kernel.gru_forward(xw.half(), w_h.half(), b_h, lengths)
+    assert (gru_kernel.launches, gru_kernel.bwd_launches) == f32
+
+
+@pytest.mark.parametrize("q,n,d", [(64, 256, 32), (130, 1000, 100)])
+def test_rankcount_lowp_matches_plain_exactly(cuda, q, n, d):
+    """precision="bfloat16" rounds both operands to bf16; on rows whose
+    rounded products sum exactly in f32 the counts must be equal. A
+    perturbation below bf16's resolution counts in f32 and not in lowp."""
+    rng = np.random.RandomState(q + n + 1)
+    queries = torch.from_numpy(_exact_rows(rng, q, d)).to(cuda)
+    gallery = torch.from_numpy(_exact_rows(rng, n, d)).to(cuda)
+    pos_idx = torch.from_numpy(rng.randint(0, n, q)).to(cuda)
+    pos = (queries * gallery[pos_idx]).sum(1)
+    pos[3] = float("nan")
+    valid = torch.from_numpy(rng.rand(n) > 0.2).to(cuda)
+    for gv, pi in ((None, None), (valid, pos_idx)):
+        want = rankcount_kernel.violation_counts_plain(
+            queries, gallery, pos, gv, pi, precision="bfloat16")
+        before = (rankcount_kernel.launches, rankcount_kernel.lowp_launches)
+        got = rankcount_kernel.violation_counts(queries, gallery, pos, gv, pi,
+                                                precision="bfloat16")
+        torch.cuda.synchronize()
+        assert (rankcount_kernel.launches,
+                rankcount_kernel.lowp_launches) == (before[0], before[1] + 1)
+        assert torch.equal(got, want)
+    # below bf16's resolution: invisible to lowp, seen by the f32 branch
+    g_int = torch.from_numpy(rng.randint(-3, 4, (n, d)).astype(np.float32))
+    q_int = torch.from_numpy(rng.randint(-3, 4, (q, d)).astype(np.float32))
+    pos_int = (q_int * g_int[pos_idx.cpu()]).sum(1)
+    g_pert = (g_int + torch.rand(n, d) * 2**-12 * (g_int != 0)).to(cuda)
+    args = (q_int.to(cuda), g_pert, pos_int.to(cuda), None, pos_idx)
+    lowp = rankcount_kernel.violation_counts(*args, precision="bfloat16")
+    exact = rankcount_kernel.violation_counts_plain(
+        q_int.to(cuda), g_int.to(cuda), pos_int.to(cuda), None, pos_idx)
+    assert torch.equal(lowp, exact)
+    assert not torch.equal(rankcount_kernel.violation_counts(*args), exact)
+
+
+def _bf16_batch():
+    rng = np.random.RandomState(1)
+    frames = torch.from_numpy(rng.randn(6, 3, 7, 20).astype(np.float32))
+    return Batch(frames=frames.to(BF16),
+                 frame_len=rng.randint(0, 8, (6, 3)).astype(np.int32),
+                 clip_len=rng.randint(1, 4, 6).astype(np.int32),
+                 words=rng.randint(0, 64, (6, 3, 5)).astype(np.int32),
+                 word_len=rng.randint(0, 6, (6, 3)).astype(np.int32),
+                 sent_len=rng.randint(1, 4, 6).astype(np.int32),
+                 video_ids=np.arange(6, dtype=np.int32),
+                 valid=np.array([1, 1, 1, 1, 1, 0], bool))
+
+
+BF16_CFG = ModelConfig(embed_size=32, word_dim=16, feat_dim=20, rnn_hidden=32,
+                       hierarchical=True, attention_pool=True,
+                       reconstruction=True, dtype="bfloat16")
+
+
+def test_bf16_encode_on_card_matches_cpu(cuda):
+    batch = _bf16_batch()
+    out = {}
+    for dev in ("cpu", cuda):
+        model = CMHSE(BF16_CFG, 64, device=dev,
+                      generator=torch.Generator().manual_seed(3))
+        b = batch.to(dev)
+        with torch.inference_mode():
+            v, clip = model.encode_video(b.frames, b.frame_len, b.clip_len)
+            p, sent = model.encode_text(b.words, b.word_len, b.sent_len)
+        out[str(dev)] = [x.cpu() for x in (v, clip, p, sent)]
+    for g, w in zip(out["cuda"], out["cpu"]):
+        assert g.dtype == BF16
+        torch.testing.assert_close(g.float(), w.float(), atol=BF16_ATOL,
+                                   rtol=0)
+
+
+def test_bf16_train_step_on_card_matches_cpu(cuda):
+    """One bf16 step's loss within rtol 1e-2 and its gradients, all
+    together, within relative L2 2e-2 of the CPU's plain path; every
+    gradient is f32. The bf16 kernels run on the card and the f32 ones do
+    not."""
+    batch = _bf16_batch()
+    exp = ExperimentConfig(model=BF16_CFG)
+    res = {}
+    for dev in ("cpu", cuda):
+        model = CMHSE(BF16_CFG, 64, device=dev,
+                      generator=torch.Generator().manual_seed(3))
+        b = batch.to(dev)
+        f32 = (gru_kernel.launches, gru_kernel.bwd_launches)
+        bf16 = (gru_kernel.bf16_save_gates_launches,
+                gru_kernel.bf16_bwd_launches)
+        loss, _ = total_loss(model(b), b, exp.loss)
+        loss.backward()
+        if dev != "cpu":
+            assert (gru_kernel.launches, gru_kernel.bwd_launches) == f32
+            assert (gru_kernel.bf16_save_gates_launches,
+                    gru_kernel.bf16_bwd_launches) == (bf16[0] + 6,
+                                                      bf16[1] + 6)
+        grads = [p.grad for _, p in sorted(model.named_parameters())]
+        assert all(g.dtype == torch.float32 for g in grads)
+        res[str(dev)] = (loss.item(), torch.cat([g.cpu().ravel()
+                                                 for g in grads]))
+    card, cpu = res["cuda"], res["cpu"]
+    assert abs(card[0] - cpu[0]) <= 1e-2 * abs(cpu[0])
+    assert _rel_l2(card[1], cpu[1]) <= BF16_GRAD_RL2
