@@ -28,23 +28,24 @@ Phases (any failure raises and the script exits non-zero):
      version: exact on exact-arithmetic rows, inside the near-tie band on
      random rows, Q=1024, N=100,000;
   4. the serving path at full ``cmhse_full`` width (H = E = 1024, batch
-     64, random weights from the seed): encode a 2,048-video synthetic
+     64, random weights from the seed): encode a 1,024-video synthetic
      gallery, answer 8 text->video and 8 video->text top-10 requests, score
      it with ``validate_metrics(streaming=True)``; the first batch is
      re-encoded on the CPU (plain versions) and must agree; 4b.
      torch.profiler splits two batches' encode device time by kernel family;
      4c. the same in the bf16 configuration (``dtype`` and
      ``feature_dtype`` bfloat16) on the same weights and batches, plus the
-     lowp rank count; embeddings held against the f32 model's; a profiler
-     split of its encode;
+     lowp rank count; embeddings held against the f32 model's, the first
+     batch re-encoded on the CPU in bf16; a profiler split of its encode;
   5. the training path at the same width: 8 ``train_step``s on one 64-video
      batch (finite losses and grad norms, the last loss below the first,
      6 + 6 + 4 kernel launches per step), then ``validate_metrics`` on the
      trained weights; 5b. torch.profiler splits one step's device time by
      kernel family; 5c. one step at batch 8, card against the CPU's plain
      path: loss, grad_norm and every parameter gradient; 5d. the same three
-     in bf16 (only the bf16 GRU kernels may launch; card vs CPU in the bf16
-     bands of ``tests/test_torch_bf16.py``);
+     in bf16 (only the bf16 GRU kernels may launch; card vs CPU on four
+     batches with the hardest negatives pinned, in the bf16 bands of
+     ``tests/test_torch_bf16.py``; how often bf16 changes the picks);
   6. one JSON line listing each kernel and bf16 variant with its path, its
      launches there, its error against its plain version, times and bound;
   7. last line: ``{"ok": true, "device": {...}}``.
@@ -89,9 +90,6 @@ TRAIN_LOSS_RTOL = 1e-4
 TRAIN_NORM_RTOL = 1e-3
 TRAIN_GRAD_RTOL = 1e-3
 TRAIN_STEPS = 8
-# Offset of phase 5d's batch-8 data seed from --seed: a batch where the card
-# and the CPU pick the same hardest negatives in bf16 (phase 5d's check)
-PARITY_BF16_DATA_SEED = 2
 # Phase 5's learning rate, the low end of the range the config names for
 # the reference. At the preset's 1e-3, Adam's first sign-sized step from
 # random weights spreads the embeddings and the hardest-negative terms
@@ -105,11 +103,22 @@ SCORE_ATOL = 1e-4  # served top-k scores vs the gallery embeddings' products
 # within float32 summation noise (~1e-7 at |s| ~ 1) of the positive's.
 RANK_TIE_TOL = 1e-5
 REQUESTS = 6  # each direction: the first call, then steady state
-# The bf16 model against the f32 one on the same weights (phase 4c): the
-# JAX package's bf16 band for its production-width GRU (tests/test_gru.py,
-# max abs 2e-2), and every embedding's cosine with its f32 twin
-BF16_EMB_ATOL = 2e-2
-BF16_EMB_COS = 0.99
+# The bf16 model against the f32 one on the same weights (phase 4c): about
+# three times what was read at seed 0 (max abs 9.5e-4, lowest cosine
+# 0.999991; PERF.md), so a wrong bf16 path shows
+BF16_EMB_ATOL = 3e-3
+BF16_EMB_COS = 0.99997
+# phase 5d: data seeds (from --seed + 2) of the card-vs-CPU bf16 step;
+# bf16's relative spacing at 1; the pinned objective against the objective
+# at its own picks, all gradients' relative L2: the two differ only where
+# an f32 difference in the loss's arithmetic flips the bf16 rounding of an
+# embedding's cotangent, by an ulp
+PARITY_BF16_SEEDS = 4
+BF16_ULP = 2.0**-8
+CONSISTENT = BF16_ULP
+# a parameter whose bf16 gradient lies within this relative L2 distance of
+# its f32 gradient (the same weights and negatives) is one bf16 determines
+DETERMINED = 0.1
 
 
 def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
@@ -259,12 +268,14 @@ def library_gru_ms(torch, x, lengths_np, w_i, w_h, b_i, b_h, final,
 def gru_bounds(b, t, h, live, gates=False, seeded=False,
                backward=False, bf16=False) -> tuple[float, str]:
     """bound_ms of one K1 or K2 call: the recurrent product's FLOPs over the
-    live row-steps, and each input read and output written once. In bf16
-    the streams and W_h take 2 bytes an element (b_h, lengths and the bias
-    sums stay 4) and the product runs at the bf16 tensor-core peak."""
+    live row-steps, and each input read and output written once, counting
+    what this run's lengths need (K1 reads xw and writes gates on live
+    steps only; outs at every step). In bf16 the streams and W_h take 2
+    bytes an element (b_h, lengths and the bias sums stay 4) and the
+    product runs at the bf16 tensor-core peak."""
     flops = 2.0 * live * h * 3 * h
     if not backward:
-        streams = (b * t * 3 * h + h * 3 * h + b * t * h + b * h
+        streams = (live * 3 * h + h * 3 * h + b * t * h + b * h
                    + (live * 4 * h if gates else 0)
                    + (b * h if seeded else 0))
         words = 3 * h + b
@@ -657,29 +668,17 @@ def phase_simhinge(torch, rng, sizes, d: int = 1024) -> list:
     return rows
 
 
-def train_counts(gk, sk, rk) -> dict:
-    """The launch counts of every kernel wrapper (gru_fwd by variant and
-    element type)."""
-    return {"gru_fwd": gk.launches,
-            "gru_fwd save_gates": gk.save_gates_launches,
-            "gru_fwd with_h0": gk.with_h0_launches,
-            "gru_bwd": gk.bwd_launches,
-            "gru_fwd bf16": gk.bf16_launches,
-            "gru_fwd bf16 save_gates": gk.bf16_save_gates_launches,
-            "gru_fwd bf16 with_h0": gk.bf16_with_h0_launches,
-            "gru_bwd bf16": gk.bf16_bwd_launches,
-            "gru_bwd bf16 with_h0": gk.bf16_bwd_with_h0_launches,
-            "simhinge": sk.launches, "rankcount": rk.launches,
-            "rankcount lowp": rk.lowp_launches}
+def launch_counts() -> dict:
+    """Every kernel wrapper's launches since the last
+    ``cuda_lib.reset_launches()``, keyed "kernel dtype variant"."""
+    from cmhse_tpu_torch.ops import cuda_lib
+
+    return {" ".join(k): n for k, n in sorted(cuda_lib.launches.items())}
 
 
-def reset_counts(gk, sk, rk) -> None:
-    for name in ("launches", "save_gates_launches", "with_h0_launches",
-                 "bwd_launches", "bf16_launches", "bf16_save_gates_launches",
-                 "bf16_with_h0_launches", "bf16_bwd_launches",
-                 "bf16_bwd_with_h0_launches"):
-        setattr(gk, name, 0)
-    sk.launches = rk.launches = rk.lowp_launches = 0
+def total(counts: dict, prefix: str) -> int:
+    """Launches of the keys of ``counts`` that start with ``prefix``."""
+    return sum(n for k, n in counts.items() if k.startswith(prefix))
 
 
 def phase_train(torch, np, seed: int, bf16: bool = False) -> dict:
@@ -697,9 +696,7 @@ def phase_train(torch, np, seed: int, bf16: bool = False) -> dict:
                                       batches_from_dataset)
     from cmhse_tpu_torch.eval import format_table, validate_metrics
     from cmhse_tpu_torch.models import CMHSE
-    from cmhse_tpu_torch.ops import gru_kernel as gk
-    from cmhse_tpu_torch.ops import rankcount_kernel as rk
-    from cmhse_tpu_torch.ops import simhinge_kernel as sk
+    from cmhse_tpu_torch.ops import cuda_lib
     from cmhse_tpu_torch.train import (create_train_state, set_learning_rate,
                                        train_step)
 
@@ -720,7 +717,7 @@ def phase_train(torch, np, seed: int, bf16: bool = False) -> dict:
                   generator=torch.Generator().manual_seed(seed))
     state = set_learning_rate(create_train_state(cfg, model), TRAIN_LR)
     torch.cuda.reset_peak_memory_stats()
-    reset_counts(gk, sk, rk)
+    cuda_lib.reset_launches()
     losses, norms, step_ms = [], [], []
     for i in range(TRAIN_STEPS):
         t0 = time.perf_counter()
@@ -732,13 +729,13 @@ def phase_train(torch, np, seed: int, bf16: bool = False) -> dict:
         norms.append(m["grad_norm"])
         log(f"  step {i + 1}: {step_ms[-1]:.2f} ms  "
             + "  ".join(f"{k} {v:.6f}" for k, v in m.items()))
-    step_counts = train_counts(gk, sk, rk)
+    step_counts = launch_counts()
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     t0 = time.perf_counter()
     val = validate_metrics(model, [batch], streaming=True)
     torch.cuda.synchronize()
     t_val = time.perf_counter() - t0
-    counts = train_counts(gk, sk, rk)
+    counts = launch_counts()
     log(f"  median step {float(np.median(step_ms)):.3f} ms over "
         f"{TRAIN_STEPS} steps (first {step_ms[0]:.3f} ms); peak device "
         f"memory {peak_gib:.2f} GiB; validate_metrics(streaming) on the "
@@ -753,13 +750,11 @@ def phase_train(torch, np, seed: int, bf16: bool = False) -> dict:
         raise AssertionError(f"loss did not fall: {losses}")
     if not all(np.isfinite(x) for x in val.values()):
         raise AssertionError(f"non-finite metrics {val}")
-    want = dict.fromkeys(step_counts, 0)
-    prefix = "gru_fwd bf16" if bf16 else "gru_fwd"
-    bwd = "gru_bwd bf16" if bf16 else "gru_bwd"
-    want.update({prefix: 6, f"{prefix} save_gates": 6,
-                 f"{prefix} with_h0": 2, bwd: 6, "simhinge": 4})
-    if bf16:
-        want["gru_bwd bf16 with_h0"] = 2
+    dt = mc.dtype  # only this element type's GRU kernels may launch
+    want = {f"gru_fwd {dt} save_gates": 4,
+            f"gru_fwd {dt} save_gates+with_h0": 2,
+            f"gru_bwd {dt} zero_h0": 4, f"gru_bwd {dt} with_h0": 2,
+            "simhinge float32 rowpass": 4}
     got = {k: v / TRAIN_STEPS for k, v in step_counts.items()}
     if got != want:
         raise AssertionError(f"launches per step {got}, expected {want}")
@@ -863,94 +858,144 @@ def phase_train_parity(torch, np, seed: int) -> None:
         raise AssertionError("card and CPU train steps differ")
 
 
-def hardest_negatives(torch, out) -> list:
-    """Each valid query's hardest negative in both directions at both
-    levels of a ModelOutputs (the batch's video ids are distinct, so each
-    level's positives are its diagonal)."""
-    picks = []
-    low_valid = (out.clip_valid & out.sent_valid).reshape(-1).cpu()
-    for a, b, valid in ((out.video_emb, out.para_emb, None),
-                        (out.clip_emb, out.sent_emb, low_valid)):
-        a = a.detach().float().cpu().reshape(-1, a.shape[-1])
-        b = b.detach().float().cpu().reshape(-1, b.shape[-1])
-        if valid is None:
-            valid = torch.ones(a.shape[0], dtype=torch.bool)
-        sims = a @ b.T
-        sims[torch.eye(a.shape[0], dtype=torch.bool) | ~valid[None, :]
-             | ~valid[:, None]] = float("-inf")
-        picks += [sims.argmax(1)[valid], sims.argmax(0)[valid]]
-    return picks
+def leaf_bands(got: dict, want: dict, want32: dict) -> tuple:
+    """Each parameter gradient's error against its band, as a share of it
+    (<= 1 passes), as tests/test_torch_bf16.py holds the port to JAX. A
+    parameter bf16 determines (its bf16 and f32 reference gradients within
+    DETERMINED): relative L2 within BF16_GRAD_RL2 plus three times that
+    spread (at most 0.32, so a zero or sign-flipped gradient fails). Any
+    other (only the attention pools': near-cancelling sums that bf16
+    rounding alone moves by 20-340%): max abs error within BF16_ULP of the
+    largest gradient entry of its encoder stage. Returns (shares of the
+    determined, shares of the others)."""
+    def rel(a, b):
+        return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+    spread = {k: rel(want[k], want32[k]) for k in want}
+    loose = {k for k, v in spread.items() if v > DETERMINED}
+    if not all(".attn_pool." in k for k in loose):
+        raise AssertionError(f"bf16 leaves these gradients undetermined: "
+                             f"{sorted(loose)}")
+    stage = {}
+    for k, w in want.items():
+        name = k.split(".")[0]
+        stage[name] = max(stage.get(name, 0.0), float(w.abs().max()))
+    tight = {k: rel(got[k], want[k]) / (BF16_GRAD_RL2 + 3 * spread[k])
+             for k in want if k not in loose}
+    rest = {k: float((got[k] - want[k]).abs().max())
+            / (BF16_ULP * max(stage[k.split(".")[0]], 1e-30)) for k in loose}
+    return tight, rest
 
 
-def phase_train_parity_bf16(torch, np, seed: int) -> None:
+def phase_train_parity_bf16(torch, np, seed: int) -> dict:
     """5d: one bf16 step at batch 8, full width, card against the CPU's
-    plain path from the same weights, in the bands of
-    tests/test_torch_bf16.py: loss within rtol 1e-2, all gradients together
-    within relative L2 2e-2, each within 2e-2 plus three times the distance
-    between the CPU's bf16 and f32 gradients of that parameter (bf16's own
-    spread there). The card and the CPU must pick the same hardest
-    negatives: at a near-tie a bf16 ulp may pick another, which sends a
-    row's gradient elsewhere (the data seed is one where they agree)."""
+    plain path from the same weights, on PARITY_BF16_SEEDS batches. At
+    random init the similarities nearly tie, so a bf16 ulp may change a
+    hardest negative, which sends a row's gradient elsewhere; the gradients
+    are therefore compared with the negatives pinned to the CPU's bf16
+    picks on both sides (``total_loss_at``), in the bands of
+    tests/test_torch_bf16.py: loss within rtol 1e-2, all gradients
+    together within relative L2 2e-2, each as ``leaf_bands`` says. On the
+    card the pinned objective at its own picks must give the objective's
+    gradients (through the simhinge kernel) within CONSISTENT. Counts how
+    often the card's picks differ from the CPU's, and the CPU's bf16 picks
+    from its f32 ones."""
     import dataclasses
 
     from cmhse_tpu_torch.config import get_preset
     from cmhse_tpu_torch.data import (SyntheticHierarchicalDataset,
                                       batches_from_dataset)
     from cmhse_tpu_torch.models import CMHSE
-    from cmhse_tpu_torch.train import total_loss
+    from cmhse_tpu_torch.train import (hardest_negatives, total_loss,
+                                       total_loss_at)
 
     cfg = get_preset("cmhse_full")
     dc = dataclasses.replace(cfg.data, batch_size=8,
                              feature_dtype="bfloat16")
-    ds = SyntheticHierarchicalDataset(
-        num_videos=8, feat_dim=dc.feat_dim, vocab_size=dc.vocab_size,
-        max_clips=dc.max_clips, max_frames=dc.max_frames,
-        max_words=dc.max_words, seed=seed + PARITY_BF16_DATA_SEED)
-    host = next(batches_from_dataset(ds, dc, shuffle=False))
-    res = {}
-    for dev, dtype in (("cuda", "bfloat16"), ("cpu", "bfloat16"),
-                       ("cpu", "float32")):
-        t0 = time.perf_counter()
-        model = CMHSE(dataclasses.replace(cfg.model, dtype=dtype),
-                      dc.vocab_size, device=dev,
-                      generator=torch.Generator().manual_seed(seed))
-        b = host.to(dev)
-        out = model(b)
-        loss, _ = total_loss(out, b, cfg.loss)
-        loss.backward()
-        res[(dev, dtype)] = dict(
-            loss=loss.item(), picks=hardest_negatives(torch, out),
-            grads={k: (p.grad if p.grad is not None
-                       else torch.zeros_like(p)).float().cpu()
-                   for k, p in model.named_parameters()},
-            s=time.perf_counter() - t0)
-    card, cpu, f32 = (res[("cuda", "bfloat16")], res[("cpu", "bfloat16")],
-                      res[("cpu", "float32")])
 
-    def rel(a, b):
-        return float((a - b).norm() / b.norm().clamp_min(1e-30))
+    def grads(model, loss, retain=False):
+        named = list(model.named_parameters())
+        gs = torch.autograd.grad(loss, [p for _, p in named],
+                                 retain_graph=retain, allow_unused=True)
+        return {k: (torch.zeros_like(p) if g is None else g).float().cpu()
+                for (k, p), g in zip(named, gs)}
 
-    keys = sorted(card["grads"])
-    cat = lambda r: torch.cat([r["grads"][k].ravel() for k in keys])
-    loss_rel = abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"])
-    total = rel(cat(card), cat(cpu))
-    share = {k: rel(card["grads"][k], cpu["grads"][k])
-             / (BF16_GRAD_RL2 + 3 * rel(cpu["grads"][k], f32["grads"][k]))
-             for k in keys}
-    worst = max(share, key=share.get)
-    same = [bool(torch.equal(a, b)) for a, b in zip(card["picks"],
-                                                     cpu["picks"])]
-    log(f"  batch 8, bf16: loss card {card['loss']:.6f} CPU "
-        f"{cpu['loss']:.6f} (CPU f32 {f32['loss']:.6f}; {cpu['s']:.1f} + "
-        f"{f32['s']:.1f} s on the CPU); same hardest negatives {same}")
-    log(f"  loss rel err {loss_rel:.3g} (limit 1e-2), all gradients rel L2 "
-        f"{total:.3g} (limit {BF16_GRAD_RL2}), worst of {len(keys)} against "
-        f"its band {worst} {share[worst]:.3g} (limit 1)")
-    if not all(same):
-        raise AssertionError("card and CPU picked other hardest negatives")
-    if not (loss_rel <= 1e-2 and total <= BF16_GRAD_RL2
-            and share[worst] <= 1.0):
+    def rel_all(a, b):
+        keys = sorted(b)
+        x = torch.cat([a[k].ravel() for k in keys])
+        y = torch.cat([b[k].ravel() for k in keys])
+        return float((x - y).norm() / y.norm().clamp_min(1e-30))
+
+    worst = dict(loss=0.0, consistency=0.0, all=0.0, determined=("", 0.0),
+                 pools=("", 0.0))
+    n_queries = n_card_cpu = n_bf16_f32 = 0
+    cpu_s = 0.0
+    runs = (("cpu", "bfloat16"), ("cuda", "bfloat16"), ("cpu", "float32"))
+    models = {run: CMHSE(dataclasses.replace(cfg.model, dtype=run[1]),
+                         dc.vocab_size, device=run[0],
+                         generator=torch.Generator().manual_seed(seed))
+              for run in runs}
+    for k in range(PARITY_BF16_SEEDS):
+        ds = SyntheticHierarchicalDataset(
+            num_videos=8, feat_dim=dc.feat_dim, vocab_size=dc.vocab_size,
+            max_clips=dc.max_clips, max_frames=dc.max_frames,
+            max_words=dc.max_words, seed=seed + 2 + k)
+        host = next(batches_from_dataset(ds, dc, shuffle=False))
+        res, ref = {}, None
+        for dev, dtype in runs:
+            t0 = time.perf_counter()
+            model = models[(dev, dtype)]
+            b = host.to(dev)
+            out = model(b)
+            loss, _ = total_loss(out, b, cfg.loss)
+            own = hardest_negatives(out, b, cfg.loss)
+            ref = ref or [p.cpu() for p in own]  # the CPU's bf16 picks
+            r = dict(loss=loss.item(), picks=[p.cpu() for p in own])
+            if dev == "cuda":
+                r["real"] = grads(model, loss, retain=True)
+                r["own"] = grads(model, total_loss_at(out, b, cfg.loss, own),
+                                 retain=True)
+            r["pinned"] = grads(model, total_loss_at(
+                out, b, cfg.loss, [p.to(dev) for p in ref]))
+            res[(dev, dtype)] = r
+            if dev == "cpu":
+                cpu_s += time.perf_counter() - t0
+        card, cpu, f32 = (res[("cuda", "bfloat16")], res[("cpu", "bfloat16")],
+                          res[("cpu", "float32")])
+        n_queries += sum(int((p >= 0).sum()) for p in cpu["picks"])
+        n_card_cpu += sum(int((a != b).sum())
+                          for a, b in zip(card["picks"], cpu["picks"]))
+        n_bf16_f32 += sum(int((a != b).sum())
+                          for a, b in zip(cpu["picks"], f32["picks"]))
+        tight, rest = leaf_bands(card["pinned"], cpu["pinned"],
+                                 f32["pinned"])
+        worst["loss"] = max(worst["loss"], abs(card["loss"] - cpu["loss"])
+                            / abs(cpu["loss"]))
+        worst["consistency"] = max(worst["consistency"],
+                                   rel_all(card["own"], card["real"]))
+        worst["all"] = max(worst["all"], rel_all(card["pinned"],
+                                                 cpu["pinned"]))
+        for key, shares in (("determined", tight), ("pools", rest)):
+            if shares:
+                name = max(shares, key=shares.get)
+                if shares[name] > worst[key][1]:
+                    worst[key] = (name, shares[name])
+    log(f"  batch 8, bf16, {PARITY_BF16_SEEDS} batches ({cpu_s:.1f} s on the "
+        f"CPU): hardest negatives that differ, card vs CPU {n_card_cpu} of "
+        f"{n_queries}; CPU bf16 vs CPU f32 {n_bf16_f32} of {n_queries}")
+    log(f"  worst: loss rel err {worst['loss']:.3g} (limit 1e-2); pinned vs "
+        f"searched negatives on the card, all gradients rel L2 "
+        f"{worst['consistency']:.3g} (limit {CONSISTENT}); card vs CPU, "
+        f"negatives pinned: all gradients rel L2 {worst['all']:.3g} (limit "
+        f"{BF16_GRAD_RL2}), against its band {worst['determined'][0]} "
+        f"{worst['determined'][1]:.3g}, attention pools "
+        f"{worst['pools'][0]} {worst['pools'][1]:.3g} (limit 1)")
+    if not (worst["loss"] <= 1e-2 and worst["consistency"] <= CONSISTENT
+            and worst["all"] <= BF16_GRAD_RL2
+            and worst["determined"][1] <= 1.0 and worst["pools"][1] <= 1.0):
         raise AssertionError("card and CPU bf16 train steps differ")
+    return dict(queries=n_queries, card_vs_cpu=n_card_cpu,
+                bf16_vs_f32=n_bf16_f32)
 
 
 def serve(torch, np, model, batches, qb, picks) -> dict:
@@ -1092,7 +1137,7 @@ def phase_main_path(torch, np, seed: int, n_videos: int) -> dict:
     from cmhse_tpu_torch.config import get_preset
     from cmhse_tpu_torch.eval.encode import encode_batch
     from cmhse_tpu_torch.models import CMHSE
-    from cmhse_tpu_torch.ops import gru_kernel, rankcount_kernel
+    from cmhse_tpu_torch.ops import cuda_lib
 
     cfg = get_preset("cmhse_full")
     dc, mc = cfg.data, cfg.model
@@ -1104,12 +1149,12 @@ def phase_main_path(torch, np, seed: int, n_videos: int) -> dict:
     batches, picks, qb = serving_data(torch, np, seed, n_videos)
     model = CMHSE(mc, dc.vocab_size,
                   generator=torch.Generator().manual_seed(seed))
-    gru_kernel.launches = 0
-    rankcount_kernel.launches = 0
+    cuda_lib.reset_launches()
     out = serve(torch, np, model, batches, qb, picks)
-    counts = {"gru_fwd": gru_kernel.launches,
-              "rankcount": rankcount_kernel.launches}
+    counts = launch_counts()
     log(f"  launches on the main path: {counts}")
+    if set(counts) != {"gru_fwd float32 encode", "rankcount float32 f32"}:
+        raise AssertionError(f"serving launches {counts}")
     v, p, _ = out["encoded"]
     first = batches[0]
     cpu_model = CMHSE(mc, dc.vocab_size, device="cpu",
@@ -1133,14 +1178,16 @@ def phase_serving_bf16(torch, np, f32: dict) -> dict:
     synthetic batches (their frames rounded to bf16 on the host, as
     ``pad_batch`` rounds them: set-up, not timed). Then the bf16-multiply
     rank count (``precision="bfloat16"``) over the bf16 gallery, whose
-    ranks must lie in the f32 count's near-tie band. The embeddings are
-    held against phase 4's f32 model on the same weights."""
+    ranks must lie in the f32 count's near-tie band. The first batch is
+    re-encoded on the CPU in bf16 (plain versions) and must agree within
+    BF16_ATOL; all embeddings are held against phase 4's f32 model on the
+    same weights."""
     import dataclasses
 
+    from cmhse_tpu_torch.eval.encode import encode_batch
     from cmhse_tpu_torch.eval.retrieval import streaming_bidirectional_metrics
     from cmhse_tpu_torch.models import CMHSE
-    from cmhse_tpu_torch.ops import gru_kernel as gk
-    from cmhse_tpu_torch.ops import rankcount_kernel as rk
+    from cmhse_tpu_torch.ops import cuda_lib
 
     f32_model = f32["model"]
     mc = dataclasses.replace(f32_model.cfg, dtype="bfloat16")
@@ -1155,8 +1202,7 @@ def phase_serving_bf16(torch, np, f32: dict) -> dict:
         torch.bfloat16))
     log(f"  frames rounded to bf16 on the host: "
         f"{time.perf_counter() - t0:.3f} s")
-    gk.launches = gk.bf16_launches = 0
-    rk.launches = rk.lowp_launches = 0
+    cuda_lib.reset_launches()
     out = serve(torch, np, model, batches, qb, f32["picks"])
     v, p, valid = out["encoded"]
     with torch.inference_mode():
@@ -1165,14 +1211,13 @@ def phase_serving_bf16(torch, np, f32: dict) -> dict:
                                                precision="bfloat16")
     for key, s in (("v2p_ranks", out["sims"]), ("p2v_ranks", out["sims"].T)):
         check_rank_band(torch, lowp[key], s, f"lowp {key}")
-    counts = {"gru_fwd f32": gk.launches, "gru_fwd bf16": gk.bf16_launches,
-              "rankcount f32": rk.launches, "rankcount lowp": rk.lowp_launches}
+    counts = launch_counts()
     log(f"  lowp rank count over the bf16 gallery: rsum "
         f"{float(lowp['rsum']):.1f} (f32 count {out['metrics']['rsum']:.1f}),"
         f" ranks within the +-{RANK_TIE_TOL} band of the dense block")
     log(f"  launches on the bf16 serving path: {counts}")
-    if counts["gru_fwd f32"] or not counts["gru_fwd bf16"] or \
-            not counts["rankcount lowp"] or not counts["rankcount f32"]:
+    if set(counts) != {"gru_fwd bfloat16 encode", "rankcount float32 f32",
+                       "rankcount bfloat16 lowp"}:
         raise AssertionError(f"bf16 serving launches {counts}")
     # the same weights in f32: one GRU stack rounds at every bf16 point
     fv, fp, _ = f32["encoded"]
@@ -1186,6 +1231,19 @@ def phase_serving_bf16(torch, np, f32: dict) -> dict:
         f"{BF16_EMB_COS})")
     if not (err <= BF16_EMB_ATOL and cos >= BF16_EMB_COS):
         raise AssertionError("bf16 embeddings stray from the f32 model's")
+    cpu_model = CMHSE(mc, f32_model.vocab_size, device="cpu")
+    cpu_model.load_state_dict(f32_model.state_dict())
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        cv, cp, _, _ = encode_batch(cpu_model, batches[0])
+    t_cpu = time.perf_counter() - t0
+    n = batches[0].frames.shape[0]
+    err = max((cv.float() - v[:n].float().cpu()).abs().max().item(),
+              (cp.float() - p[:n].float().cpu()).abs().max().item())
+    log(f"  first batch in bf16, card vs CPU (plain versions, {t_cpu:.1f} "
+        f"s): max abs err {err:.3g} (limit {BF16_ATOL})")
+    if not err <= BF16_ATOL:
+        raise AssertionError(f"card and CPU bf16 embeddings differ by {err}")
     return dict(counts=counts, model=model, batches=batches)
 
 
@@ -1293,7 +1351,7 @@ def phase_topk(torch, rng) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--videos", type=int, default=2048,
+    ap.add_argument("--videos", type=int, default=1024,
                     help="synthetic gallery size of the serving path")
     args = ap.parse_args()
     t_start = time.perf_counter()
@@ -1392,10 +1450,6 @@ def main() -> int:
     phase("phase 4: serving path at full cmhse_full width")
     main_out = phase_main_path(torch, np, args.seed, args.videos)
     counts = main_out["counts"]
-    for name, n in counts.items():
-        if n <= 0:
-            raise AssertionError(f"kernel {name} was not launched on the "
-                                 "serving path")
     phase("phase 4b: where the encode's device time goes (torch.profiler)")
     phase_breakdown(torch, main_out["model"], main_out["batches"])
     phase("phase 4c: serving path in bf16 (dtype and feature_dtype "
@@ -1448,37 +1502,38 @@ def main() -> int:
     k4 = "cmhse_tpu/ops/pallas_sim.py:286"
     entries = [
         entry("gru_fwd", "gru_fwd.cu", k1, gru_rows + fwd_rows,
-              "serve+train", counts["gru_fwd"] + tcounts["gru_fwd"],
-              launches_by_path={"serve": counts["gru_fwd"],
-                                "train": tcounts["gru_fwd"]},
-              launches_save_gates=tcounts["gru_fwd save_gates"],
-              launches_with_h0=tcounts["gru_fwd with_h0"]),
+              "serve+train", total(counts, "gru_fwd float32")
+              + total(tcounts, "gru_fwd float32"),
+              launches_by_path={"serve": total(counts, "gru_fwd"),
+                                "train": total(tcounts, "gru_fwd")},
+              launches_train_by_variant={
+                  k: n for k, n in tcounts.items() if k.startswith("gru_fwd")}),
         entry("gru_bwd", "gru_bwd.cu", k2, bwd_rows, "train",
-              tcounts["gru_bwd"]),
+              total(tcounts, "gru_bwd float32")),
         entry("simhinge", "simhinge.cu", "cmhse_tpu/ops/pallas_sim.py:58",
-              sh_rows, "train", tcounts["simhinge"] + bcounts["simhinge"],
-              launches_by_path={"train": tcounts["simhinge"],
-                                "train bf16": bcounts["simhinge"]}),
+              sh_rows, "train",
+              total(tcounts, "simhinge") + total(bcounts, "simhinge"),
+              launches_by_path={"train": total(tcounts, "simhinge"),
+                                "train bf16": total(bcounts, "simhinge")}),
         entry("rankcount", "rankcount.cu", k4, rc_rows, "serve+train",
-              counts["rankcount"] + tcounts["rankcount"],
-              launches_by_path={"serve": counts["rankcount"],
-                                "train": tcounts["rankcount"]}),
+              total(counts, "rankcount float32")
+              + total(tcounts, "rankcount float32"),
+              launches_by_path={"serve": total(counts, "rankcount"),
+                                "train": total(tcounts, "rankcount")}),
         entry("gru_fwd bf16", "gru_fwd.cu", k1, bf16_rows["encode"],
-              "serve bf16", bf16_counts["gru_fwd bf16"]),
+              "serve bf16", total(bf16_counts, "gru_fwd bfloat16 encode")),
         entry("gru_fwd bf16 save_gates", "gru_fwd.cu", k1,
               bf16_rows["save_gates"], "train bf16",
-              bcounts["gru_fwd bf16 save_gates"]
-              - bcounts["gru_fwd bf16 with_h0"]),
+              bcounts.get("gru_fwd bfloat16 save_gates", 0)),
         entry("gru_fwd bf16 save_gates+with_h0", "gru_fwd.cu", k1,
               bf16_rows["save_gates_h0"], "train bf16",
-              bcounts["gru_fwd bf16 with_h0"]),
+              bcounts.get("gru_fwd bfloat16 save_gates+with_h0", 0)),
         entry("gru_bwd bf16", "gru_bwd.cu", k2, bf16_rows["bwd"],
-              "train bf16",
-              bcounts["gru_bwd bf16"] - bcounts["gru_bwd bf16 with_h0"]),
+              "train bf16", bcounts.get("gru_bwd bfloat16 zero_h0", 0)),
         entry("gru_bwd bf16 with_h0", "gru_bwd.cu", k2, bf16_rows["bwd_h0"],
-              "train bf16", bcounts["gru_bwd bf16 with_h0"]),
+              "train bf16", bcounts.get("gru_bwd bfloat16 with_h0", 0)),
         entry("rankcount lowp", "rankcount.cu", k4, lowp_rows, "serve bf16",
-              bf16_counts["rankcount lowp"],
+              bf16_counts.get("rankcount bfloat16 lowp", 0),
               branch="lowp, cmhse_tpu/ops/pallas_sim.py:297-304"),
     ]
     for e in entries:

@@ -1,6 +1,7 @@
 """Tensor ops and the hand-written CUDA kernels' wrappers.
 
-``gru_kernel`` and ``rankcount_kernel`` each hold one kernel's wrapper, its
-plain PyTorch version and its ``launches`` counter; ``cuda_lib`` builds and
-binds ``csrc/*.cu``.
+``gru_kernel``, ``simhinge_kernel`` and ``rankcount_kernel`` hold the
+kernels' wrappers and their plain PyTorch versions; ``cuda_lib`` builds and
+binds ``csrc/*.cu`` and keeps every wrapper's launch count
+(``cuda_lib.launches``).
 """

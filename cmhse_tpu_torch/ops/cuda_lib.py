@@ -11,6 +11,7 @@ only when a kernel is asked for.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import hashlib
@@ -49,6 +50,27 @@ _SIGNATURES = {
     "cmhse_rankcount_tile_rows": (),
     "cmhse_rankcount_tile_queries": (),
 }
+
+# Kernel launches by (kernel, dtype, variant), for proof that a run went
+# through the kernels: each wrapper adds one to its own key where it
+# launches, and nowhere else.
+launches: collections.Counter[tuple[str, str, str]] = collections.Counter()
+
+
+def count_launch(kernel: str, dtype: str, variant: str) -> None:
+    launches[(kernel, dtype, variant)] += 1
+
+
+def reset_launches() -> None:
+    launches.clear()
+
+
+def launch_count(kernel: str, dtype: str | None = None,
+                 variant: str | None = None) -> int:
+    """Launches of ``kernel`` so far, over every dtype and variant unless
+    one is named."""
+    return sum(n for (k, d, v), n in launches.items()
+               if k == kernel and dtype in (None, d) and variant in (None, v))
 
 
 def _nvcc() -> str:

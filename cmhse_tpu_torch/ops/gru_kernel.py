@@ -36,17 +36,6 @@ import torch
 
 from cmhse_tpu_torch.ops import cuda_lib
 
-# kernel launches, for proof that a run went through the kernels
-launches = 0  # gru_fwd f32, every variant
-save_gates_launches = 0  # gru_fwd f32 with save_gates (the training forward)
-with_h0_launches = 0  # gru_fwd f32 with a seeded h0 (the decoders)
-bwd_launches = 0  # gru_bwd f32
-bf16_launches = 0  # gru_fwd bf16, every variant
-bf16_save_gates_launches = 0  # gru_fwd bf16 with save_gates
-bf16_with_h0_launches = 0  # gru_fwd bf16 with a seeded h0
-bf16_bwd_launches = 0  # gru_bwd bf16
-bf16_bwd_with_h0_launches = 0  # gru_bwd bf16 with a seeded h0
-
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -234,6 +223,10 @@ def _ptr(x: torch.Tensor | None):
     return None if x is None else x.data_ptr()
 
 
+def _dtype_name(dt: torch.dtype) -> str:
+    return str(dt).removeprefix("torch.")
+
+
 def bwd_max_hidden() -> int:
     """Largest H the ``gru_bwd`` kernel takes (its shared memory); builds
     the library."""
@@ -255,10 +248,10 @@ def gru_forward(
     ``gru_fwd`` in the variant the arguments ask for and the instantiation
     of ``xw``'s dtype (f32 or bf16), which takes contiguous
     ``xw``/``w_h``/``h0`` in that dtype, an f32 ``b_h``, int32 ``lengths``
-    and H a multiple of 4; anything else raises.
+    and H a multiple of 4; anything else raises. Each launch counts in
+    ``cuda_lib.launches`` under ("gru_fwd", dtype, variant), the variant
+    "encode", "with_h0", "save_gates" or "save_gates+with_h0".
     """
-    global launches, save_gates_launches, with_h0_launches
-    global bf16_launches, bf16_save_gates_launches, bf16_with_h0_launches
     _check(xw, w_h, b_h, lengths, h0)
     if xw.device.type == "cpu":
         return gru_recurrence_plain(xw, w_h, b_h, lengths, h0, save_gates)
@@ -292,14 +285,10 @@ def gru_forward(
             _ptr(h0), outs.data_ptr(), final.data_ptr(), _ptr(gates), b, t,
             hdim, int(dt == torch.bfloat16), stream)
     cuda_lib.check(err, "gru_fwd launch")
-    if dt == torch.bfloat16:
-        bf16_launches += 1
-        bf16_save_gates_launches += int(save_gates)
-        bf16_with_h0_launches += int(h0 is not None)
-    else:
-        launches += 1
-        save_gates_launches += int(save_gates)
-        with_h0_launches += int(h0 is not None)
+    flags = [f for f, on in (("save_gates", save_gates),
+                             ("with_h0", h0 is not None)) if on]
+    cuda_lib.count_launch("gru_fwd", _dtype_name(dt),
+                          "+".join(flags) or "encode")
     return result
 
 
@@ -318,9 +307,10 @@ def gru_backward(
     On the CPU it is the plain version. On a CUDA device it launches the
     ``gru_bwd`` instantiation of the gates' dtype (f32 or bf16), which takes
     contiguous tensors all in that dtype, int32 ``lengths`` and H a multiple
-    of 4 up to :func:`bwd_max_hidden`; anything else raises.
+    of 4 up to :func:`bwd_max_hidden`; anything else raises. Each launch
+    counts in ``cuda_lib.launches`` under ("gru_bwd", dtype, "with_h0" or
+    "zero_h0").
     """
-    global bwd_launches, bf16_bwd_launches, bf16_bwd_with_h0_launches
     b, t, h4 = gates.shape
     hdim = h4 // 4
     for name, x, shape in (("outs", outs, (b, t, hdim)),
@@ -373,11 +363,8 @@ def gru_backward(
             dxw.data_ptr(), dhn.data_ptr(), db_part.data_ptr(),
             dh0.data_ptr(), b, t, hdim, int(dt == torch.bfloat16), stream)
     cuda_lib.check(err, "gru_bwd launch")
-    if dt == torch.bfloat16:
-        bf16_bwd_launches += 1
-        bf16_bwd_with_h0_launches += int(h0 is not None)
-    else:
-        bwd_launches += 1
+    cuda_lib.count_launch("gru_bwd", _dtype_name(dt),
+                          "zero_h0" if h0 is None else "with_h0")
     return dxw, dhn, db_part.sum(dim=0), dh0
 
 

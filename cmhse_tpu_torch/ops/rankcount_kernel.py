@@ -25,10 +25,6 @@ import torch
 
 from cmhse_tpu_torch.ops import cuda_lib
 
-# kernel launches, for proof that a run went through the kernel
-launches = 0  # the f32 branch
-lowp_launches = 0  # the bf16-multiply branch
-
 PRECISIONS = ("float32", "bfloat16")
 
 # Galleries of at least this many rows take the streaming count on the card
@@ -131,9 +127,9 @@ def violation_counts(
     On the CPU it is the plain version. On a CUDA device it launches the
     ``rankcount`` kernel's branch for ``precision``, which takes f32
     contiguous inputs (the lowp branch rounds them itself); anything else
-    raises.
+    raises. Each launch counts in ``cuda_lib.launches`` under
+    ("rankcount", precision, "f32" or "lowp").
     """
-    global launches, lowp_launches
     if queries.dim() != 2:
         raise ValueError(f"queries must be [Q, D], got "
                          f"{tuple(queries.shape)}")
@@ -181,10 +177,8 @@ def violation_counts(
             counts.data_ptr(), q, n, d, splits, int(precision == "bfloat16"),
             stream)
     cuda_lib.check(err, "rankcount launch")
-    if precision == "bfloat16":
-        lowp_launches += 1
-    else:
-        launches += 1
+    cuda_lib.count_launch("rankcount", precision,
+                          "lowp" if precision == "bfloat16" else "f32")
     return counts
 
 

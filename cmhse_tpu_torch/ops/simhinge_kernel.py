@@ -25,8 +25,6 @@ import torch
 from cmhse_tpu_torch.ops import cuda_lib
 from cmhse_tpu_torch.ops.loss import pair_masks
 
-launches = 0  # kernel launches, for proof that a run went through the kernel
-
 NEG_INF = -1e30  # a row with no negative: the JAX kernel's _NEG_INF
 
 
@@ -67,9 +65,9 @@ def simhinge_rowpass(
     when ``transposed``), ``diag`` ``[M]``. On the CPU it is the plain
     version. On a CUDA device it launches the ``simhinge`` kernel, which
     takes f32 contiguous ``a``/``b``/``diag`` and a contiguous bool mask;
-    anything else raises.
+    anything else raises. Each launch counts in ``cuda_lib.launches`` under
+    ("simhinge", "float32", "rowpass").
     """
-    global launches
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[1]:
         raise ValueError(f"a and b must be [M, D] and [N, D], got "
                          f"{tuple(a.shape)} and {tuple(b.shape)}")
@@ -113,7 +111,7 @@ def simhinge_rowpass(
             row_max.data_ptr(), row_arg.data_ptr(), m, n, d, neg.shape[1],
             int(transposed), float(margin), stream)
     cuda_lib.check(err, "simhinge launch")
-    launches += 1
+    cuda_lib.count_launch("simhinge", "float32", "rowpass")
     return row_max, row_arg
 
 

@@ -1,6 +1,7 @@
 """The training objective and the update step."""
 
-from cmhse_tpu_torch.train.objective import total_loss
+from cmhse_tpu_torch.train.objective import (hardest_negatives, total_loss,
+                                             total_loss_at)
 from cmhse_tpu_torch.train.state import (TrainState, clip_by_global_norm_,
                                          create_train_state, global_norm,
                                          make_optimizer, set_learning_rate,
@@ -8,6 +9,6 @@ from cmhse_tpu_torch.train.state import (TrainState, clip_by_global_norm_,
 
 __all__ = [
     "TrainState", "clip_by_global_norm_", "create_train_state",
-    "global_norm", "make_optimizer", "set_learning_rate", "total_loss",
-    "train_step",
+    "global_norm", "hardest_negatives", "make_optimizer",
+    "set_learning_rate", "total_loss", "total_loss_at", "train_step",
 ]

@@ -6,59 +6,81 @@ without h0) against ``pallas_gru_sequence`` / ``_gru_bwd_pallas`` in bf16
 ``pallas_gru_trainable``; the whole bf16 model (``dtype="bfloat16"``,
 ``pallas_gru=True`` on the JAX side, f32 params carried by
 ``params_from_jax``): encode, forward with decoders, one step's loss and
-gradients; the ``lowp`` rank count against ``pallas_rank_counts``; and the
-bf16 serving path.
+gradients; the attention pool's gradients; the ``lowp`` rank count against
+``pallas_rank_counts``; and the bf16 serving path.
 
 Tolerances are the JAX package's own bf16 bands: forward values within
 ``atol 1e-2`` (tests/test_pallas_gru.py), gradients within a relative L2
 error of ``2e-2`` (tests/test_pallas_gru_grad.py). Each test asserts the
 band and reports the worst value it saw in its failure message; the worst
-values seen here are noted beside each band. The whole-model gradients add
-one band per parameter on top, for sums that nearly cancel (see
-``test_bf16_train_step_loss_and_grads_match_jax``).
+values seen here are noted beside each band.
+
+At random init the in-batch similarities lie within ~1e-3 of each other,
+so one bf16 ulp can change which negative is hardest, in the JAX package
+too (between its bf16 and f32 runs); a changed pick sends that row's
+gradient to another pair. So the whole-model gradients are compared with
+the negatives pinned: ``pinned_total_loss_jax`` here and the port's
+``total_loss_at`` take the picks (for each valid query, the pair the
+max-of-hinges loss picks, both directions, both levels), and each
+parameter gets its own band (``_leaf_bands``).
+
+Run as a script, this module counts over N init seeds how often the port's
+bf16 picks differ from JAX's bf16 picks, and how often JAX's bf16 picks
+differ from its f32 ones (the same weights and batch)::
+
+    python -m tests.test_torch_bf16 --seeds 20
 """
 
-import dataclasses
+import os
 
-import jax
-import jax.numpy as jnp
-import numpy as np
-import pytest
-import torch
+os.environ["JAX_PLATFORMS"] = "cpu"  # also when run as a script
 
-from cmhse_tpu.config import DataConfig as JaxDataConfig
-from cmhse_tpu.config import LossConfig as JaxLossConfig
-from cmhse_tpu.data import SyntheticHierarchicalDataset as JaxDataset
-from cmhse_tpu.data import batches_from_dataset as jax_batches
-from cmhse_tpu.models import CMHSE as JaxCMHSE
-from cmhse_tpu.ops.pallas_gru import pallas_gru_sequence
-from cmhse_tpu.ops.pallas_gru_grad import _gru_bwd_pallas, pallas_gru_trainable
-from cmhse_tpu.ops.pallas_sim import pallas_rank_counts
-from cmhse_tpu.train.objective import total_loss as jax_total_loss
-from cmhse_tpu_torch.config import DataConfig, LossConfig, ModelConfig
-from cmhse_tpu_torch.data import (Batch, SyntheticHierarchicalDataset,
+import argparse  # noqa: E402
+import dataclasses  # noqa: E402
+
+import jax  # noqa: E402
+
+jax.config.update("jax_platforms", "cpu")
+jax.config.update("jax_default_matmul_precision", "highest")
+
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+import pytest  # noqa: E402
+import torch  # noqa: E402
+
+from cmhse_tpu.config import DataConfig as JaxDataConfig  # noqa: E402
+from cmhse_tpu.config import LossConfig as JaxLossConfig  # noqa: E402
+from cmhse_tpu.data import SyntheticHierarchicalDataset as JaxDataset  # noqa: E402
+from cmhse_tpu.data import batches_from_dataset as jax_batches  # noqa: E402
+from cmhse_tpu.models import CMHSE as JaxCMHSE  # noqa: E402
+from cmhse_tpu.ops.loss import reconstruction_loss as jax_recon  # noqa: E402
+from cmhse_tpu.ops.pallas_gru import pallas_gru_sequence  # noqa: E402
+from cmhse_tpu.ops.pallas_gru_grad import (_gru_bwd_pallas,  # noqa: E402
+                                           pallas_gru_trainable)
+from cmhse_tpu.ops.pallas_sim import pallas_rank_counts  # noqa: E402
+from cmhse_tpu.train.objective import total_loss as jax_total_loss  # noqa: E402
+from cmhse_tpu_torch.config import (DataConfig, LossConfig,  # noqa: E402
+                                    ModelConfig)
+from cmhse_tpu_torch.data import (Batch,  # noqa: E402
+                                  SyntheticHierarchicalDataset,
                                   batches_from_dataset)
-from cmhse_tpu_torch.eval import (Retriever, encode_data,
+from cmhse_tpu_torch.eval import (Retriever, encode_data,  # noqa: E402
                                   encode_gallery_device, validate_metrics)
-from cmhse_tpu_torch.eval.retrieval import streaming_bidirectional_metrics
-from cmhse_tpu_torch.interop import params_from_jax
-from cmhse_tpu_torch.models import CMHSE
-from cmhse_tpu_torch.models.gru import gru_input_projection
-from cmhse_tpu_torch.ops import gru_kernel, rankcount_kernel
-from cmhse_tpu_torch.ops.topk import topk_lowest_index
-from cmhse_tpu_torch.train import total_loss
-from tests.make_goldens import CONFIGS
+from cmhse_tpu_torch.eval.retrieval import \
+    streaming_bidirectional_metrics  # noqa: E402
+from cmhse_tpu_torch.interop import params_from_jax  # noqa: E402
+from cmhse_tpu_torch.models import CMHSE  # noqa: E402
+from cmhse_tpu_torch.models.gru import gru_input_projection  # noqa: E402
+from cmhse_tpu_torch.ops import gru_kernel, rankcount_kernel  # noqa: E402
+from cmhse_tpu_torch.ops.topk import topk_lowest_index  # noqa: E402
+from cmhse_tpu_torch.train import (hardest_negatives, total_loss,  # noqa: E402
+                                   total_loss_at)
+from tests.make_goldens import CONFIGS  # noqa: E402
 
 torch.set_num_threads(2)
 BF16 = torch.bfloat16
 FWD_ATOL = 1e-2   # tests/test_pallas_gru.py's bf16 band
 GRAD_RL2 = 2e-2   # tests/test_pallas_gru_grad.py's bf16 band
-
-DS = dict(num_videos=12, feat_dim=20, vocab_size=64, max_clips=3,
-          max_frames=6, max_words=5, seed=7)
-DATA = dict(batch_size=8, feat_dim=20, vocab_size=64, max_clips=3,
-            max_frames=6, max_sentences=3, max_words=5,
-            feature_dtype="bfloat16")
 
 
 def _torch(a) -> torch.Tensor:
@@ -84,6 +106,84 @@ def _max_err(got, want) -> float:
 def _rel_l2(got, want) -> float:
     g, w = _f32(got), _f32(want)
     return float(np.linalg.norm(g - w) / max(np.linalg.norm(w), 1e-30))
+
+
+DS = dict(num_videos=12, feat_dim=20, vocab_size=64, max_clips=3,
+          max_frames=6, max_words=5, seed=7)
+DATA = dict(batch_size=8, feat_dim=20, vocab_size=64, max_clips=3,
+            max_frames=6, max_sentences=3, max_words=5,
+            feature_dtype="bfloat16")
+
+
+def _bf16_models(name: str, seed: int = 123):
+    """The JAX model in bf16 with the Pallas GRUs (interpret mode on the
+    CPU), its f32 params carried into the port's bf16 model, and one bf16
+    batch of each."""
+    mcfg = dataclasses.replace(CONFIGS[name], dtype="bfloat16",
+                               pallas_gru=True)
+    jb = next(iter(jax_batches(JaxDataset(**DS), JaxDataConfig(**DATA),
+                               shuffle=False)))
+    jm = JaxCMHSE(cfg=mcfg, vocab_size=DS["vocab_size"])
+    params = jm.init(jax.random.PRNGKey(seed), jb)["params"]
+    pm = CMHSE(ModelConfig(**dataclasses.asdict(mcfg)), DS["vocab_size"],
+               device="cpu")
+    pm.load_jax_params(jax.tree.map(np.asarray, params))
+    pb = next(batches_from_dataset(SyntheticHierarchicalDataset(**DS),
+                                   DataConfig(**DATA), shuffle=False))
+    return jm, params, pm, jb, pb.to("cpu")
+
+
+def jax_hardest_negatives(out, batch_valid) -> list[np.ndarray]:
+    """The picks of the JAX model's outputs, laid out as the port's
+    ``hardest_negatives`` lays them out: per level (high, then low), row
+    i's hardest negative column, then column j's hardest negative row, -1
+    where the query is invalid or has no negative. The batch's video ids
+    are distinct, so each level's positives are its diagonal."""
+    low_valid = np.asarray(out.clip_valid & out.sent_valid).ravel()
+    picks = []
+    for ka, kb, valid in (("video_emb", "para_emb", np.asarray(batch_valid)),
+                          ("clip_emb", "sent_emb", low_valid)):
+        a, b = _f32(getattr(out, ka)), _f32(getattr(out, kb))
+        sims = a.reshape(-1, a.shape[-1]) @ b.reshape(-1, b.shape[-1]).T
+        valid = valid.astype(bool)
+        neg = ~np.eye(len(sims), dtype=bool) & valid[None, :] & valid[:, None]
+        sims[~neg] = -np.inf
+        for axis in (1, 0):
+            pick = sims.argmax(axis)
+            pick[~(neg.any(axis) & valid)] = -1
+            picks.append(pick.astype(np.int64))
+    return picks
+
+
+def port_hardest_negatives(out, batch, cfg) -> list[np.ndarray]:
+    return [p.cpu().numpy() for p in hardest_negatives(out, batch, cfg)]
+
+
+def pinned_total_loss_jax(out, batch, cfg, picks):
+    """JAX's ``total_loss`` with the hardest negatives ``picks`` given
+    instead of searched: the JAX side of the port's ``total_loss_at``."""
+    loss = jnp.float32(0.0)
+    low_valid = (out.clip_valid & out.sent_valid).reshape(-1)
+    levels = ((out.video_emb, out.para_emb, batch.valid, cfg.high_weight),
+              (out.clip_emb, out.sent_emb, low_valid, cfg.low_weight))
+    for lvl, (a, b, valid, weight) in enumerate(levels):
+        a = a.reshape(-1, a.shape[-1]).astype(jnp.float32)
+        b = b.reshape(-1, b.shape[-1]).astype(jnp.float32)
+        diag = jnp.sum(a * b, axis=-1)
+        cost = jnp.zeros_like(diag)
+        for pick, other in ((picks[2 * lvl], lambda i: b[i] * a),
+                            (picks[2 * lvl + 1], lambda i: a[i] * b)):
+            pick = jnp.asarray(pick)
+            sims = jnp.sum(other(jnp.maximum(pick, 0)), axis=-1)
+            hinge = jnp.maximum(cfg.margin + sims - diag, 0.0)
+            cost = cost + jnp.where(pick >= 0, hinge, 0.0)
+        n_valid = jnp.maximum(jnp.sum(valid.astype(jnp.float32)), 1.0)
+        loss = loss + weight * jnp.sum(jnp.where(valid, cost, 0.0)) / n_valid
+    if cfg.recon_weight and out.video_recon is not None:
+        loss = loss + cfg.recon_weight * (
+            jax_recon(out.video_recon, out.clip_emb, out.clip_valid)
+            + jax_recon(out.text_recon, out.sent_emb, out.sent_valid))
+    return loss
 
 
 # ---- data ------------------------------------------------------------------
@@ -275,25 +375,6 @@ def test_gru_recurrence_bf16_no_grad_rounds_the_parameters():
 # ---- the whole bf16 model -------------------------------------------------
 
 
-def _bf16_models(name, seed=123):
-    """The JAX model in bf16 with the Pallas GRUs (interpret mode), its f32
-    params carried into the port's bf16 model, and one bf16 batch of
-    each."""
-    mcfg = dataclasses.replace(CONFIGS[name], dtype="bfloat16",
-                               pallas_gru=True)
-    jb = next(iter(jax_batches(JaxDataset(**DS), JaxDataConfig(**DATA),
-                               shuffle=False)))
-    jm = JaxCMHSE(cfg=mcfg, vocab_size=DS["vocab_size"])
-    params = jm.init(jax.random.PRNGKey(seed), jb)["params"]
-    pm = CMHSE(ModelConfig(**dataclasses.asdict(mcfg)), DS["vocab_size"],
-               device="cpu")
-    pm.load_jax_params(jax.tree.map(np.asarray, params))
-    assert all(p.dtype == torch.float32 for p in pm.parameters())
-    pb = next(batches_from_dataset(SyntheticHierarchicalDataset(**DS),
-                                   DataConfig(**DATA), shuffle=False))
-    return jm, params, pm, jb, pb.to("cpu")
-
-
 @pytest.mark.parametrize("name", ["hier", "full"])
 def test_bf16_encode_matches_jax(name):
     """encode_video / encode_text: bf16 embeddings within atol 1e-2 of the
@@ -332,23 +413,105 @@ def test_bf16_forward_with_decoders_matches_jax():
     assert max(recon.values()) <= 3 * FWD_ATOL, recon
 
 
-def _hardest_negatives(out) -> list[np.ndarray]:
-    """Each valid query's hardest negative, both directions, both levels
-    (the batch's video ids are distinct, so each level's positives are its
-    diagonal)."""
-    low_valid = np.asarray(out.clip_valid) & np.asarray(out.sent_valid)
-    picks = []
-    for ka, kb, valid in (("video_emb", "para_emb", None),
-                          ("clip_emb", "sent_emb", low_valid.ravel())):
-        a, b = _f32(getattr(out, ka)), _f32(getattr(out, kb))
-        a, b = a.reshape(-1, a.shape[-1]), b.reshape(-1, b.shape[-1])
-        if valid is None:
-            valid = np.ones(len(a), bool)
-        sims = a @ b.T
-        sims[np.eye(len(a), dtype=bool) | ~valid[None, :]
-             | ~valid[:, None]] = -np.inf
-        picks += [sims.argmax(1)[valid], sims.argmax(0)[valid]]
-    return picks
+SEEDS = (0, 1, 2)  # init seeds of the whole-model gradient checks
+# A parameter whose JAX bf16 gradient lies within this relative L2
+# distance of JAX's f32 one (the same weights and negatives) is one that
+# bf16 determines; only the attention pools' may lie further off, because
+# a softmax's score gradients sum to zero over the steps
+DETERMINED = 0.1
+CONSISTENT = 1e-3  # the pinned objective against the objective, own picks
+BF16_ULP = 2.0**-8  # bf16's relative spacing at 1
+
+
+def _grads_by_name(model, loss, retain: bool) -> dict[str, torch.Tensor]:
+    named = list(model.named_parameters())
+    grads = torch.autograd.grad(loss, [p for _, p in named],
+                                retain_graph=retain, allow_unused=True)
+    return {k: torch.zeros_like(p) if g is None else g
+            for (k, p), g in zip(named, grads)}
+
+
+def _total_rel(got: dict, want: dict) -> float:
+    keys = sorted(want)
+    return _rel_l2(np.concatenate([_f32(got[k]).ravel() for k in keys]),
+                   np.concatenate([_f32(want[k]).ravel() for k in keys]))
+
+
+def _leaf_bands(got: dict, want: dict, want32: dict) -> tuple[dict, dict]:
+    """Each parameter's error against its band, as a share of it (<= 1
+    passes). A parameter bf16 determines (its bf16 and f32 reference
+    gradients within DETERMINED): relative L2 within GRAD_RL2 plus three
+    times that spread, so at most 0.32 and a zero or sign-flipped gradient
+    fails. Any other parameter (only the attention pools': their
+    gradients are near-cancelling sums that bf16 rounding alone moves by
+    20-340%, so a zero would pass here too; they are held apart,
+    well-conditioned, by ``test_bf16_attention_pool_grads_match_flax``):
+    max abs error within one bf16 ulp (BF16_ULP) of the largest gradient
+    entry of its encoder stage. Returns (shares of the determined, shares
+    of the others)."""
+    spread = {k: _rel_l2(want[k], want32[k]) for k in want}
+    loose = {k for k, s in spread.items() if s > DETERMINED}
+    assert all(".attn_pool." in k for k in loose), sorted(loose)
+    stage = {}
+    for k, w in want.items():
+        name = k.split(".")[0]
+        stage[name] = max(stage.get(name, 0.0), float(np.abs(_f32(w)).max()))
+    tight = {k: _rel_l2(got[k], want[k]) / (GRAD_RL2 + 3 * spread[k])
+             for k in want if k not in loose}
+    rest = {k: _max_err(got[k], want[k])
+            / (BF16_ULP * max(stage[k.split(".")[0]], 1e-30)) for k in loose}
+    return tight, rest
+
+
+def _check_train_step(name: str, seed: int) -> dict:
+    """One bf16 step of the port against the JAX bf16 model on the same
+    weights (see test_bf16_train_step_loss_and_grads_match_jax). Returns
+    the worst values seen."""
+    jm, params, pm, jb, pb = _bf16_models(name, seed)
+    jcfg = JaxLossConfig(recon_weight=5e-4 if name == "full" else 0.0)
+    pcfg = LossConfig(**dataclasses.asdict(jcfg))
+    jm32 = JaxCMHSE(cfg=dataclasses.replace(jm.cfg, dtype="float32"),
+                    vocab_size=DS["vocab_size"])
+    picks = jax_hardest_negatives(jm.apply({"params": params}, jb), jb.valid)
+
+    def jgrad(model, loss_fn, **kw):
+        return jax.value_and_grad(
+            lambda p: loss_fn(model.apply({"params": p}, jb)), **kw)(params)
+
+    (_, jmetrics), j_real = jgrad(
+        jm, lambda o: jax_total_loss(o, jb, jcfg), has_aux=True)
+    _, j16 = jgrad(jm, lambda o: pinned_total_loss_jax(o, jb, jcfg, picks))
+    _, j32 = jgrad(jm32, lambda o: pinned_total_loss_jax(o, jb, jcfg, picks))
+    j_real, j16, j32 = (params_from_jax(jax.tree.map(np.asarray, g))
+                        for g in (j_real, j16, j32))
+
+    out = pm(pb)
+    loss, metrics = total_loss(out, pb, pcfg)
+    assert loss.dtype == torch.float32
+    assert set(metrics) == set(jmetrics)
+    for k, v in metrics.items():
+        np.testing.assert_allclose(float(v.detach()), float(jmetrics[k]),
+                                   rtol=1e-2, err_msg=k)
+    p_real = _grads_by_name(pm, loss, retain=True)
+    own = port_hardest_negatives(out, pb, pcfg)
+    p_own = _grads_by_name(pm, total_loss_at(
+        out, pb, pcfg, [torch.from_numpy(p) for p in own]), retain=True)
+    p16 = _grads_by_name(pm, total_loss_at(
+        out, pb, pcfg, [torch.from_numpy(p) for p in picks]), retain=False)
+    assert set(p16) == set(j16)
+    assert all(g.dtype == torch.float32 for g in p16.values())
+    worst = {"jax consistency": _total_rel(j16, j_real),
+             "port consistency": _total_rel(p_own, p_real)}
+    assert max(worst.values()) <= CONSISTENT, worst
+    worst["all"] = _total_rel(p16, j16)
+    assert worst["all"] <= GRAD_RL2, worst
+    tight, rest = _leaf_bands(p16, j16, j32)
+    for label, shares in (("determined", tight), ("attention pools", rest)):
+        if shares:
+            k = max(shares, key=shares.get)
+            worst[label] = (k, shares[k])
+            assert shares[k] <= 1.0, worst
+    return worst
 
 
 @pytest.mark.parametrize("name", ["hier", "full"])
@@ -356,58 +519,79 @@ def test_bf16_train_step_loss_and_grads_match_jax(name):
     """One step of the bf16 model (hardest-negative loss, through the
     fused sim+hinge path) against jax.value_and_grad of the JAX bf16 model.
 
-    Bands: the f32 loss and its terms within rtol 1e-2 (worst seen ~1e-3);
-    all gradients together within relative L2 2e-2 (worst seen ~6e-3);
-    each parameter's within 2e-2 plus three times the distance between
-    JAX's own bf16 and f32 gradients of that parameter (worst seen at ~45%
-    of that band). The per-parameter term is needed because some gradients
-    are sums of near-cancelling terms (the attention pools' ``proj.bias``):
-    there bf16 rounding alone moves JAX's gradient by 20-340% from its f32
-    value, so no bf16 implementation can be held to 2e-2 of another.
-
     At random init the similarities lie within ~1e-3 of each other, so a
-    bf16 ulp can change which negative is hardest, in JAX as well (between
-    its bf16 and f32 runs); a different pick sends a row's gradient
-    elsewhere. The init seed is one where the port and JAX pick the same
-    negatives, and the test checks that it is."""
-    jm, params, pm, jb, pb = _bf16_models(name, seed=4)
-    jcfg = JaxLossConfig(recon_weight=5e-4 if name == "full" else 0.0)
-    jm32 = JaxCMHSE(cfg=dataclasses.replace(jm.cfg, dtype="float32"),
-                    vocab_size=DS["vocab_size"])
+    bf16 ulp can change which negative is hardest; a changed pick sends a
+    row's gradient elsewhere. So the gradients are compared with the
+    negatives pinned to JAX's picks on both sides
+    (``pinned_total_loss_jax``, ``total_loss_at``), whatever the seed; on
+    each side the pinned objective must give the objective's gradients at
+    its own picks (relative L2 within 1e-3; seen ~1e-4).
 
-    def grads(model):
-        def loss_fn(p):
-            return jax_total_loss(model.apply({"params": p}, jb), jb, jcfg)
-        return jax.value_and_grad(loss_fn, has_aux=True)(params)
+    Bands: the f32 loss and its terms within rtol 1e-2; all gradients
+    together within relative L2 2e-2 (worst seen 9.5e-3 over init seeds
+    0-4); per parameter as ``_leaf_bands`` says (worst seen 0.61 of the
+    band for a parameter bf16 determines, 0.07 for the attention pools')."""
+    _check_train_step(name, SEEDS[0])
 
-    (_, jmetrics), jgrads = grads(jm)
-    _, jgrads32 = grads(jm32)
-    out = pm(pb)
+
+@pytest.mark.parametrize("seed", SEEDS[1:])
+@pytest.mark.parametrize("name", ["hier", "full"])
+def test_bf16_train_step_grads_match_jax_more_seeds(name, seed):
+    """The same check at other init seeds."""
+    _check_train_step(name, seed)
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_bf16_attention_pool_grads_match_flax(seed):
+    """The bf16 attention pool alone (flax's ``Dense(dtype)`` rule, tanh,
+    masked softmax) against the JAX package's in bf16, on well-conditioned
+    inputs: states ~ N(0, 1) that differ from step to step, a non-zero
+    ``proj`` bias, a length-0 row. There every gradient (states, both
+    kernels, the bias) is one bf16 determines, so each is held to the
+    per-parameter band of the whole model: relative L2 within 2e-2 plus
+    three times JAX's own bf16-vs-f32 spread (spread seen <= 0.03, error
+    ~0.4 of its band)."""
+    from cmhse_tpu.models.encoders import AttentionPool as JaxPool
+    from cmhse_tpu_torch.models.encoders import AttentionPool
+
+    rng = np.random.RandomState(seed)
+    b, t, h, a = 6, 7, 32, 16
+    states = rng.randn(b, t, h).astype(np.float32)
+    lengths = rng.randint(1, t + 1, b).astype(np.int32)
+    lengths[2] = 0
+    params = {"proj": {"kernel": (rng.randn(h, a) / np.sqrt(h)).astype(
+                  np.float32),
+                       "bias": (rng.randn(a) * 0.5).astype(np.float32)},
+              "score": {"kernel": rng.randn(a, 1).astype(np.float32)}}
+    cot = rng.randn(b, h).astype(np.float32)
+
+    def jloss(p, x, dt):
+        out = JaxPool(attn_dim=a, dtype=dt).apply(
+            {"params": p}, x.astype(dt), jnp.asarray(lengths))
+        return jnp.sum(out.astype(jnp.float32) * cot)
+
+    want, want32 = ({"weight": g[0]["proj"]["kernel"],
+                     "bias": g[0]["proj"]["bias"],
+                     "score": g[0]["score"]["kernel"], "states": g[1]}
+                    for g in (jax.grad(jloss, argnums=(0, 1))(
+                        params, jnp.asarray(states), dt)
+                        for dt in (jnp.bfloat16, jnp.float32)))
+    pool = AttentionPool(h, attn_dim=a, dtype=BF16)
     with torch.no_grad():
-        same = [np.array_equal(a, b) for a, b in zip(
-            _hardest_negatives(out),
-            _hardest_negatives(jm.apply({"params": params}, jb)))]
-    assert all(same), same
-    loss, metrics = total_loss(out, pb, LossConfig(**dataclasses.asdict(jcfg)))
-    assert loss.dtype == torch.float32
-    loss.backward()
-    assert set(metrics) == set(jmetrics)
-    for k, v in metrics.items():
-        np.testing.assert_allclose(float(v.detach()), float(jmetrics[k]),
-                                   rtol=1e-2, err_msg=k)
-    want = params_from_jax(jax.tree.map(np.asarray, jgrads))
-    want32 = params_from_jax(jax.tree.map(np.asarray, jgrads32))
-    got = {k: p.grad for k, p in pm.named_parameters()}
-    assert set(got) == set(want)
-    assert all(g.dtype == torch.float32 for g in got.values())
-    keys = sorted(got)
-    total = _rel_l2(np.concatenate([_f32(got[k]).ravel() for k in keys]),
-                    np.concatenate([_f32(want[k]).ravel() for k in keys]))
-    assert total <= GRAD_RL2, total
-    share = {k: _rel_l2(got[k], want[k])
-             / (GRAD_RL2 + 3 * _rel_l2(want[k], want32[k])) for k in keys}
-    worst = max(share, key=share.get)
-    assert share[worst] <= 1.0, (worst, share[worst])
+        pool.proj.weight.copy_(_torch(params["proj"]["kernel"].T))
+        pool.proj.bias.copy_(_torch(params["proj"]["bias"]))
+        pool.score.weight.copy_(_torch(params["score"]["kernel"].T))
+    x = _torch(states).to(BF16).requires_grad_()
+    out = pool(x, _torch(lengths))
+    assert out.dtype == BF16
+    (out.float() * _torch(cot)).sum().backward()
+    got = {"weight": pool.proj.weight.grad.T, "bias": pool.proj.bias.grad,
+           "score": pool.score.weight.grad.T, "states": x.grad}
+    spread = {k: _rel_l2(want[k], want32[k]) for k in want}
+    assert max(spread.values()) <= DETERMINED, spread
+    share = {k: _rel_l2(got[k], want[k]) / (GRAD_RL2 + 3 * spread[k])
+             for k in want}
+    assert max(share.values()) <= 1.0, share
 
 
 # ---- rank counting: K4's lowp branch ---------------------------------------
@@ -486,3 +670,41 @@ def test_bf16_serving_path():
         want_s, want_i = topk_lowest_index(sims, 5)
         np.testing.assert_array_equal(idx, want_i.numpy())
         np.testing.assert_array_equal(scores, want_s.numpy())
+
+
+def pick_disagreements(name: str, seed: int) -> dict[str, int]:
+    """For one init seed: the queries (of all four pick lists) whose pick
+    differs between the port's and JAX's bf16 models, and between JAX's
+    bf16 and f32 models, on the same weights and batch."""
+    jm, params, pm, jb, pb = _bf16_models(name, seed)
+    jm32 = JaxCMHSE(cfg=dataclasses.replace(jm.cfg, dtype="float32"),
+                    vocab_size=DS["vocab_size"])
+    with torch.no_grad():
+        port = port_hardest_negatives(pm(pb), pb, LossConfig())
+    jax16 = jax_hardest_negatives(jm.apply({"params": params}, jb), jb.valid)
+    jax32 = jax_hardest_negatives(jm32.apply({"params": params}, jb),
+                                  jb.valid)
+    live = sum(int((p >= 0).sum()) for p in jax16)
+    return dict(queries=live,
+                port_vs_jax=sum(int((a != b).sum())
+                                for a, b in zip(port, jax16)),
+                jax_bf16_vs_f32=sum(int((a != b).sum())
+                                    for a, b in zip(jax16, jax32)))
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seeds", type=int, default=20)
+    args = ap.parse_args()
+    for name in ("hier", "full"):
+        rows = [pick_disagreements(name, s) for s in range(args.seeds)]
+        n_q = sum(r["queries"] for r in rows)
+        for key in ("port_vs_jax", "jax_bf16_vs_f32"):
+            n = sum(r[key] for r in rows)
+            seeds = sum(r[key] > 0 for r in rows)
+            print(f"{name} {key}: {n} of {n_q} picks differ, in {seeds} of "
+                  f"{args.seeds} seeds")
+
+
+if __name__ == "__main__":
+    main()

@@ -19,7 +19,8 @@ import torch
 from cmhse_tpu_torch.config import ExperimentConfig, ModelConfig
 from cmhse_tpu_torch.data import Batch
 from cmhse_tpu_torch.models import CMHSE, ReconstructionDecoder
-from cmhse_tpu_torch.ops import gru_kernel, rankcount_kernel, simhinge_kernel
+from cmhse_tpu_torch.ops import (cuda_lib, gru_kernel, rankcount_kernel,
+                                 simhinge_kernel)
 from cmhse_tpu_torch.train import create_train_state, total_loss, train_step
 from cmhse_tpu_torch.ops.topk import dense_sim_topk, streaming_sim_topk
 
@@ -56,10 +57,10 @@ def test_gru_fwd_matches_plain(cuda, b, t, h):
     args = _gru_inputs(b, t, h, seed=b + t + h, zero_rows=(0, b - 1))
     want_outs, want_final = gru_kernel.gru_recurrence_plain(
         *[a.to(cuda) for a in args])
-    before = gru_kernel.launches
+    cuda_lib.reset_launches()
     outs, final = gru_kernel.gru_recurrence(*[a.to(cuda) for a in args])
     torch.cuda.synchronize()
-    assert gru_kernel.launches == before + 1
+    assert cuda_lib.launches == {("gru_fwd", "float32", "encode"): 1}
     # f32; the sums over K = H run in another order than cuBLAS's
     torch.testing.assert_close(outs, want_outs, atol=1e-5, rtol=0)
     torch.testing.assert_close(final, want_final, atol=1e-5, rtol=0)
@@ -75,11 +76,11 @@ def test_gru_fwd_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError):
         gru_kernel.gru_recurrence(xw.transpose(0, 1).contiguous()
                                   .transpose(0, 1), w_h, b_h, lengths)
-    before = gru_kernel.save_gates_launches
+    cuda_lib.reset_launches()
     outs, _ = gru_kernel.gru_recurrence(xw, w_h.requires_grad_(), b_h,
                                         lengths)
     assert type(outs.grad_fn).__name__ == "TrainableGRUBackward"
-    assert gru_kernel.save_gates_launches == before + 1
+    assert cuda_lib.launches == {("gru_fwd", "float32", "save_gates"): 1}
     xw6, w_h6, b_h6, lengths6 = [a.to(cuda) for a in _gru_inputs(4, 3, 6, 0)]
     with pytest.raises(ValueError):  # H not a multiple of 4
         gru_kernel.gru_recurrence(xw6, w_h6, b_h6, lengths6)
@@ -188,12 +189,11 @@ def test_gru_fwd_variants_match_plain(cuda, seeded, b, t, h):
     h0 = (torch.randn(b, h, device=cuda) * 0.5) if seeded else None
     want = gru_kernel.gru_recurrence_plain(xw, w_h, b_h, lengths, h0,
                                            save_gates=True)
-    before = (gru_kernel.save_gates_launches, gru_kernel.with_h0_launches)
+    cuda_lib.reset_launches()
     got = gru_kernel.gru_forward(xw, w_h, b_h, lengths, h0, save_gates=True)
     torch.cuda.synchronize()
-    assert (gru_kernel.save_gates_launches,
-            gru_kernel.with_h0_launches) == (before[0] + 1,
-                                             before[1] + int(seeded))
+    variant = "save_gates+with_h0" if seeded else "save_gates"
+    assert cuda_lib.launches == {("gru_fwd", "float32", variant): 1}
     torch.testing.assert_close(got[0], want[0], atol=1e-5, rtol=0)
     torch.testing.assert_close(got[1], want[1], atol=1e-5, rtol=0)
     live = (torch.arange(t, device=cuda)[None, :] < lengths[:, None])
@@ -223,11 +223,12 @@ def test_gru_bwd_matches_plain(cuda, seeded, cotangents, b, t, h):
     dfinal = torch.randn(b, h, device=cuda)
     want = gru_kernel.gru_backward_plain(gates, outs, lengths, w_h, douts,
                                          dfinal, h0)
-    before = gru_kernel.bwd_launches
+    cuda_lib.reset_launches()
     got = gru_kernel.gru_backward(gates, outs, lengths, w_h, douts, dfinal,
                                   h0)
     torch.cuda.synchronize()
-    assert gru_kernel.bwd_launches == before + 1
+    variant = "with_h0" if seeded else "zero_h0"
+    assert cuda_lib.launches == {("gru_bwd", "float32", variant): 1}
     # f32 sums over K = 3H in another order, compounded over T steps
     for name, g, w in zip(("dxw", "dhn", "db", "dh0"), got, want):
         assert torch.isfinite(g).all(), name
@@ -285,10 +286,10 @@ def test_simhinge_matches_plain_exactly(cuda, b, d):
     for x, y, tr in ((ta, tp, False), (tp, ta, True)):
         want = simhinge_kernel.simhinge_rowpass_plain(x, y, tneg, diag, 0.2,
                                                       tr)
-        before = simhinge_kernel.launches
+        cuda_lib.reset_launches()
         got = simhinge_kernel.simhinge_rowpass(x, y, tneg, diag, 0.2, tr)
         torch.cuda.synchronize()
-        assert simhinge_kernel.launches == before + 1
+        assert cuda_lib.launches == {("simhinge", "float32", "rowpass"): 1}
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     assert got[0][6] == simhinge_kernel.NEG_INF  # compared in float32
     assert int(got[1][6]) == 0
@@ -403,15 +404,12 @@ def test_gru_fwd_bf16_matches_plain(cuda, variant, b, t, h):
     h0 = h0 if variant == "save_gates_h0" else None
     want = gru_kernel.gru_recurrence_plain(xw, w_h, b_h, lengths, h0,
                                            save_gates=save)
-    f32_before = gru_kernel.launches
-    before = (gru_kernel.bf16_launches, gru_kernel.bf16_save_gates_launches,
-              gru_kernel.bf16_with_h0_launches)
+    cuda_lib.reset_launches()
     got = gru_kernel.gru_forward(xw, w_h, b_h, lengths, h0, save_gates=save)
     torch.cuda.synchronize()
-    assert (gru_kernel.bf16_launches, gru_kernel.bf16_save_gates_launches,
-            gru_kernel.bf16_with_h0_launches) == (
-        before[0] + 1, before[1] + int(save), before[2] + int(h0 is not None))
-    assert gru_kernel.launches == f32_before  # not the f32 instantiation
+    # the bf16 instantiation, not the f32 one
+    name = {"save_gates_h0": "save_gates+with_h0"}.get(variant, variant)
+    assert cuda_lib.launches == {("gru_fwd", "bfloat16", name): 1}
     assert all(g.dtype == BF16 for g in got)
     torch.testing.assert_close(got[0], want[0], atol=BF16_ATOL, rtol=0)
     torch.testing.assert_close(got[1], want[1], atol=BF16_ATOL, rtol=0)
@@ -435,16 +433,12 @@ def test_gru_bwd_bf16_matches_plain(cuda, seeded, b, t, h):
     dfinal = torch.randn(b, h, device=cuda).to(BF16)
     want = gru_kernel.gru_backward_plain(gates, outs, lengths, w_h, douts,
                                          dfinal, h0)
-    f32_before = gru_kernel.bwd_launches
-    before = (gru_kernel.bf16_bwd_launches,
-              gru_kernel.bf16_bwd_with_h0_launches)
+    cuda_lib.reset_launches()
     got = gru_kernel.gru_backward(gates, outs, lengths, w_h, douts, dfinal,
                                   h0)
     torch.cuda.synchronize()
-    assert (gru_kernel.bf16_bwd_launches,
-            gru_kernel.bf16_bwd_with_h0_launches) == (before[0] + 1,
-                                                      before[1] + int(seeded))
-    assert gru_kernel.bwd_launches == f32_before
+    variant = "with_h0" if seeded else "zero_h0"
+    assert cuda_lib.launches == {("gru_bwd", "bfloat16", variant): 1}
     assert [g.dtype for g in got] == [BF16, BF16, torch.float32, BF16]
     for name, g, w in zip(("dxw", "dhn", "db", "dh0"), got, want):
         assert torch.isfinite(g.float()).all(), name
@@ -457,7 +451,7 @@ def test_bf16_kernels_take_no_mixed_types(cuda):
     """A bf16 stream with an f32 W_h (or cotangent) raises: nothing is cast
     up or down behind the caller's back, and no f32 kernel runs."""
     xw, w_h, b_h, lengths, h0 = _bf16_gru_inputs(6, 4, 8, 5, cuda)
-    f32 = (gru_kernel.launches, gru_kernel.bwd_launches)
+    cuda_lib.reset_launches()
     with pytest.raises(TypeError):
         gru_kernel.gru_forward(xw, w_h.float(), b_h, lengths)
     with pytest.raises(TypeError):
@@ -471,7 +465,7 @@ def test_bf16_kernels_take_no_mixed_types(cuda):
                                 torch.randn_like(outs.float()))
     with pytest.raises(TypeError):
         gru_kernel.gru_forward(xw.half(), w_h.half(), b_h, lengths)
-    assert (gru_kernel.launches, gru_kernel.bwd_launches) == f32
+    assert cuda_lib.launches == {("gru_fwd", "bfloat16", "save_gates"): 1}
 
 
 @pytest.mark.parametrize("q,n,d", [(64, 256, 32), (130, 1000, 100)])
@@ -489,12 +483,11 @@ def test_rankcount_lowp_matches_plain_exactly(cuda, q, n, d):
     for gv, pi in ((None, None), (valid, pos_idx)):
         want = rankcount_kernel.violation_counts_plain(
             queries, gallery, pos, gv, pi, precision="bfloat16")
-        before = (rankcount_kernel.launches, rankcount_kernel.lowp_launches)
+        cuda_lib.reset_launches()
         got = rankcount_kernel.violation_counts(queries, gallery, pos, gv, pi,
                                                 precision="bfloat16")
         torch.cuda.synchronize()
-        assert (rankcount_kernel.launches,
-                rankcount_kernel.lowp_launches) == (before[0], before[1] + 1)
+        assert cuda_lib.launches == {("rankcount", "bfloat16", "lowp"): 1}
         assert torch.equal(got, want)
     # below bf16's resolution: invisible to lowp, seen by the f32 branch
     g_int = torch.from_numpy(rng.randint(-3, 4, (n, d)).astype(np.float32))
@@ -556,16 +549,15 @@ def test_bf16_train_step_on_card_matches_cpu(cuda):
         model = CMHSE(BF16_CFG, 64, device=dev,
                       generator=torch.Generator().manual_seed(3))
         b = batch.to(dev)
-        f32 = (gru_kernel.launches, gru_kernel.bwd_launches)
-        bf16 = (gru_kernel.bf16_save_gates_launches,
-                gru_kernel.bf16_bwd_launches)
+        cuda_lib.reset_launches()
         loss, _ = total_loss(model(b), b, exp.loss)
         loss.backward()
-        if dev != "cpu":
-            assert (gru_kernel.launches, gru_kernel.bwd_launches) == f32
-            assert (gru_kernel.bf16_save_gates_launches,
-                    gru_kernel.bf16_bwd_launches) == (bf16[0] + 6,
-                                                      bf16[1] + 6)
+        assert cuda_lib.launches == ({} if dev == "cpu" else {
+            ("gru_fwd", "bfloat16", "save_gates"): 4,
+            ("gru_fwd", "bfloat16", "save_gates+with_h0"): 2,
+            ("gru_bwd", "bfloat16", "zero_h0"): 4,
+            ("gru_bwd", "bfloat16", "with_h0"): 2,
+            ("simhinge", "float32", "rowpass"): 4})
         grads = [p.grad for _, p in sorted(model.named_parameters())]
         assert all(g.dtype == torch.float32 for g in grads)
         res[str(dev)] = (loss.item(), torch.cat([g.cpu().ravel()

@@ -17,7 +17,7 @@ from cmhse_tpu.ops.pallas_gru import pallas_gru_sequence
 from cmhse_tpu_torch.interop import params_from_jax
 from cmhse_tpu_torch.models.gru import (MaskedGRU, flip_padded,
                                         gru_sequence, masked_mean)
-from cmhse_tpu_torch.ops import gru_kernel
+from cmhse_tpu_torch.ops import cuda_lib, gru_kernel
 
 torch.set_num_threads(2)
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -57,10 +57,10 @@ def test_wrapper_on_cpu_is_the_plain_version():
     x, lengths, w_i, w_h, b_i, b_h = map(torch.from_numpy,
                                          _setup(6, 4, 5, 8, seed=3))
     xw = x @ w_i + b_i
-    before = gru_kernel.launches
+    before = cuda_lib.launch_count("gru_fwd")
     got = gru_kernel.gru_recurrence(xw, w_h, b_h, lengths)
     want = gru_kernel.gru_recurrence_plain(xw, w_h, b_h, lengths)
-    assert gru_kernel.launches == before  # no kernel on the CPU
+    assert cuda_lib.launch_count("gru_fwd") == before  # no kernel on the CPU
     for a, b in zip(got, want):
         assert torch.equal(a, b)
 

@@ -15,7 +15,7 @@ from cmhse_tpu.ops.loss import contrastive_loss as jax_contrastive_loss
 from cmhse_tpu.ops.loss import positive_mask_from_ids as jax_positive_mask
 from cmhse_tpu.ops.loss import reconstruction_loss as jax_recon_loss
 from cmhse_tpu.ops.pallas_sim import _simhinge_forward, pallas_contrastive_loss
-from cmhse_tpu_torch.ops import simhinge_kernel
+from cmhse_tpu_torch.ops import cuda_lib, simhinge_kernel
 from cmhse_tpu_torch.ops.loss import (contrastive_loss, positive_mask_from_ids,
                                       reconstruction_loss)
 from cmhse_tpu_torch.ops.simhinge_kernel import (
@@ -86,12 +86,12 @@ def test_fused_loss_and_grads_match_pallas(b, d, groups, invalid):
         jnp.asarray(a), jnp.asarray(p))
     ta = torch.from_numpy(a).requires_grad_()
     tp = torch.from_numpy(p).requires_grad_()
-    before = simhinge_kernel.launches
+    before = cuda_lib.launch_count("simhinge")
     got = fused_contrastive_loss_from_masks(ta, tp, 0.2,
                                             torch.from_numpy(pos_np),
                                             torch.from_numpy(valid))
     got.backward()
-    assert simhinge_kernel.launches == before  # plain version on the CPU
+    assert cuda_lib.launch_count("simhinge") == before  # plain version on the CPU
     np.testing.assert_allclose(float(got.detach()), float(want), **TOL)
     np.testing.assert_allclose(ta.grad.numpy(), np.asarray(wa), **TOL)
     np.testing.assert_allclose(tp.grad.numpy(), np.asarray(wp), **TOL)

@@ -10,6 +10,7 @@ import torch
 
 from cmhse_tpu.ops import ranking as jax_ranking
 from cmhse_tpu.ops.pallas_sim import pallas_rank_counts, pallas_violation_counts
+from cmhse_tpu_torch.ops import cuda_lib
 from cmhse_tpu_torch.ops import rankcount_kernel as rk
 from cmhse_tpu_torch.ops import ranking
 
@@ -49,12 +50,12 @@ def test_counts_match_pallas_exactly(q, n, masked):
 def test_wrapper_on_cpu_is_the_plain_version_and_refuses_meta():
     queries, gallery, pos_idx, pos_score, valid = map(
         torch.from_numpy, _inputs(20, 70, d=8, seed=1))
-    before = rk.launches
+    before = cuda_lib.launch_count("rankcount")
     assert torch.equal(
         rk.violation_counts(queries, gallery, pos_score, valid, pos_idx),
         rk.violation_counts_plain(queries, gallery, pos_score, valid,
                                   pos_idx))
-    assert rk.launches == before
+    assert cuda_lib.launch_count("rankcount") == before
     with pytest.raises(ValueError):
         rk.violation_counts(queries.to("meta"), gallery.to("meta"),
                             pos_score.to("meta"))
