@@ -22,8 +22,9 @@ Phases (any failure raises and the script exits non-zero):
      3b. the streaming top-k (plain torch ops) against the dense one at
      100,000 rows, ties included; both timed, with peak memory, at 100,000
      and 1,000,000 rows on both sides of the Retriever's dense budget;
-     3c. the ``simhinge`` kernel against its plain version (maxima and
-     argmaxes equal, ties to the lowest index) at 512, 64 and 300 rows;
+     3c. the ``simhinge`` kernel (both directions in one launch) against
+     its plain version (maxima and argmaxes equal, ties to the lowest
+     index) at 512, 64 and 300 rows;
      3d. the ``rankcount`` lowp branch (bf16 multiplies) against its plain
      version: exact on exact-arithmetic rows, inside the near-tie band on
      random rows, Q=1024, N=100,000;
@@ -39,7 +40,7 @@ Phases (any failure raises and the script exits non-zero):
      batch re-encoded on the CPU in bf16; a profiler split of its encode;
   5. the training path at the same width: 8 ``train_step``s on one 64-video
      batch (finite losses and grad norms, the last loss below the first,
-     6 + 6 + 4 kernel launches per step), then ``validate_metrics`` on the
+     6 + 6 + 2 kernel launches per step), then ``validate_metrics`` on the
      trained weights; 5b. torch.profiler splits one step's device time by
      kernel family; 5c. one step at batch 8, card against the CPU's plain
      path: loss, grad_norm and every parameter gradient; 5d. the same three
@@ -134,6 +135,33 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     start.record()
     for _ in range(reps):
         fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int = 50) -> float:
+    """Mean device time of ``fn`` in ms, replayed ``reps`` times from a
+    CUDA graph captured once (CUDA events; warm L2): the device's time with
+    no host launch overhead between calls, for work of tens of
+    microseconds, where back-to-back eager calls time the host."""
+    import torch
+
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()  # warm-up outside the capture (builds, caches)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
@@ -606,11 +634,12 @@ def phase_rankcount_lowp(torch, rng, q: int = 1024, n: int = 100_000,
 
 
 def phase_simhinge(torch, rng, sizes, d: int = 1024) -> list:
-    """3c: the simhinge kernel against its plain version, both passes, on
-    exact-arithmetic rows, so maxima and argmaxes must be equal. Each size
-    carries a tie at a row's maximum in each pass (duplicate columns, the
-    lowest index must win), a row with no negative, and a column with
-    none; the ragged size fills no whole tile."""
+    """3c: the simhinge kernel (both directions in one launch) against its
+    plain version (two row passes), on exact-arithmetic rows, so maxima and
+    argmaxes must be equal. Each size carries a tie at a row's maximum and
+    at a column's (duplicate rows, the lowest index must win), a row with no
+    negative, and a column with none; the ragged size fills no whole
+    tile."""
     import numpy as np
 
     from cmhse_tpu_torch.ops import simhinge_kernel as sk
@@ -623,48 +652,53 @@ def phase_simhinge(torch, rng, sizes, d: int = 1024) -> list:
         i1, i2 = 1, n - 2  # row 10's best negatives: two equal columns
         p[i2] = p[i1]
         a[10] = p[i1]
-        j1, j2 = 7, n - 3  # and row 20's in the second pass
+        j1, j2 = 7, n - 3  # column 20's best negatives: two equal rows
         a[j2] = a[j1]
         p[20] = a[j1]
         neg = rng.rand(n, n) > 0.3
         np.fill_diagonal(neg, False)
         neg[10, [i1, i2]] = True
         neg[[j1, j2], 20] = True
-        neg[4] = False     # row 4 has no negative (and column 4 of pass 2)
-        neg[:, 6] = False  # nor has row 6 of the second pass
+        neg[4] = False     # row 4 has no negative
+        neg[:, 6] = False  # nor has column 6
         ta, tp, tneg = a, p, torch.from_numpy(neg).to(dev)
         with torch.inference_mode():
             diag = torch.sum(ta * tp, dim=1)
-            passes = ((ta, tp, False, 10, i1, 4), (tp, ta, True, 20, j1, 6))
-            for x, y, tr, tie_row, tie_col, empty_row in passes:
-                got = sk.simhinge_rowpass(x, y, tneg, diag, 0.2, tr)
-                want = sk.simhinge_rowpass_plain(x, y, tneg, diag, 0.2, tr)
-                torch.cuda.synchronize()
-                if not (torch.equal(got[0], want[0])
-                        and torch.equal(got[1], want[1])):
-                    bad = int((got[1] != want[1]).sum())
-                    raise AssertionError(f"simhinge n={n} transposed={tr}: "
-                                         f"{bad} argmaxes differ, max err "
-                                         f"{(got[0] - want[0]).abs().max()}")
-                if int(got[1][tie_row]) != tie_col:
-                    raise AssertionError(f"simhinge tie went to "
-                                         f"{int(got[1][tie_row])}")
-                if not (got[0][empty_row] == sk.NEG_INF
-                        and int(got[1][empty_row]) == 0):
-                    raise AssertionError("simhinge: a row with no negative")
-            ms = cuda_ms(lambda: sk.simhinge_rowpass(ta, tp, tneg, diag, 0.2))
-            plain = cuda_ms(lambda: sk.simhinge_rowpass_plain(
-                ta, tp, tneg, diag, 0.2))
-            library = cuda_ms(lambda: torch.matmul(ta, tp.T))
-        n_neg = int(neg.sum())  # the products this pass's data needs
+            got = sk.simhinge_pair(ta, tp, tneg, diag, diag, 0.2)
+            want = sk.simhinge_pair_plain(ta, tp, tneg, diag, diag, 0.2)
+            torch.cuda.synchronize()
+            for name, g, w in zip(("row_max", "row_arg", "col_max",
+                                   "col_arg"), got, want):
+                if not torch.equal(g, w):
+                    raise AssertionError(
+                        f"simhinge n={n}: {int((g != w).sum())} of {name} "
+                        f"differ, max err {(g - w).abs().max()}")
+            if (int(got[1][10]), int(got[3][20])) != (i1, j1):
+                raise AssertionError(f"simhinge ties went to {int(got[1][10])}"
+                                     f" and {int(got[3][20])}")
+            if not (got[0][4] == sk.NEG_INF and int(got[1][4]) == 0
+                    and got[2][6] == sk.NEG_INF and int(got[3][6]) == 0):
+                raise AssertionError("simhinge: a row or column with no "
+                                     "negative")
+            call_ms = cuda_ms(lambda: sk.simhinge_pair(ta, tp, tneg, diag,
+                                                       diag, 0.2))
+            ms = graph_ms(lambda: sk.simhinge_pair(ta, tp, tneg, diag, diag,
+                                                   0.2))
+            plain = graph_ms(lambda: sk.simhinge_pair_plain(
+                ta, tp, tneg, diag, diag, 0.2))
+            library = graph_ms(lambda: torch.matmul(ta, tp.T))
+        n_neg = int(neg.sum())  # the products both directions' data need
         bms, by = bound_ms(2.0 * n_neg * d,
-                           4.0 * (2 * n * d + n) + n * n + 8.0 * n)
+                           4.0 * (2 * n * d + n) + n * n + 16.0 * n)
         label = f"{n}x{n} D={d}"
-        log(f"  simhinge {label}: maxima and argmaxes equal (ties to the "
-            f"lowest index)  kernel {ms:.4f} ms  plain {plain:.4f} ms  "
-            f"matmul {library:.4f} ms  bound {bms:.4f} ms ({by})")
+        log(f"  simhinge {label}: maxima and argmaxes of both directions "
+            f"equal (ties to the lowest index)  kernel {ms:.4f} ms (graph "
+            f"replay; {call_ms:.4f} ms a call back to back)  plain "
+            f"{plain:.4f} ms  matmul {library:.4f} ms  bound {bms:.4f} ms "
+            f"({by})")
         rows.append(dict(shape=label, max_abs_err=0.0, ms=ms, plain_ms=plain,
-                         bound_ms=bms, bound_by=by, library_ms=library))
+                         bound_ms=bms, bound_by=by, library_ms=library,
+                         call_ms=call_ms))
     return rows
 
 
@@ -754,7 +788,7 @@ def phase_train(torch, np, seed: int, bf16: bool = False) -> dict:
     want = {f"gru_fwd {dt} save_gates": 4,
             f"gru_fwd {dt} save_gates+with_h0": 2,
             f"gru_bwd {dt} zero_h0": 4, f"gru_bwd {dt} with_h0": 2,
-            "simhinge float32 rowpass": 4}
+            "simhinge float32 pair": 2}
     got = {k: v / TRAIN_STEPS for k, v in step_counts.items()}
     if got != want:
         raise AssertionError(f"launches per step {got}, expected {want}")
@@ -1514,7 +1548,9 @@ def main() -> int:
               sh_rows, "train",
               total(tcounts, "simhinge") + total(bcounts, "simhinge"),
               launches_by_path={"train": total(tcounts, "simhinge"),
-                                "train bf16": total(bcounts, "simhinge")}),
+                                "train bf16": total(bcounts, "simhinge")},
+              ms_from="CUDA-graph replay of one call (graph_ms)",
+              call_ms=sh_rows[0]["call_ms"]),
         entry("rankcount", "rankcount.cu", k4, rc_rows, "serve+train",
               total(counts, "rankcount float32")
               + total(tcounts, "rankcount float32"),

@@ -32,19 +32,21 @@ LIB_NAME = "libcmhse_kernels.so"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # xw, w_h, b_h, lengths, h0, outs, final, gates, B, T, H, bf16, stream
-    "cmhse_gru_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # xw, w_h, b_h, lengths, h0, outs, final, gates, carry, B, T, H, bf16,
+    # stream
+    "cmhse_gru_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                      _P),
+    "cmhse_gru_fwd_max_hidden": (_I,),
     # gates, outs, h0, douts, dfinal, lengths, w_hT, dxw, dhn, db_part, dh0,
     # B, T, H, bf16, stream
     "cmhse_gru_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                       _I, _P),
     "cmhse_gru_bwd_rows_per_block": (),
     "cmhse_gru_bwd_max_hidden": (),
-    # a, b, mask, diag, row_max, row_arg, M, N, D, ld, transposed, margin,
-    # stream
-    "cmhse_simhinge": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                       ctypes.c_float, _P),
-    "cmhse_simhinge_max_depth": (),
+    # a, b, mask, row_diag, col_diag, keys, row_max, row_arg, col_max,
+    # col_arg, M, N, D, margin, stream
+    "cmhse_simhinge_pair": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                            _I, ctypes.c_float, _P),
     # q, g, pos, posidx, gvalid, counts, Q, N, D, splits, lowp, stream
     "cmhse_rankcount": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "cmhse_rankcount_tile_rows": (),

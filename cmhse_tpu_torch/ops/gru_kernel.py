@@ -16,14 +16,18 @@ weight-gradient products (``dW_h`` here, ``dW_i``/``dx`` in
 :func:`cmhse_tpu_torch.models.gru.gru_input_projection`) stay plain matrix
 products outside the kernels, as the JAX package leaves them to XLA.
 
-What bounds both on an H100: one block owns 8 batch rows and all H units and
-runs the time loop itself, so every block streams the whole ``W_h`` (or
-``W_h^T``, H x 3H f32) through its SM each step at 8 FMAs per element; a
-step costs one SM's work (~0.19 ms at H = 1024, PERF.md) and a call costs T
-of them, on 64 of 132 SMs at 512 rows and 8 at 64 rows. The state (and in
-the backward the carried gradient) stays on chip for the whole time loop;
-splitting ``W_h`` across all SMs is the later redesign. See the sources for
-the full notes.
+What bounds them on an H100: ``gru_fwd`` is one cooperative grid, at most
+one block per SM, that splits the hidden units across the blocks; each
+block keeps its units' columns of ``W_h`` in shared memory for the whole
+time loop, computes them for every batch row each step from the previous
+step's ``outs`` (read from L2), and meets the other blocks at one grid
+barrier a step. Its f32 product runs in FFMA, its bf16 product on the
+tensor cores (``mma.sync``); at 512 rows x 64 steps the FMAs (f32) and the
+L2 reads of the state (bf16) bound it. ``gru_bwd`` keeps the TPU grid's
+shape: one block owns 8 batch rows and all H units and streams the whole
+``W_h^T`` through its SM each step, on 64 of 132 SMs at 512 rows and 8 at
+64 rows; the same split is its later redesign. See the sources for the
+full notes.
 
 Dispatch: a CPU tensor takes the plain versions; a CUDA tensor launches the
 kernels or raises. There is no fallback between the two, and a bf16 tensor
@@ -227,6 +231,14 @@ def _dtype_name(dt: torch.dtype) -> str:
     return str(dt).removeprefix("torch.")
 
 
+def fwd_max_hidden(dtype: torch.dtype = torch.float32) -> int:
+    """Largest H the ``gru_fwd`` kernel takes in ``dtype`` on the current
+    CUDA device: each block's slice of W_h and its staging buffers must fit
+    in its shared memory. Builds the library."""
+    return cuda_lib.library().cmhse_gru_fwd_max_hidden(
+        int(dtype == torch.bfloat16))
+
+
 def bwd_max_hidden() -> int:
     """Largest H the ``gru_bwd`` kernel takes (its shared memory); builds
     the library."""
@@ -248,7 +260,8 @@ def gru_forward(
     ``gru_fwd`` in the variant the arguments ask for and the instantiation
     of ``xw``'s dtype (f32 or bf16), which takes contiguous
     ``xw``/``w_h``/``h0`` in that dtype, an f32 ``b_h``, int32 ``lengths``
-    and H a multiple of 4; anything else raises. Each launch counts in
+    and H a multiple of 4 up to :func:`fwd_max_hidden`; anything else
+    raises. Each launch counts in
     ``cuda_lib.launches`` under ("gru_fwd", dtype, variant), the variant
     "encode", "with_h0", "save_gates" or "save_gates+with_h0".
     """
@@ -278,12 +291,20 @@ def gru_forward(
             final.copy_(h0)
         return result
     lib = cuda_lib.library()
-    stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
+        limit = fwd_max_hidden(dt)
+        if hdim > limit:
+            raise ValueError(f"the gru_fwd kernel takes H up to {limit} in "
+                             f"{_dtype_name(dt)} on this card, got {hdim}")
+        # bf16: the f32 carry of each block's own units (the outputs are
+        # rounded, so they cannot carry it)
+        carry = (torch.empty(b, hdim, dtype=torch.float32, device=dev)
+                 if dt == torch.bfloat16 else None)
         err = lib.cmhse_gru_fwd(
             xw.data_ptr(), w_h.data_ptr(), b_h.data_ptr(), lengths.data_ptr(),
-            _ptr(h0), outs.data_ptr(), final.data_ptr(), _ptr(gates), b, t,
-            hdim, int(dt == torch.bfloat16), stream)
+            _ptr(h0), outs.data_ptr(), final.data_ptr(), _ptr(gates),
+            _ptr(carry), b, t, hdim, int(dt == torch.bfloat16),
+            torch.cuda.current_stream(dev).cuda_stream)
     cuda_lib.check(err, "gru_fwd launch")
     flags = [f for f, on in (("save_gates", save_gates),
                              ("with_h0", h0 is not None)) if on]

@@ -2,19 +2,23 @@
 kernel ``csrc/simhinge.cu``, its plain PyTorch version, and the loss built on
 them as a ``torch.autograd.Function``.
 
-Replaces ``cmhse_tpu/ops/pallas_sim.py:_simhinge_row_kernel`` (run twice
-by ``_simhinge_forward``), f32. One pass gives, for every query row ``i`` of
-``A``, the hardest negative ``max_j margin + (A B^T)[i, j] - diag[i]`` over
-the negatives mask and its earliest argmax; the loss runs it for (A, B, neg)
-and (B, A, neg^T). The ``[B, B]`` similarity block never leaves the chip.
+Replaces ``cmhse_tpu/ops/pallas_sim.py:_simhinge_row_kernel``, f32, which
+``_simhinge_forward`` runs twice, once per direction. The port makes one
+launch for both: for every row ``i`` of ``A`` the hardest negative
+``max_j margin + (A B^T)[i, j] - diag[i]`` over the negatives mask and its
+earliest argmax, and for every column ``j`` the same over ``i`` with
+``diag[j]`` (the JAX package's second pass, (B, A, neg^T), is the column
+view of the same product). The ``[B, B]`` similarity block never leaves the
+chip.
 
 What bounds it on an H100: at the training shapes (64 and 512 rows,
-D = 1024) the kernel's work is microseconds at the f32 peak, so launches and
-a short grid dominate; the gradient (``_loss_bwd`` in JAX) is O(B * D)
-gathers and a scatter-add, plain torch here as it is plain XLA there. See
-the source for the full note.
+D = 1024) the kernel's work is microseconds at the f32 peak; a 2-D grid of
+32 x 32 tiles fills the card at 512 rows and the launch dominates at 64.
+The gradient (``_loss_bwd`` in JAX) is O(B * D) gathers and a scatter-add,
+plain torch here as it is plain XLA there. See the source for the full
+note.
 
-Dispatch: a CPU tensor takes :func:`simhinge_rowpass_plain`; a CUDA tensor
+Dispatch: a CPU tensor takes :func:`simhinge_pair_plain`; a CUDA tensor
 launches the kernel or raises. There is no fallback between the two.
 """
 
@@ -50,43 +54,66 @@ def simhinge_rowpass_plain(
     return row_max, row_arg.to(torch.int32)
 
 
-def simhinge_rowpass(
+def simhinge_pair_plain(
     a: torch.Tensor,
     b: torch.Tensor,
     neg: torch.Tensor,
-    diag: torch.Tensor,
+    row_diag: torch.Tensor,
+    col_diag: torch.Tensor,
     margin: float,
-    transposed: bool = False,
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """One direction of the fused loss: same contract as
-    :func:`simhinge_rowpass_plain`.
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of both directions: ``(row_max, row_arg, col_max,
+    col_arg)``, two :func:`simhinge_rowpass_plain` passes, (a, b, neg) and
+    (b, a, neg^T), as the JAX package's ``_simhinge_forward`` runs them."""
+    row_max, row_arg = simhinge_rowpass_plain(a, b, neg, row_diag, margin)
+    col_max, col_arg = simhinge_rowpass_plain(b, a, neg, col_diag, margin,
+                                              transposed=True)
+    return row_max, row_arg, col_max, col_arg
 
-    ``a`` ``[M, D]``, ``b`` ``[N, D]``, ``neg`` bool ``[M, N]`` (``[N, M]``
-    when ``transposed``), ``diag`` ``[M]``. On the CPU it is the plain
-    version. On a CUDA device it launches the ``simhinge`` kernel, which
-    takes f32 contiguous ``a``/``b``/``diag`` and a contiguous bool mask;
-    anything else raises. Each launch counts in ``cuda_lib.launches`` under
-    ("simhinge", "float32", "rowpass").
+
+def simhinge_pair(
+    a: torch.Tensor,
+    b: torch.Tensor,
+    neg: torch.Tensor,
+    row_diag: torch.Tensor,
+    col_diag: torch.Tensor,
+    margin: float,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Both directions of the fused loss: same contract as
+    :func:`simhinge_pair_plain`.
+
+    ``a`` ``[M, D]``, ``b`` ``[N, D]``, ``neg`` bool ``[M, N]``,
+    ``row_diag`` ``[M]`` (subtracted in the row direction), ``col_diag``
+    ``[N]`` (in the column direction). On the CPU it is the plain version.
+    On a CUDA device it launches the ``simhinge`` kernel once for both
+    directions; it takes f32 contiguous ``a``/``b``/diagonals and a
+    contiguous bool mask, and anything else raises. A depth that is not a
+    multiple of 4 is padded with zeros (the products do not change). Each
+    launch counts in ``cuda_lib.launches`` under ("simhinge", "float32",
+    "pair").
     """
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[1]:
         raise ValueError(f"a and b must be [M, D] and [N, D], got "
                          f"{tuple(a.shape)} and {tuple(b.shape)}")
     m, d = a.shape
     n = b.shape[0]
-    want = (n, m) if transposed else (m, n)
-    if tuple(neg.shape) != want:
-        raise ValueError(f"neg must be {list(want)}, got {tuple(neg.shape)}")
-    if tuple(diag.shape) != (m,):
-        raise ValueError(f"diag must be [{m}], got {tuple(diag.shape)}")
-    devices = {x.device for x in (a, b, neg, diag)}
+    if tuple(neg.shape) != (m, n):
+        raise ValueError(f"neg must be {[m, n]}, got {tuple(neg.shape)}")
+    for name, x, size in (("row_diag", row_diag, m), ("col_diag", col_diag,
+                                                      n)):
+        if tuple(x.shape) != (size,):
+            raise ValueError(f"{name} must be [{size}], got "
+                             f"{tuple(x.shape)}")
+    devices = {x.device for x in (a, b, neg, row_diag, col_diag)}
     if len(devices) != 1:
         raise ValueError(f"inputs lie on different devices: {devices}")
     if a.device.type == "cpu":
-        return simhinge_rowpass_plain(a, b, neg, diag, margin, transposed)
+        return simhinge_pair_plain(a, b, neg, row_diag, col_diag, margin)
     if a.device.type != "cuda":
-        raise ValueError(f"simhinge_rowpass runs on cpu or cuda, not "
+        raise ValueError(f"simhinge_pair runs on cpu or cuda, not "
                          f"{a.device.type}")
-    for name, x in (("a", a), ("b", b), ("diag", diag)):
+    for name, x in (("a", a), ("b", b), ("row_diag", row_diag),
+                    ("col_diag", col_diag)):
         if x.dtype != torch.float32:
             raise TypeError(f"the simhinge kernel takes float32 {name}, got "
                             f"{x.dtype}")
@@ -94,30 +121,38 @@ def simhinge_rowpass(
             raise ValueError(f"the simhinge kernel takes a contiguous {name}")
     if neg.dtype != torch.bool or not neg.is_contiguous():
         raise TypeError("the simhinge kernel takes a contiguous bool mask")
-    row_max = torch.empty(m, dtype=torch.float32, device=a.device)
-    row_arg = torch.zeros(m, dtype=torch.int32, device=a.device)
-    if m == 0:
-        return row_max, row_arg
-    if n == 0:
-        return row_max.fill_(NEG_INF), row_arg
+    dev = a.device
+    if m == 0 or n == 0:
+        return (torch.full((m,), NEG_INF, device=dev),
+                torch.zeros(m, dtype=torch.int32, device=dev),
+                torch.full((n,), NEG_INF, device=dev),
+                torch.zeros(n, dtype=torch.int32, device=dev))
+    if d % 4:  # zero depths: 16-byte rows, the same products
+        a = torch.nn.functional.pad(a, (0, -d % 4))
+        b = torch.nn.functional.pad(b, (0, -d % 4))
+    a, b = (x if x.data_ptr() % 16 == 0 else x.clone() for x in (a, b))
+    keys = torch.zeros(m + n, dtype=torch.int64, device=dev)
+    # one buffer for the four outputs, all written by the kernel's decode
+    out = torch.empty(2 * (m + n), dtype=torch.int32, device=dev)
+    row_max, col_max = out[:m].view(torch.float32), out[m:m + n].view(
+        torch.float32)
+    row_arg, col_arg = out[m + n:2 * m + n], out[2 * m + n:]
     lib = cuda_lib.library()
-    if d > lib.cmhse_simhinge_max_depth():
-        raise ValueError(f"the simhinge kernel takes D up to "
-                         f"{lib.cmhse_simhinge_max_depth()}, got {d}")
-    stream = torch.cuda.current_stream(a.device).cuda_stream
-    with torch.cuda.device(a.device):
-        err = lib.cmhse_simhinge(
-            a.data_ptr(), b.data_ptr(), neg.data_ptr(), diag.data_ptr(),
-            row_max.data_ptr(), row_arg.data_ptr(), m, n, d, neg.shape[1],
-            int(transposed), float(margin), stream)
+    with torch.cuda.device(dev):
+        err = lib.cmhse_simhinge_pair(
+            a.data_ptr(), b.data_ptr(), neg.data_ptr(), row_diag.data_ptr(),
+            col_diag.data_ptr(), keys.data_ptr(), row_max.data_ptr(),
+            row_arg.data_ptr(), col_max.data_ptr(), col_arg.data_ptr(), m, n,
+            a.shape[1], float(margin),
+            torch.cuda.current_stream(dev).cuda_stream)
     cuda_lib.check(err, "simhinge launch")
-    cuda_lib.count_launch("simhinge", "float32", "rowpass")
-    return row_max, row_arg
+    cuda_lib.count_launch("simhinge", "float32", "pair")
+    return row_max, row_arg, col_max, col_arg
 
 
 class FusedContrastiveLoss(torch.autograd.Function):
     """The max-violation loss of :func:`cmhse_tpu_torch.ops.loss.
-    contrastive_loss` from two :func:`simhinge_rowpass` passes; the backward
+    contrastive_loss` from one :func:`simhinge_pair` call; the backward
     is ``_loss_bwd`` of the JAX package: gathers and a scatter-add by the
     saved argmaxes, O(B * D)."""
 
@@ -127,9 +162,8 @@ class FusedContrastiveLoss(torch.autograd.Function):
         b32 = emb_b.float().contiguous()
         neg = neg_mask.bool().contiguous()
         diag = torch.sum(a32 * b32, dim=1)
-        row_max, row_arg = simhinge_rowpass(a32, b32, neg, diag, margin)
-        col_max, col_arg = simhinge_rowpass(b32, a32, neg, diag, margin,
-                                            transposed=True)
+        row_max, row_arg, col_max, col_arg = simhinge_pair(
+            a32, b32, neg, diag, diag, margin)
         valid = valid.bool()
         n_valid = torch.clamp(valid.float().sum(), min=1.0)
         loss = (torch.where(valid, torch.clamp(row_max, min=0.0), 0.0).sum()

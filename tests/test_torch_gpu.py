@@ -49,8 +49,8 @@ def _gru_inputs(b, t, h, seed, zero_rows=()):
     return [torch.from_numpy(a) for a in (xw, w_h, b_h, lengths)]
 
 
-# (B, T, H): tiny; rows not a multiple of the block's 8; H > 4 * 256 (some
-# threads own two groups of 4 units) with > 48 KB of shared memory; a wider H
+# (B, T, H): tiny; rows not a multiple of 32; H = 1100 (9 units a block on
+# 132 SMs: a second pass of one unit); a wider H
 @pytest.mark.parametrize("b,t,h", [(8, 6, 16), (37, 9, 64), (9, 3, 1100),
                                    (24, 12, 256)])
 def test_gru_fwd_matches_plain(cuda, b, t, h):
@@ -176,8 +176,8 @@ def test_topk_on_card_keeps_lowest_index_ties(cuda):
     assert torch.equal(di.cpu(), cpu_i)
 
 
-# (B, T, H): rows not a multiple of 8; H > 4 * 256 (two unit groups per
-# thread); a block whose rows are all past their length for some steps
+# (B, T, H): rows not a multiple of 32; H = 1100 (a second pass of units);
+# steps at which every row is past its length
 VARIANT_SHAPES = [(8, 6, 16), (37, 9, 64), (9, 3, 1100), (24, 12, 256)]
 
 
@@ -268,31 +268,50 @@ def _exact_rows_64(rng, n, d):
     return (np.round(rng.randn(n, d) * 8) / 64).astype(np.float32)
 
 
-# (B, D): one block; a ragged last block of query rows and of column tiles;
-# D not a multiple of the 32-deep staging
-@pytest.mark.parametrize("b,d", [(16, 32), (300, 64), (64, 1024), (77, 100)])
-def test_simhinge_matches_plain_exactly(cuda, b, d):
-    rng = np.random.RandomState(b + d)
-    a = _exact_rows_64(rng, b, d)
-    p = _exact_rows_64(rng, b, d)
-    p[5] = p[1]  # duplicate columns: the lowest index must win the tie
-    a[b - 1] = a[2]
-    neg = rng.rand(b, b) > 0.3
-    np.fill_diagonal(neg, False)
-    neg[4] = False     # a row with no negative
-    neg[:, 6] = False  # a column with no negative
+# (M, N, D): one partial tile; one tile; 16 x 16 tiles (the training
+# shape); a ragged 100 x 37 that fills no tile; D = 300, not a multiple of
+# the 32-deep slab; D = 30, not a multiple of 4 (padded with zeros)
+@pytest.mark.parametrize("m,n,d", [(1, 1, 32), (64, 64, 1024),
+                                   (512, 512, 1024), (100, 37, 64),
+                                   (77, 77, 300), (50, 40, 30)])
+def test_simhinge_matches_plain_exactly(cuda, m, n, d):
+    rng = np.random.RandomState(m + n + d)
+    a = _exact_rows_64(rng, m, d)
+    p = _exact_rows_64(rng, n, d)
+    neg = rng.rand(m, n) > 0.3
+    ties = m >= 8 and n >= 8
+    if ties:
+        # row 2's best negatives: columns 1 and 5, equal and longest
+        p[1] *= 8
+        p[5] = p[1]
+        a[2] = p[1]
+        neg[2, [1, 5]] = True
+        neg[2, 3] = False
+        # column 3's best negatives: rows 0 and 6, equal and longest
+        a[0] *= 4
+        a[6] = a[0]
+        p[3] = a[0]
+        neg[[0, 6], 3] = True
+        neg[4] = False     # a row with no negative
+        neg[:, 7] = False  # a column with no negative
     ta, tp, tneg = [torch.from_numpy(v).to(cuda) for v in (a, p, neg)]
-    diag = torch.sum(ta * tp, dim=1)
-    for x, y, tr in ((ta, tp, False), (tp, ta, True)):
-        want = simhinge_kernel.simhinge_rowpass_plain(x, y, tneg, diag, 0.2,
-                                                      tr)
-        cuda_lib.reset_launches()
-        got = simhinge_kernel.simhinge_rowpass(x, y, tneg, diag, 0.2, tr)
-        torch.cuda.synchronize()
-        assert cuda_lib.launches == {("simhinge", "float32", "rowpass"): 1}
-        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-    assert got[0][6] == simhinge_kernel.NEG_INF  # compared in float32
-    assert int(got[1][6]) == 0
+    row_diag = torch.from_numpy((rng.randint(-64, 64, m) / 16)
+                                .astype(np.float32)).to(cuda)
+    col_diag = torch.from_numpy((rng.randint(-64, 64, n) / 16)
+                                .astype(np.float32)).to(cuda)
+    want = simhinge_kernel.simhinge_pair_plain(ta, tp, tneg, row_diag,
+                                               col_diag, 0.2)
+    cuda_lib.reset_launches()
+    got = simhinge_kernel.simhinge_pair(ta, tp, tneg, row_diag, col_diag,
+                                        0.2)
+    torch.cuda.synchronize()
+    assert cuda_lib.launches == {("simhinge", "float32", "pair"): 1}
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    if ties:
+        assert int(got[1][2]) == 1 and int(got[3][3]) == 0
+        assert got[0][4] == simhinge_kernel.NEG_INF and int(got[1][4]) == 0
+        assert got[2][7] == simhinge_kernel.NEG_INF and int(got[3][7]) == 0
 
 
 def test_fused_loss_on_card_matches_cpu(cuda):
@@ -326,9 +345,16 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
     xw, w_h, b_h, lengths = [a.to(cuda) for a in _gru_inputs(2, 2, big, 0)]
     with pytest.raises(ValueError):  # past gru_bwd's shared memory
         gru_kernel.gru_recurrence(xw, w_h.requires_grad_(), b_h, lengths)
-    a = torch.randn(8, 4096, device=cuda)  # rows past its shared memory
-    with pytest.raises(ValueError):
-        simhinge_kernel.fused_contrastive_loss_from_masks(a, a)
+    a = torch.randn(8, 4096, device=cuda)
+    with pytest.raises(TypeError):  # f64 rows: no cast behind the caller
+        simhinge_kernel.simhinge_pair(a.double(), a.double(),
+                                      torch.ones(8, 8, dtype=torch.bool,
+                                                 device=cuda), a[:, 0],
+                                      a[:, 0], 0.2)
+    # no depth limit: only slabs of the rows are staged
+    loss = simhinge_kernel.fused_contrastive_loss_from_masks(a, a)
+    want = simhinge_kernel.fused_contrastive_loss_from_masks(a.cpu(), a.cpu())
+    torch.testing.assert_close(loss.cpu(), want, atol=1e-4, rtol=1e-5)
     dec = ReconstructionDecoder(6, 6).to(cuda)  # H = 6, T = 4 < 16
     with pytest.raises(ValueError):
         dec(torch.randn(3, 6, device=cuda), torch.randn(3, 4, 6, device=cuda),
@@ -354,8 +380,15 @@ def test_train_step_on_card_matches_cpu(cuda):
         model = CMHSE(cfg, 64, device=dev,
                       generator=torch.Generator().manual_seed(3))
         b = batch.to(dev)
+        cuda_lib.reset_launches()
         loss, m = total_loss(model(b), b, exp.loss)
         loss.backward()
+        assert cuda_lib.launches == ({} if dev == "cpu" else {
+            ("gru_fwd", "float32", "save_gates"): 4,
+            ("gru_fwd", "float32", "save_gates+with_h0"): 2,
+            ("gru_bwd", "float32", "zero_h0"): 4,
+            ("gru_bwd", "float32", "with_h0"): 2,
+            ("simhinge", "float32", "pair"): 2})
         grads[str(dev)] = {k: p.grad.cpu() for k, p in
                            model.named_parameters()}
         state, m = train_step(create_train_state(exp, model), batch,
@@ -379,8 +412,8 @@ BF16 = torch.bfloat16
 BF16_ATOL = 1e-2
 BF16_GRAD_RL2 = 2e-2
 
-# (B, T, H): rows not a multiple of 8; T = 1 at H = 1024; H > 4 * 256 (two
-# unit groups per thread) with zero-length rows
+# (B, T, H): rows not a multiple of 32; T = 1 at H = 1024; H = 1100 (a
+# second pass of units, H not a multiple of 8) with zero-length rows
 BF16_SHAPES = [(8, 6, 16), (37, 9, 64), (9, 1, 1024), (21, 7, 1100)]
 
 
@@ -445,6 +478,79 @@ def test_gru_bwd_bf16_matches_plain(cuda, seeded, b, t, h):
         assert _rel_l2(g, w) <= BF16_GRAD_RL2, (name, _rel_l2(g, w))
     for r in (0, b - 1):  # length-0 rows: no gate gradient
         assert not got[0][r].any() and not got[1][r].any()
+
+
+# The shapes the cooperative gru_fwd makes edges of, (B, T, H, all lengths
+# 0): H not a multiple of 8 units times the blocks (the last block owns 4);
+# H = 32, four blocks of 8 units; B = 1 (one warp's rows); B = 513 (a
+# third chunk of one row); every length 0; T = 1. "max" is
+# fwd_max_hidden() of the type.
+COOP_SHAPES = {"h1028": (9, 5, 1028, False), "h32": (8, 6, 32, False),
+               "hmax": (4, 3, "max", False), "b1": (1, 7, 64, False),
+               "b513": (513, 4, 64, False), "len0": (20, 5, 64, True),
+               "t1": (37, 1, 256, False)}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("variant", ["encode", "save_gates", "save_gates_h0"])
+@pytest.mark.parametrize("shape", sorted(COOP_SHAPES))
+def test_gru_fwd_cooperative_edges(cuda, dtype, variant, shape):
+    dt = getattr(torch, dtype)
+    b, t, h, no_len = COOP_SHAPES[shape]
+    if h == "max":
+        h = gru_kernel.fwd_max_hidden(dt)
+        assert h >= 1024  # every configuration of the repo has H = 1024
+    xw, w_h, b_h, lengths = [a.to(cuda) for a in _gru_inputs(
+        b, t, h, seed=b + t + h, zero_rows=(0,))]
+    if no_len:
+        lengths.zero_()
+    xw, w_h = xw.to(dt), w_h.to(dt)
+    save = variant != "encode"
+    h0 = ((torch.randn(b, h, device=cuda) * 0.5).to(dt)
+          if variant == "save_gates_h0" else None)
+    want = gru_kernel.gru_recurrence_plain(xw, w_h, b_h, lengths, h0,
+                                           save_gates=save)
+    cuda_lib.reset_launches()
+    got = gru_kernel.gru_forward(xw, w_h, b_h, lengths, h0, save_gates=save)
+    torch.cuda.synchronize()
+    name = {"save_gates_h0": "save_gates+with_h0"}.get(variant, variant)
+    assert cuda_lib.launches == {("gru_fwd", dtype, name): 1}
+    atol = 1e-5 if dt == torch.float32 else BF16_ATOL
+    torch.testing.assert_close(got[0], want[0], atol=atol, rtol=0)
+    torch.testing.assert_close(got[1], want[1], atol=atol, rtol=0)
+    if save:
+        live = (torch.arange(t, device=cuda)[None, :] < lengths[:, None])
+        torch.testing.assert_close(got[2][live], want[2][live], atol=atol,
+                                   rtol=0)
+    start = h0[0] if h0 is not None else torch.zeros_like(got[1][0])
+    assert torch.equal(got[1][0], start)  # a length-0 row keeps its start
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gru_fwd_refuses_past_max_hidden(cuda, dtype):
+    dt = getattr(torch, dtype)
+    h = gru_kernel.fwd_max_hidden(dt) + 4
+    xw, w_h, b_h, lengths = [a.to(cuda) for a in _gru_inputs(2, 2, h, 0)]
+    cuda_lib.reset_launches()
+    with pytest.raises(ValueError):
+        gru_kernel.gru_forward(xw.to(dt), w_h.to(dt), b_h, lengths)
+    assert not cuda_lib.launches
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gru_fwd_is_bitwise_repeatable(cuda, dtype):
+    """No atomics: the sums run in a fixed order, so two runs of a 512 x 64
+    call at H = 1024 give the same bits."""
+    dt = getattr(torch, dtype)
+    xw, w_h, b_h, lengths = [a.to(cuda) for a in _gru_inputs(512, 64, 1024,
+                                                             11)]
+    xw, w_h = xw.to(dt), w_h.to(dt)
+    first = gru_kernel.gru_forward(xw, w_h, b_h, lengths, save_gates=True)
+    second = gru_kernel.gru_forward(xw, w_h, b_h, lengths, save_gates=True)
+    live = (torch.arange(64, device=cuda)[None, :] < lengths[:, None])
+    assert torch.equal(first[0], second[0])
+    assert torch.equal(first[1], second[1])
+    assert torch.equal(first[2][live], second[2][live])
 
 
 def test_bf16_kernels_take_no_mixed_types(cuda):
@@ -557,7 +663,7 @@ def test_bf16_train_step_on_card_matches_cpu(cuda):
             ("gru_fwd", "bfloat16", "save_gates+with_h0"): 2,
             ("gru_bwd", "bfloat16", "zero_h0"): 4,
             ("gru_bwd", "bfloat16", "with_h0"): 2,
-            ("simhinge", "float32", "rowpass"): 4})
+            ("simhinge", "float32", "pair"): 2})
         grads = [p.grad for _, p in sorted(model.named_parameters())]
         assert all(g.dtype == torch.float32 for g in grads)
         res[str(dev)] = (loss.item(), torch.cat([g.cpu().ravel()

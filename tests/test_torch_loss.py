@@ -2,8 +2,8 @@
 ``contrastive_loss`` and the fused loss (values and gradients) against
 ``contrastive_loss`` / ``pallas_contrastive_loss`` (Pallas in interpret
 mode) with multi-positive masks and invalid rows, within 1e-5; the plain
-``simhinge`` pass's maxima and argmax indices against the JAX kernel's
-exactly; ``reconstruction_loss``."""
+two-direction ``simhinge`` maxima and argmax indices against the JAX
+kernel's ``_simhinge_forward`` exactly; ``reconstruction_loss``."""
 
 import jax
 import jax.numpy as jnp
@@ -19,8 +19,7 @@ from cmhse_tpu_torch.ops import cuda_lib, simhinge_kernel
 from cmhse_tpu_torch.ops.loss import (contrastive_loss, positive_mask_from_ids,
                                       reconstruction_loss)
 from cmhse_tpu_torch.ops.simhinge_kernel import (
-    fused_contrastive_loss_from_masks, simhinge_rowpass,
-    simhinge_rowpass_plain)
+    fused_contrastive_loss_from_masks, simhinge_pair, simhinge_pair_plain)
 
 torch.set_num_threads(2)
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -124,9 +123,8 @@ def test_plain_pass_matches_jax_kernel_exactly(b, d):
         jnp.asarray(a), jnp.asarray(p), jnp.asarray(neg), 0.2)]
     ta, tp, tneg = map(torch.from_numpy, (a, p, neg))
     diag = torch.sum(ta * tp, dim=1)
-    row_max, row_arg = simhinge_rowpass(ta, tp, tneg, diag, 0.2)
-    col_max, col_arg = simhinge_rowpass(tp, ta, tneg, diag, 0.2,
-                                        transposed=True)
+    row_max, row_arg, col_max, col_arg = simhinge_pair(ta, tp, tneg, diag,
+                                                       diag, 0.2)
     for got, w in zip((row_max, row_arg, col_max, col_arg), want):
         np.testing.assert_array_equal(got.numpy(), w)
     assert row_max[4] == simhinge_kernel.NEG_INF and row_arg[4] == 0
@@ -138,16 +136,18 @@ def test_rowpass_refuses_bad_shapes_and_devices():
     neg = torch.ones(4, 4, dtype=torch.bool)
     diag = torch.zeros(4)
     with pytest.raises(ValueError):
-        simhinge_rowpass(a, torch.zeros(4, 2), neg, diag, 0.2)
+        simhinge_pair(a, torch.zeros(4, 2), neg, diag, diag, 0.2)
     with pytest.raises(ValueError):
-        simhinge_rowpass(a, torch.zeros(5, 3), neg, diag, 0.2)
+        simhinge_pair(a, torch.zeros(5, 3), neg, diag, diag, 0.2)
     with pytest.raises(ValueError):
-        simhinge_rowpass(a, a, neg, torch.zeros(3), 0.2)
+        simhinge_pair(a, a, neg, torch.zeros(3), diag, 0.2)
+    with pytest.raises(ValueError):
+        simhinge_pair(a, a, neg, diag, torch.zeros(5), 0.2)
     with pytest.raises(ValueError):  # no silent path for a non-CPU device
-        simhinge_rowpass(a.to("meta"), a.to("meta"), neg.to("meta"),
-                         diag.to("meta"), 0.2)
-    got = simhinge_rowpass(a, a, neg, diag, 0.2)
-    want = simhinge_rowpass_plain(a, a, neg, diag, 0.2)
+        simhinge_pair(a.to("meta"), a.to("meta"), neg.to("meta"),
+                      diag.to("meta"), diag.to("meta"), 0.2)
+    got = simhinge_pair(a, a, neg, diag, diag, 0.2)
+    want = simhinge_pair_plain(a, a, neg, diag, diag, 0.2)
     for x, y in zip(got, want):
         assert torch.equal(x, y)
 
