@@ -144,16 +144,21 @@ def graph_ms(fn, reps: int = 50) -> float:
     """Mean device time of ``fn`` in ms, replayed ``reps`` times from a
     CUDA graph captured once (CUDA events; warm L2): the device's time with
     no host launch overhead between calls, for work of tens of
-    microseconds, where back-to-back eager calls time the host."""
+    microseconds, where back-to-back eager calls time the host. Every call
+    warms up and captures on one side stream: cuBLAS keeps a workspace
+    (32 MiB on the H100) for each stream it has run on until the process
+    ends, so a new stream a call would hold 0.22 GiB by phase 5."""
     import torch
 
-    stream = torch.cuda.Stream()
+    if not hasattr(graph_ms, "stream"):
+        graph_ms.stream = torch.cuda.Stream()
+    stream = graph_ms.stream
     stream.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(stream):
         fn()  # warm-up outside the capture (builds, caches)
     torch.cuda.current_stream().wait_stream(stream)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=stream):
         fn()
     graph.replay()
     torch.cuda.synchronize()
@@ -715,24 +720,42 @@ def total(counts: dict, prefix: str) -> int:
     return sum(n for k, n in counts.items() if k.startswith(prefix))
 
 
-def phase_train(torch, np, seed: int, bf16: bool = False) -> dict:
-    """5 (f32) and 5d (``bf16``: ``dtype`` and ``feature_dtype`` bfloat16):
-    the training path at full cmhse_full width: TRAIN_STEPS
-    ``train_step``s on one fixed 64-video batch (handed over from the host
-    each step, as a loader would), then ``validate_metrics(streaming=True)``
-    on that batch with the trained weights. Launch counts are read after
-    the steps and after the validation; a bf16 step must launch only the
-    bf16 GRU kernels."""
+def reachable_cuda_tensors(torch, top: int = 4) -> str:
+    """The CUDA tensors the garbage collector can reach: their total and
+    the largest few (shape, dtype, MiB)."""
+    import gc
+
+    import warnings
+
+    found = {}
+    with warnings.catch_warnings():  # deprecated objects warn on isinstance
+        warnings.simplefilter("ignore")
+        for obj in gc.get_objects():
+            try:
+                if torch.is_tensor(obj) and obj.is_cuda:
+                    found[obj.untyped_storage().data_ptr()] = obj
+            except Exception:  # objects that refuse inspection
+                continue
+    sizes = sorted(((x.untyped_storage().nbytes(), tuple(x.shape), x.dtype)
+                    for x in found.values()), key=lambda v: -v[0])
+    largest = ", ".join(f"{list(s)} {str(d).removeprefix('torch.')} "
+                        f"{n / 2**20:.1f} MiB" for n, s, d in sizes[:top])
+    return (f"{sum(v[0] for v in sizes) / 2**30:.3f} GiB in {len(sizes)} "
+            f"storages ({largest or 'none'})")
+
+
+def train_setup(torch, seed: int, bf16: bool = False):
+    """Phase 5's training set-up at full cmhse_full width (``bf16``:
+    ``dtype`` and ``feature_dtype`` bfloat16): one fixed 64-video batch
+    from the seed, the model's random weights, Adam at TRAIN_LR. Returns
+    (cfg, model, state, batch)."""
     import dataclasses
 
     from cmhse_tpu_torch.config import get_preset
     from cmhse_tpu_torch.data import (SyntheticHierarchicalDataset,
                                       batches_from_dataset)
-    from cmhse_tpu_torch.eval import format_table, validate_metrics
     from cmhse_tpu_torch.models import CMHSE
-    from cmhse_tpu_torch.ops import cuda_lib
-    from cmhse_tpu_torch.train import (create_train_state, set_learning_rate,
-                                       train_step)
+    from cmhse_tpu_torch.train import create_train_state, set_learning_rate
 
     cfg = get_preset("cmhse_full")
     if bf16:
@@ -750,6 +773,82 @@ def phase_train(torch, np, seed: int, bf16: bool = False) -> dict:
     model = CMHSE(mc, dc.vocab_size,
                   generator=torch.Generator().manual_seed(seed))
     state = set_learning_rate(create_train_state(cfg, model), TRAIN_LR)
+    return cfg, model, state, batch
+
+
+def step_memory(torch, state, batch, loss_cfg, top: int = 6) -> dict:
+    """Device memory of one ``train_step``: the bytes allocated at its
+    start (parameters, Adam's state, whatever else is alive), its peak
+    (``torch.cuda.max_memory_allocated()``), and what is live at that peak.
+    The allocator's trace of the step (``torch.cuda.memory`` history,
+    Python frames only) is replayed to the peak; the blocks live there are
+    summed by the innermost frame in the port that allocated them. Returns
+    dict(start, peak, sites=[(site, bytes), ...] largest first)."""
+    from cmhse_tpu_torch.train import train_step
+
+    mem = torch.cuda.memory
+    torch.cuda.synchronize()
+    start = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    mem._record_memory_history(max_entries=1_000_000, stacks="python")
+    try:
+        train_step(state, batch, loss_cfg)
+        torch.cuda.synchronize()
+        trace = mem._snapshot()["device_traces"][torch.cuda.current_device()]
+    finally:
+        mem._record_memory_history(enabled=None)
+    peak = torch.cuda.max_memory_allocated()
+
+    def site(frames):
+        for f in frames:
+            if "cmhse_tpu_torch" in f["filename"]:
+                path = f["filename"].split("cmhse_tpu_torch")[-1]
+                return f"cmhse_tpu_torch{path}:{f['line']} {f['name']}"
+        return "outside the port"
+
+    live, cur, best = {}, start, (start, {})
+    for ev in trace:
+        if ev["action"] == "alloc":
+            live[ev["addr"]] = (ev["size"], site(ev["frames"]))
+            cur += ev["size"]
+            if cur > best[0]:
+                best = (cur, dict(live))
+        elif ev["action"] == "free_requested":
+            cur -= ev["size"]
+            live.pop(ev["addr"], None)
+    sites = {}
+    for size, where in best[1].values():
+        sites[where] = sites.get(where, 0) + size
+    ranked = sorted(sites.items(), key=lambda kv: -kv[1])[:top]
+    return dict(start=start, peak=peak, sites=ranked)
+
+
+def log_step_memory(m: dict) -> None:
+    log(f"  one step's device memory: {m['start'] / 2**30:.3f} GiB at its "
+        f"start, peak {m['peak'] / 2**30:.3f} GiB; live at the peak and "
+        f"allocated in the step, by site:")
+    for where, size in m["sites"]:
+        log(f"    {size / 2**20:10.1f} MiB  {where}")
+
+
+def phase_train(torch, np, seed: int, bf16: bool = False) -> dict:
+    """5 (f32) and 5d (``bf16``: ``dtype`` and ``feature_dtype`` bfloat16):
+    the training path at full cmhse_full width: TRAIN_STEPS
+    ``train_step``s on one fixed 64-video batch (handed over from the host
+    each step, as a loader would), then ``validate_metrics(streaming=True)``
+    on that batch with the trained weights. Launch counts are read after
+    the steps and after the validation; a bf16 step must launch only the
+    bf16 GRU kernels. Then one more step's device memory
+    (``step_memory``), outside the counts."""
+    from cmhse_tpu_torch.eval import format_table, validate_metrics
+    from cmhse_tpu_torch.ops import cuda_lib
+    from cmhse_tpu_torch.train import train_step
+
+    log(f"  allocated before the set-up (earlier phases): "
+        f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB, of which CUDA "
+        f"tensors reachable from Python: {reachable_cuda_tensors(torch)}")
+    cfg, model, state, batch = train_setup(torch, seed, bf16)
+    mc = cfg.model
     torch.cuda.reset_peak_memory_stats()
     cuda_lib.reset_launches()
     losses, norms, step_ms = [], [], []
@@ -770,10 +869,12 @@ def phase_train(torch, np, seed: int, bf16: bool = False) -> dict:
     torch.cuda.synchronize()
     t_val = time.perf_counter() - t0
     counts = launch_counts()
+    memory = step_memory(torch, state, batch, cfg.loss)
     log(f"  median step {float(np.median(step_ms)):.3f} ms over "
         f"{TRAIN_STEPS} steps (first {step_ms[0]:.3f} ms); peak device "
         f"memory {peak_gib:.2f} GiB; validate_metrics(streaming) on the "
         f"trained weights: {t_val * 1e3:.1f} ms")
+    log_step_memory(memory)
     log(format_table(val))
     log(f"  launches in {TRAIN_STEPS} steps: {step_counts}; with the "
         f"validation: {counts}")
@@ -1391,7 +1492,11 @@ def main() -> int:
     t_start = time.perf_counter()
 
     def phase(title: str) -> None:
-        log(f"{title}  [{time.perf_counter() - t_start:.1f} s]")
+        held, torch_mod = "", sys.modules.get("torch")
+        if torch_mod is not None and torch_mod.cuda.is_initialized():
+            gib = torch_mod.cuda.memory_allocated() / 2**30
+            held = f"; {gib:.3f} GiB allocated"
+        log(f"{title}  [{time.perf_counter() - t_start:.1f} s{held}]")
 
     import numpy as np
     import torch

@@ -53,13 +53,15 @@
 //   the CUDA cores (TF32 would break the 1e-5 parity). A thread owns two
 //   units and 8 rows (r, r + 64, ...): per 4 depths six 16-byte loads of
 //   W_h and 8 of the state feed 192 FMAs.
-//   bf16: chunks of 256 rows, 64-depth slabs staged through registers
-//   (8-byte loads: a bf16 row is 8-byte aligned only when H is not a
-//   multiple of 8). mma.sync.m16n8k16 (bf16 operands, f32 accumulation) on
-//   the tensor cores, fragments by ldmatrix from shared memory. A warp owns
-//   32 rows (two m-tiles) and the pass's 8 units in each of the three gates
-//   (three n-tiles). A product of two bf16 values is exact in f32, so the
-//   result is the plain version's up to summation order.
+//   bf16: chunks of 256 rows, 64-depth slabs; when H is a multiple of 8
+//   (every row 16-byte aligned) a three-stage ring of 16-byte cp.async.cg
+//   copies, two slabs in flight, otherwise 8-byte ld.global.cg loads
+//   through registers into two buffers. mma.sync.m16n8k16 (bf16 operands,
+//   f32 accumulation) on the tensor cores, fragments by ldmatrix from
+//   shared memory. A warp owns 32 rows (two m-tiles) and the pass's 8 units
+//   in each of the three gates (three n-tiles). A product of two bf16
+//   values is exact in f32, so the result is the plain version's up to
+//   summation order.
 //
 // What bounds it on an H100 (video_low, 512 rows x 64 steps, H = 1024;
 // PERF.md): the product. In f32, 512 x 1024 x 24 FMAs a block a step run
@@ -77,12 +79,24 @@
 
 #include <type_traits>
 
+#include "gru_common.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kPassUnits = 8;  // units a pass of the product computes
+using gru::commit_staged;
+using gru::cp_async16;
+using gru::from_f;
+using gru::kPassUnits;
+using gru::kThreads;
+using gru::ldmatrix_x2;
+using gru::ldmatrix_x4;
+using gru::mma_bf16;
+using gru::to_f;
+using gru::units_per_block;
+using gru::w_stride;
+using gru::wait_staged;
 
 // How each element type stages the state and splits the product. A chunk
 // is the batch rows one pass covers; a staged row holds one slab of depths
@@ -118,46 +132,14 @@ __host__ __device__ constexpr int stage_bytes() {
   return Layout<E>::kChunkRows * Layout<E>::kRowBytes;
 }
 
-// Row stride of the W_h slice in shared memory, in elements: H rounded up to
-// 128 bytes, plus 16 bytes, so that 8 consecutive rows start in 8 different
-// 16-byte bank groups (the f32 float4 loads and the bf16 ldmatrix rows).
-template <typename E>
-__host__ __device__ int w_stride(int H) {
-  const int k = 128 / (int)sizeof(E);
-  return (H + k - 1) / k * k + 16 / (int)sizeof(E);
-}
-
 template <typename E>
 size_t smem_bytes(int H, int U) {
   return Layout<E>::kStages * (size_t)stage_bytes<E>() +
          (size_t)(3 * U + Layout<E>::kPadRows) * w_stride<E>(H) * sizeof(E);
 }
 
-int units_per_block(int H, int sms) {
-  const int u = (H + sms - 1) / sms;
-  return u > kPassUnits ? u : kPassUnits;
-}
-
 __device__ __forceinline__ float sigmoid_f(float x) {
   return 1.0f / (1.0f + expf(-x));
-}
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-// round to nearest even, as astype(jnp.bfloat16) does
-template <typename E>
-__device__ __forceinline__ E from_f(float x) {
-  if constexpr (std::is_same<E, float>::value)
-    return x;
-  else
-    return __float2bfloat16_rn(x);
-}
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
 
 // bf16: one slab of the chunk's state rows into registers: thread t loads
@@ -211,18 +193,10 @@ __device__ __forceinline__ void stage_f32(unsigned char* buf,
     const int r = f / 4;
     const int k = k0 + (f % 4) * 4;
     const bool in = r < rows && k < H;
-    const float* g = in ? src + r * row_stride + k : src;
-    asm volatile(
-        "cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-            smem_addr(buf + r * FL::kRowBytes + (f % 4) * 16)),
-        "l"(g), "r"(in ? 16 : 0));
+    cp_async16(buf + r * FL::kRowBytes + (f % 4) * 16,
+               in ? src + r * row_stride + k : src, in);
   }
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int kPending>
-__device__ __forceinline__ void wait_staged() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
+  commit_staged();
 }
 
 // acc[2 i + e][g] += h[row rg + 64 i] . W_h[:, gate g of unit j0 + e] over
@@ -286,28 +260,6 @@ __device__ __forceinline__ void product_f32(
   }
 }
 
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x2(unsigned (&r)[2], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
-                                         const unsigned (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
 // c[mt][g] += the warp's 16-row m-tile mt (rows warp * 32 + 16 mt ..) of
 // the staged slab s times the n-tile of gate g (the pass's 8 units), 64
 // bf16 depths in four k16 steps. a_row / a_k and b_base are the lane's
@@ -349,13 +301,10 @@ __device__ __forceinline__ void stage_bf16(unsigned char* buf,
     const int r = f / 8;
     const int k = k0 + (f % 8) * 8;
     const bool in = r < rows && k < H;
-    const __nv_bfloat16* g = in ? src + r * row_stride + k : src;
-    asm volatile(
-        "cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-            smem_addr(buf + r * BL::kRowBytes + (f % 8) * 16)),
-        "l"(g), "r"(in ? 16 : 0));
+    cp_async16(buf + r * BL::kRowBytes + (f % 8) * 16,
+               in ? src + r * row_stride + k : src, in);
   }
-  asm volatile("cp.async.commit_group;\n" ::);
+  commit_staged();
 }
 
 // The bf16 product over a chunk: c[mt][g] as mma_slab says, over all
@@ -580,25 +529,10 @@ int launch_gru_fwd(const void* xw, const void* w_h, const float* b_h,
                    const int32_t* lengths, const void* h0, void* outs,
                    void* final_h, void* gates, float* carry, int B, int T,
                    int H, cudaStream_t stream) {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return (int)err;
+  const int sms = gru::device_sms();
+  if (sms == 0) return (int)cudaErrorInvalidDevice;
   int U = units_per_block(H, sms);
   const int grid = (H + U - 1) / U;
-  const size_t smem = smem_bytes<E>(H, U);
-  auto kernel = gru_fwd_kernel<E, kSaveGates, kWithH0>;
-  err = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        kThreads, smem);
-  if (err != cudaSuccess) return (int)err;
-  // every block must be resident at once for the grid barrier
-  if ((long long)per_sm * sms < grid)
-    return (int)cudaErrorCooperativeLaunchTooLarge;
   const E* xw_e = static_cast<const E*>(xw);
   const E* w_e = static_cast<const E*>(w_h);
   const E* h0_e = static_cast<const E*>(h0);
@@ -610,10 +544,8 @@ int launch_gru_fwd(const void* xw, const void* w_h, const float* b_h,
                   (void*)&final_e, (void*)&gates_e, (void*)&carry,
                   (void*)&B,       (void*)&T,       (void*)&H,
                   (void*)&U};
-  err = cudaLaunchCooperativeKernel((const void*)kernel, dim3(grid),
-                                    dim3(kThreads), args, smem, stream);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  return gru::launch_cooperative(gru_fwd_kernel<E, kSaveGates, kWithH0>,
+                                 grid, smem_bytes<E>(H, U), args, stream);
 }
 
 template <typename E>
@@ -632,22 +564,6 @@ int dispatch_gru_fwd(const void* xw, const void* w_h, const float* b_h,
                                           final_h, gates, carry, B, T, H, s);
   return launch_gru_fwd<E, false, false>(xw, w_h, b_h, lengths, h0, outs,
                                          final_h, gates, carry, B, T, H, s);
-}
-
-template <typename E>
-int max_hidden() {
-  int dev = 0, sms = 0, optin = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-          cudaSuccess ||
-      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                             dev) != cudaSuccess)
-    return 0;
-  // the slice grows with H (U and the row stride never shrink)
-  int h = 0;
-  while (smem_bytes<E>(h + 4, units_per_block(h + 4, sms)) <= (size_t)optin)
-    h += 4;
-  return h;
 }
 
 }  // namespace
@@ -678,7 +594,8 @@ extern "C" int cmhse_gru_fwd(const void* xw, const void* w_h,
 // Largest H the kernel takes on the current device: the block's W_h slice
 // and the staging buffers must fit in one block's shared memory.
 extern "C" int cmhse_gru_fwd_max_hidden(int bf16) {
-  return bf16 ? max_hidden<__nv_bfloat16>() : max_hidden<float>();
+  return bf16 ? gru::max_hidden(smem_bytes<__nv_bfloat16>)
+              : gru::max_hidden(smem_bytes<float>);
 }
 
 // Message for an error code returned by any launcher of this library.

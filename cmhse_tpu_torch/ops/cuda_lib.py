@@ -25,6 +25,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
 SOURCES = ("gru_fwd.cu", "gru_bwd.cu", "simhinge.cu", "rankcount.cu")
+HEADERS = ("gru_common.cuh",)  # included by sources; part of the build hash
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "libcmhse_kernels.so"
@@ -37,12 +38,11 @@ _SIGNATURES = {
     "cmhse_gru_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                       _P),
     "cmhse_gru_fwd_max_hidden": (_I,),
-    # gates, outs, h0, douts, dfinal, lengths, w_hT, dxw, dhn, db_part, dh0,
-    # B, T, H, bf16, stream
-    "cmhse_gru_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                      _I, _P),
-    "cmhse_gru_bwd_rows_per_block": (),
-    "cmhse_gru_bwd_max_hidden": (),
+    # gates, outs, h0, douts, dfinal, lengths, order, w_h, dxw, dhn, db, dh0,
+    # carry, B, T, H, bf16, stream
+    "cmhse_gru_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                      _I, _I, _I, _P),
+    "cmhse_gru_bwd_max_hidden": (_I,),
     # a, b, mask, row_diag, col_diag, keys, row_max, row_arg, col_max,
     # col_arg, M, N, D, margin, stream
     "cmhse_simhinge_pair": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
@@ -91,7 +91,7 @@ def _nvcc() -> str:
 
 def _build_dir(nvcc: str) -> Path:
     h = hashlib.sha256()
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())

@@ -23,11 +23,12 @@ time loop, computes them for every batch row each step from the previous
 step's ``outs`` (read from L2), and meets the other blocks at one grid
 barrier a step. Its f32 product runs in FFMA, its bf16 product on the
 tensor cores (``mma.sync``); at 512 rows x 64 steps the FMAs (f32) and the
-L2 reads of the state (bf16) bound it. ``gru_bwd`` keeps the TPU grid's
-shape: one block owns 8 batch rows and all H units and streams the whole
-``W_h^T`` through its SM each step, on 64 of 132 SMs at 512 rows and 8 at
-64 rows; the same split is its later redesign. See the sources for the
-full notes.
+L2 reads of the state (bf16) bound it. ``gru_bwd`` is the same split run
+backwards: each block keeps its units' rows of ``W_h`` in shared memory,
+writes their gate gradients for every row, and after one grid barrier a
+step adds their share of the carried gradient's product for the live rows
+only (the rows ordered once a call by length, :func:`live_row_order`); the
+L2 reads of that operand bound it. See the sources for the full notes.
 
 Dispatch: a CPU tensor takes the plain versions; a CUDA tensor launches the
 kernels or raises. There is no fallback between the two, and a bf16 tensor
@@ -231,6 +232,15 @@ def _dtype_name(dt: torch.dtype) -> str:
     return str(dt).removeprefix("torch.")
 
 
+def live_row_order(lengths: torch.Tensor) -> torch.Tensor:
+    """The batch rows ordered by length, longest first, equal lengths in
+    row order (int32, on ``lengths``' device): the rows live at step t,
+    ``t < length``, are then a prefix of it, which ``gru_bwd``'s product
+    walks."""
+    return torch.argsort(lengths, descending=True, stable=True).to(
+        torch.int32)
+
+
 def fwd_max_hidden(dtype: torch.dtype = torch.float32) -> int:
     """Largest H the ``gru_fwd`` kernel takes in ``dtype`` on the current
     CUDA device: each block's slice of W_h and its staging buffers must fit
@@ -239,10 +249,12 @@ def fwd_max_hidden(dtype: torch.dtype = torch.float32) -> int:
         int(dtype == torch.bfloat16))
 
 
-def bwd_max_hidden() -> int:
-    """Largest H the ``gru_bwd`` kernel takes (its shared memory); builds
-    the library."""
-    return cuda_lib.library().cmhse_gru_bwd_max_hidden()
+def bwd_max_hidden(dtype: torch.dtype = torch.float32) -> int:
+    """Largest H the ``gru_bwd`` kernel takes in ``dtype`` on the current
+    CUDA device: each block's rows of W_h and its staging buffers must fit
+    in its shared memory. Builds the library."""
+    return cuda_lib.library().cmhse_gru_bwd_max_hidden(
+        int(dtype == torch.bfloat16))
 
 
 def gru_forward(
@@ -328,9 +340,9 @@ def gru_backward(
     On the CPU it is the plain version. On a CUDA device it launches the
     ``gru_bwd`` instantiation of the gates' dtype (f32 or bf16), which takes
     contiguous tensors all in that dtype, int32 ``lengths`` and H a multiple
-    of 4 up to :func:`bwd_max_hidden`; anything else raises. Each launch
-    counts in ``cuda_lib.launches`` under ("gru_bwd", dtype, "with_h0" or
-    "zero_h0").
+    of 4 up to :func:`bwd_max_hidden`; anything else raises. One launch a
+    call, counted in ``cuda_lib.launches`` under ("gru_bwd", dtype,
+    "with_h0" or "zero_h0").
     """
     b, t, h4 = gates.shape
     hdim = h4 // 4
@@ -358,35 +370,39 @@ def gru_backward(
     if hdim % 4:
         raise ValueError(f"the gru_bwd kernel takes H a multiple of 4, got "
                          f"{hdim}")
-    lib = cuda_lib.library()
-    if hdim > lib.cmhse_gru_bwd_max_hidden():
-        raise ValueError(f"the gru_bwd kernel takes H up to "
-                         f"{lib.cmhse_gru_bwd_max_hidden()}, got {hdim}")
     dev = gates.device
     dxw = torch.empty(b, t, 3 * hdim, dtype=dt, device=dev)
     dhn = torch.empty(b, t, hdim, dtype=dt, device=dev)
     dh0 = torch.empty(b, hdim, dtype=dt, device=dev)
+    db = torch.empty(4 * hdim, dtype=torch.float32, device=dev)
     if b == 0 or t == 0:
         if dfinal is None:
             dh0.zero_()
         else:
             dh0.copy_(dfinal)
-        return dxw, dhn, torch.zeros(4 * hdim, device=dev), dh0
-    n_blocks = -(-b // lib.cmhse_gru_bwd_rows_per_block())
-    db_part = torch.empty(n_blocks, 4 * hdim, dtype=torch.float32,
-                          device=dev)
-    w_ht = w_h.t().contiguous()  # [3H, H]: row-by-row coalesced reads
-    stream = torch.cuda.current_stream(dev).cuda_stream
+        return dxw, dhn, db.zero_(), dh0
+    lib = cuda_lib.library()
     with torch.cuda.device(dev):
+        limit = bwd_max_hidden(dt)
+        if hdim > limit:
+            raise ValueError(f"the gru_bwd kernel takes H up to {limit} in "
+                             f"{_dtype_name(dt)} on this card, got {hdim}")
+        # bf16: the f32 carried gradient (dh0 is rounded, so it cannot
+        # carry it; in f32 dh0 does)
+        carry = (torch.empty(b, hdim, dtype=torch.float32, device=dev)
+                 if dt == torch.bfloat16 else None)
+        order = live_row_order(lengths)
         err = lib.cmhse_gru_bwd(
             gates.data_ptr(), outs.data_ptr(), _ptr(h0), _ptr(douts),
-            _ptr(dfinal), lengths.data_ptr(), w_ht.data_ptr(),
-            dxw.data_ptr(), dhn.data_ptr(), db_part.data_ptr(),
-            dh0.data_ptr(), b, t, hdim, int(dt == torch.bfloat16), stream)
+            _ptr(dfinal), lengths.data_ptr(), order.data_ptr(),
+            w_h.data_ptr(), dxw.data_ptr(), dhn.data_ptr(), db.data_ptr(),
+            dh0.data_ptr(), _ptr(carry), b, t, hdim,
+            int(dt == torch.bfloat16),
+            torch.cuda.current_stream(dev).cuda_stream)
     cuda_lib.check(err, "gru_bwd launch")
     cuda_lib.count_launch("gru_bwd", _dtype_name(dt),
                           "zero_h0" if h0 is None else "with_h0")
-    return dxw, dhn, db_part.sum(dim=0), dh0
+    return dxw, dhn, db, dh0
 
 
 class TrainableGRU(torch.autograd.Function):
@@ -403,9 +419,13 @@ class TrainableGRU(torch.autograd.Function):
     @staticmethod
     def forward(ctx, xw, w_h, b_h, lengths, h0):
         ctx.set_materialize_grads(False)
-        if xw.device.type == "cuda" and xw.shape[-1] // 3 > bwd_max_hidden():
-            raise ValueError(f"the gru_bwd kernel takes H up to "
-                             f"{bwd_max_hidden()}, got {xw.shape[-1] // 3}")
+        if xw.device.type == "cuda":
+            with torch.cuda.device(xw.device):
+                limit = bwd_max_hidden(xw.dtype)
+            if xw.shape[-1] // 3 > limit:
+                raise ValueError(f"the gru_bwd kernel takes H up to {limit} "
+                                 f"in {_dtype_name(xw.dtype)}, got "
+                                 f"{xw.shape[-1] // 3}")
         w_c = w_h.to(xw.dtype)
         h0_c = None if h0 is None else h0.to(xw.dtype)
         outs, final, gates = gru_forward(xw, w_c, b_h, lengths, h0_c,

@@ -553,6 +553,117 @@ def test_gru_fwd_is_bitwise_repeatable(cuda, dtype):
     assert torch.equal(first[2][live], second[2][live])
 
 
+# The shapes the cooperative gru_bwd makes edges of, (B, T, H, lengths):
+# H = 1028, not a multiple of 8 (the last block owns 4 units; bf16 stages
+# through registers, and a 64-depth slab straddles 2H); H = 32, four blocks;
+# "max" is bwd_max_hidden() of the type (a second pass of units); B = 1;
+# B = 513 (f32: five chunks of live rows, bf16: three); every length 0;
+# T = 1; lengths with ties; lengths past T. The lengths are in no row order.
+BWD_SHAPES = {"h1028": (9, 5, 1028, "random"), "h32": (8, 6, 32, "random"),
+              "hmax": (4, 3, "max", "random"), "b1": (1, 7, 64, "random"),
+              "b513": (513, 4, 64, "random"), "len0": (20, 5, 64, "zero"),
+              "t1": (37, 1, 256, "random"), "ties": (40, 6, 64, "ties"),
+              "past_t": (12, 5, 64, "past_t")}
+
+
+def _bwd_lengths(kind, b, t, lengths):
+    if kind == "zero":
+        return torch.zeros_like(lengths)
+    if kind == "ties":  # lengths 0, t // 2 and t, in turn
+        return (torch.arange(b, device=lengths.device, dtype=torch.int32)
+                % 3) * (t // 2)
+    if kind == "past_t":  # some rows longer than the call
+        return lengths * 2
+    return lengths
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("seeded", [False, True])
+@pytest.mark.parametrize("cotangents", ["both", "final_only"])
+@pytest.mark.parametrize("shape", sorted(BWD_SHAPES))
+def test_gru_bwd_cooperative_edges(cuda, dtype, seeded, cotangents, shape):
+    """One cooperative launch against the plain BPTT loop, in today's
+    bands: f32 max abs error within 1e-4 of the largest reference entry,
+    bf16 relative L2 within 2e-2; length-0 rows emit zeros."""
+    dt = getattr(torch, dtype)
+    b, t, h, kind = BWD_SHAPES[shape]
+    if h == "max":
+        h = gru_kernel.bwd_max_hidden(dt)
+        assert h >= 1100  # above every configuration's H = 1024
+    xw, w_h, b_h, lengths = [a.to(cuda) for a in _gru_inputs(
+        b, t, h, seed=b + 3 * t + h)]
+    lengths = _bwd_lengths(kind, b, t, lengths)
+    xw, w_h = xw.to(dt), w_h.to(dt)
+    gen = torch.Generator(device=cuda).manual_seed(b + t + h)
+    h0 = ((torch.randn(b, h, device=cuda, generator=gen) * 0.5).to(dt)
+          if seeded else None)
+    # the plain forward: "max" may lie past gru_fwd's own bound
+    outs, _, gates = gru_kernel.gru_recurrence_plain(xw, w_h, b_h, lengths,
+                                                     h0, save_gates=True)
+    douts = (torch.randn(b, t, h, device=cuda, generator=gen).to(dt)
+             if cotangents == "both" else None)
+    dfinal = torch.randn(b, h, device=cuda, generator=gen).to(dt)
+    want = gru_kernel.gru_backward_plain(gates, outs, lengths, w_h, douts,
+                                         dfinal, h0)
+    cuda_lib.reset_launches()
+    got = gru_kernel.gru_backward(gates, outs, lengths, w_h, douts, dfinal,
+                                  h0)
+    torch.cuda.synchronize()
+    variant = "with_h0" if seeded else "zero_h0"
+    assert cuda_lib.launches == {("gru_bwd", dtype, variant): 1}
+    assert [g.dtype for g in got] == [dt, dt, torch.float32, dt]
+    for name, g, w in zip(("dxw", "dhn", "db", "dh0"), got, want):
+        assert torch.isfinite(g.float()).all(), name
+        err = (_rel_err(g.float(), w.float()) if dt == torch.float32
+               else _rel_l2(g, w))
+        assert err <= (1e-4 if dt == torch.float32 else BF16_GRAD_RL2), (
+            name, err)
+    dead = (lengths == 0).nonzero().flatten()
+    assert not got[0][dead].any() and not got[1][dead].any()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gru_bwd_refuses_past_max_hidden(cuda, dtype):
+    """Past the slice bound gru_backward raises, and the trainable GRU
+    raises before its forward launches."""
+    dt = getattr(torch, dtype)
+    h = gru_kernel.bwd_max_hidden(dt) + 4
+    b, t = 2, 2
+    gates = torch.zeros(b, t, 4 * h, dtype=dt, device=cuda)
+    outs = torch.zeros(b, t, h, dtype=dt, device=cuda)
+    w_h = torch.zeros(h, 3 * h, dtype=dt, device=cuda)
+    lengths = torch.full((b,), t, dtype=torch.int32, device=cuda)
+    cuda_lib.reset_launches()
+    with pytest.raises(ValueError):
+        gru_kernel.gru_backward(gates, outs, lengths, w_h)
+    xw = torch.zeros(b, t, 3 * h, dtype=dt, device=cuda)
+    b_h = torch.zeros(3 * h, device=cuda)
+    with pytest.raises(ValueError):
+        gru_kernel.gru_recurrence(xw, w_h.float().requires_grad_(), b_h,
+                                  lengths)
+    assert not cuda_lib.launches
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gru_bwd_is_bitwise_repeatable(cuda, dtype):
+    """No float atomics and sums in a fixed order: two runs of a 512 x 64
+    call at H = 1024 give the same bits in dxw, dhn, db and dh0."""
+    dt = getattr(torch, dtype)
+    xw, w_h, b_h, lengths = [a.to(cuda) for a in _gru_inputs(512, 64, 1024,
+                                                             12)]
+    xw, w_h = xw.to(dt), w_h.to(dt)
+    outs, _, gates = gru_kernel.gru_forward(xw, w_h, b_h, lengths,
+                                            save_gates=True)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    douts = torch.randn(512, 64, 1024, device=cuda, generator=gen).to(dt)
+    dfinal = torch.randn(512, 1024, device=cuda, generator=gen).to(dt)
+    first = gru_kernel.gru_backward(gates, outs, lengths, w_h, douts, dfinal)
+    second = gru_kernel.gru_backward(gates, outs, lengths, w_h, douts,
+                                     dfinal)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
 def test_bf16_kernels_take_no_mixed_types(cuda):
     """A bf16 stream with an f32 W_h (or cotangent) raises: nothing is cast
     up or down behind the caller's back, and no f32 kernel runs."""

@@ -220,3 +220,26 @@ def test_bidirectional_masked_gru_grads_match_jax():
         np.testing.assert_allclose(p.grad.numpy(), want[k].numpy(), **TOL,
                                    err_msg=k)
     np.testing.assert_allclose(tx.grad.numpy(), np.asarray(jdx), **TOL)
+
+
+# lengths: random (unsorted); ties; past T (T = 6); every length 0; one row
+@pytest.mark.parametrize("lengths", [
+    [3, 0, 6, 1, 5, 2, 6, 4, 0, 3],
+    [2, 4, 2, 4, 2, 0, 4, 0, 2],
+    [9, 6, 12, 0, 7, 6, 3],
+    [0, 0, 0, 0],
+    [5],
+])
+def test_live_row_order_puts_the_live_rows_first(lengths):
+    """gru_bwd's product walks a prefix of ``live_row_order``: at every
+    step t the first n_t entries are exactly the rows with t < length, and
+    equal lengths keep row order, so the order depends only on lengths."""
+    lens = torch.tensor(lengths, dtype=torch.int32)
+    order = gru_kernel.live_row_order(lens)
+    assert order.dtype == torch.int32
+    assert sorted(order.tolist()) == list(range(len(lengths)))
+    for t in range(max(lengths) + 2):
+        live = [b for b, n in enumerate(lengths) if t < n]
+        assert sorted(order[:len(live)].tolist()) == live
+    for a, b in zip(order.tolist(), order.tolist()[1:]):
+        assert (lengths[a], -a) > (lengths[b], -b)
