@@ -26,8 +26,9 @@ Phases (any failure raises and the script exits non-zero):
      its plain version (maxima and argmaxes equal, ties to the lowest
      index) at 512, 64 and 300 rows;
      3d. the ``rankcount`` lowp branch (bf16 multiplies) against its plain
-     version: exact on exact-arithmetic rows, inside the near-tie band on
-     random rows, Q=1024, N=100,000;
+     version, from bf16 operands and from f32 ones (cast included): exact
+     on exact-arithmetic rows, inside the near-tie band on random rows,
+     Q=1024, N=100,000;
   4. the serving path at full ``cmhse_full`` width (H = E = 1024, batch
      64, random weights from the seed): encode a 1,024-video synthetic
      gallery, answer 8 text->video and 8 video->text top-10 requests, score
@@ -556,9 +557,8 @@ def phase_rankcount(torch, rng, shapes) -> list:
                 queries, gallery, pos, valid, pos_idx), reps=5)
             library = cuda_ms(lambda: torch.matmul(queries, gallery.T))
         n_valid = int(valid.sum())
-        flops = 2.0 * q * n_valid * d
-        nbytes = 4.0 * (q * d + n * d + 2 * q + q) + n
-        bms, by = bound_ms(flops, nbytes)
+        bms, by = bound_ms(2.0 * q * n_valid * d,
+                           rankcount_bytes(q, n, d, queries.element_size()))
         label = f"Q={q} N={n} D={d}"
         log(f"  rankcount {label}: counts equal  kernel {ms:.4f} ms  plain "
             f"{plain:.4f} ms  matmul {library:.4f} ms  bound {bms:.4f} ms "
@@ -568,50 +568,103 @@ def phase_rankcount(torch, rng, shapes) -> list:
     return rows
 
 
+def rankcount_bytes(q: int, n: int, d: int, itemsize: int) -> float:
+    """Bytes a rank count must move: both operands in the type read, pos,
+    posidx and the counts (4 bytes a query each), gvalid (1 a row)."""
+    return itemsize * (q + n) * d + 12.0 * q + n
+
+
+def kernel_resources(source: str) -> list[str]:
+    """ptxas's registers, shared memory, stack and spills for each kernel
+    of ``source`` in the build's log, one line a kernel."""
+    import re
+
+    from cmhse_tpu_torch.ops import cuda_lib
+
+    log_text = cuda_lib.build_log()
+    part = log_text.split(f"== {source} ", 1)[-1].split("\n== ", 1)[0]
+    out, name = [], None
+    for line in part.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            try:
+                name = subprocess.run(["c++filt", name], capture_output=True,
+                                      text=True, check=True).stdout.strip()
+            except (OSError, subprocess.CalledProcessError):
+                pass
+        elif name and "spill" in line:
+            short = name.replace("(anonymous namespace)::", "")
+            short = short.removeprefix("void ").split("(")[0]
+            out.append(f"{short}: {line.strip()}")
+        elif name and "Used" in line:
+            out[-1] += "; " + line.split(":", 1)[1].strip()
+    return out
+
+
 def phase_rankcount_lowp(torch, rng, q: int = 1024, n: int = 100_000,
                          d: int = 1024) -> list:
     """3d: the rankcount kernel's lowp branch (precision="bfloat16": both
-    operands rounded to bf16, f32 accumulation) against its plain version.
-    On exact-arithmetic rows the rounded products sum exactly in any order,
-    so the counts must be equal; on random rows each count must lie in the
-    near-tie band (RANK_TIE_TOL) of the plain version's dense block. Timed
-    beside ``torch.matmul`` of the bf16 block."""
+    operands rounded to bf16, f32 accumulation) against its plain version,
+    from bf16 operands (read as they are) and from f32 ones (rounded by the
+    wrapper, the cast timed as part of the call). On exact-arithmetic rows
+    the rounded products sum exactly in any order, so the counts must be
+    equal; on random rows each count must lie in the near-tie band
+    (RANK_TIE_TOL) of the plain version's dense block. Timed beside
+    ``torch.matmul`` of the bf16 block (from f32 operands: with the same
+    casts)."""
     from cmhse_tpu_torch.ops import rankcount_kernel as rk
 
     dev = torch.device("cuda")
     bf16 = torch.bfloat16
     queries = exact_rows(rng, q, d)
     gallery = exact_rows(rng, n, d)
+    qb, gb = queries.to(bf16), gallery.to(bf16)
     pos_idx = torch.from_numpy(rng.randint(0, n, q).astype("int32")).to(dev)
     valid = torch.from_numpy(rng.rand(n) > 0.03).to(dev)
+    n_valid = int(valid.sum())
+    rows = []
     with torch.inference_mode():
         pos = (queries * gallery[pos_idx.long()]).sum(1)
         pos[q // 2] = float("nan")
-        got = rk.violation_counts(queries, gallery, pos, valid, pos_idx,
-                                  precision="bfloat16")
         want = rk.violation_counts_plain(queries, gallery, pos, valid,
                                          pos_idx, precision="bfloat16")
-        n_diff = int((got != want).sum())
-        if n_diff:
-            raise AssertionError(f"rankcount lowp: {n_diff} counts differ "
-                                 "from the plain version on exact rows")
-        ms = cuda_ms(lambda: rk.violation_counts(
-            queries, gallery, pos, valid, pos_idx, precision="bfloat16"))
         plain = cuda_ms(lambda: rk.violation_counts_plain(
             queries, gallery, pos, valid, pos_idx, precision="bfloat16"),
             reps=5)
-        qb, gb = queries.to(bf16), gallery.to(bf16)
-        library = cuda_ms(lambda: torch.matmul(qb, gb.T))
+        for label, a, b, library in (
+                ("bf16 operands", qb, gb, lambda: torch.matmul(qb, gb.T)),
+                ("f32 operands, cast included", queries, gallery,
+                 lambda: torch.matmul(queries.to(bf16), gallery.to(bf16).T))):
+            got = rk.violation_counts(a, b, pos, valid, pos_idx,
+                                      precision="bfloat16")
+            n_diff = int((got != want).sum())
+            if n_diff:
+                raise AssertionError(f"rankcount lowp ({label}): {n_diff} "
+                                     "counts differ from the plain version "
+                                     "on exact rows")
+            ms = cuda_ms(lambda: rk.violation_counts(
+                a, b, pos, valid, pos_idx, precision="bfloat16"))
+            lib_ms = cuda_ms(library)
+            bms, by = bound_ms(2.0 * q * n_valid * d,
+                               rankcount_bytes(q, n, d, a.element_size()),
+                               BF16_FLOPS)
+            shape = f"Q={q} N={n} D={d}, {label}"
+            rows.append(dict(shape=shape, max_abs_err=0.0, ms=ms,
+                             plain_ms=plain, bound_ms=bms, bound_by=by,
+                             library_ms=lib_ms))
+            log(f"  rankcount lowp {shape}: counts equal on exact rows  "
+                f"kernel {ms:.4f} ms  plain {plain:.4f} ms  bf16 matmul "
+                f"{lib_ms:.4f} ms  bound {bms:.4f} ms ({by})")
 
-        # random rows: the kernel's count within the plain block's band
+        # random rows: the kernel's count within the plain block's band,
+        # from both operand types
         gen = card_generator(torch, rng)
         rq = torch.randn(q, d, device=dev, generator=gen)
         rg = torch.randn(n, d, device=dev, generator=gen)
         rq /= rq.norm(dim=1, keepdim=True)
         rg /= rg.norm(dim=1, keepdim=True)
         rpos = (rq * rg[pos_idx.long()]).sum(1)
-        got = rk.violation_counts(rq, rg, rpos, valid, pos_idx,
-                                  precision="bfloat16")
         gq, gg = rq.to(bf16).float(), rg.to(bf16).float()
         lo, hi = [], []
         for s in range(0, q, 128):
@@ -622,20 +675,18 @@ def phase_rankcount_lowp(torch, rng, q: int = 1024, n: int = 100_000,
             lo.append((sims > p + RANK_TIE_TOL).sum(1))
             hi.append((sims > p - RANK_TIE_TOL).sum(1))
         lo, hi = torch.cat(lo), torch.cat(hi)
-        if not bool(((lo <= got) & (got <= hi)).all()):
-            raise AssertionError("rankcount lowp: counts on random rows "
-                                 "outside the plain block's near-tie band")
+        for a, b in ((rq, rg), (rq.to(bf16), rg.to(bf16))):
+            got = rk.violation_counts(a, b, rpos, valid, pos_idx,
+                                      precision="bfloat16")
+            if not bool(((lo <= got) & (got <= hi)).all()):
+                raise AssertionError("rankcount lowp: counts on random rows "
+                                     "outside the plain block's near-tie "
+                                     f"band ({a.dtype} operands)")
         n_band = int((lo != hi).sum())
-    n_valid = int(valid.sum())
-    bms, by = bound_ms(2.0 * q * n_valid * d,
-                       4.0 * (q * d + n * d + 2 * q + q) + n, BF16_FLOPS)
-    label = f"Q={q} N={n} D={d}"
-    log(f"  rankcount lowp {label}: counts equal on exact rows; on random "
-        f"rows within the +-{RANK_TIE_TOL} band ({n_band} queries have a "
-        f"score inside it)  kernel {ms:.4f} ms  plain {plain:.4f} ms  bf16 "
-        f"matmul {library:.4f} ms  bound {bms:.4f} ms ({by})")
-    return [dict(shape=label, max_abs_err=0.0, ms=ms, plain_ms=plain,
-                 bound_ms=bms, bound_by=by, library_ms=library)]
+    log(f"  rankcount lowp on random rows: within the +-{RANK_TIE_TOL} band "
+        f"from both operand types ({n_band} queries have a score inside "
+        "it)")
+    return rows
 
 
 def phase_simhinge(torch, rng, sizes, d: int = 1024) -> list:
@@ -1578,6 +1629,11 @@ def main() -> int:
           "(phase 2's and 2b/2c's shapes)")
     bf16_rows = phase_gru_bf16(torch, rng, enc_shapes, train_shapes)
     phase("phase 3: rankcount vs plain (exact-arithmetic rows)")
+    for line in kernel_resources("rankcount.cu"):
+        log("  ptxas " + line)
+    log("  dynamic shared memory a block: f32 "
+        f"{cuda_lib.library().cmhse_rankcount_smem_bytes(0):,} bytes, lowp "
+        f"{cuda_lib.library().cmhse_rankcount_smem_bytes(1):,} bytes")
     rc_rows = phase_rankcount(torch, rng, [(1024, 100_000, 1024),
                                            (args.videos, args.videos, 1024)])
     phase("phase 3b: streaming top-k vs dense")

@@ -31,8 +31,9 @@ def streaming_bidirectional_metrics(
     reduced in f32. ``valid``: row validity; invalid rows are excluded as
     queries and as gallery items. ``precision``: the rank count's product,
     ``"float32"`` or ``"bfloat16"`` (bf16 multiplies, f32 accumulation; see
-    :func:`cmhse_tpu_torch.ops.rankcount_kernel.violation_counts`). Either
-    takes f32 copies of bf16 embeddings, exactly."""
+    :func:`cmhse_tpu_torch.ops.rankcount_kernel.violation_counts`). The f32
+    count takes f32 copies of bf16 embeddings (exact); the bf16 one takes
+    the embeddings in their own type."""
     pos_score = torch.sum(v_emb.float() * p_emb.float(), dim=1)
     if valid is not None:
         # invalid rows must not look like (possibly NaN) real queries
@@ -41,8 +42,10 @@ def streaming_bidirectional_metrics(
                            device=v_emb.device)
 
     def rank_fn(a, b):
-        return rank_counts(a.float().contiguous(), b.float().contiguous(),
-                           pos_score, gallery_valid=valid, pos_idx=pos_idx,
+        if precision != "bfloat16":
+            a, b = a.float(), b.float()
+        return rank_counts(a.contiguous(), b.contiguous(), pos_score,
+                           gallery_valid=valid, pos_idx=pos_idx,
                            precision=precision)
 
     return bidirectional_metrics_from_ranks(rank_fn, v_emb, p_emb, ks=ks,

@@ -47,10 +47,9 @@ _SIGNATURES = {
     # col_arg, M, N, D, margin, stream
     "cmhse_simhinge_pair": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                             _I, ctypes.c_float, _P),
-    # q, g, pos, posidx, gvalid, counts, Q, N, D, splits, lowp, stream
-    "cmhse_rankcount": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    "cmhse_rankcount_tile_rows": (),
-    "cmhse_rankcount_tile_queries": (),
+    # q, g, pos, posidx, gvalid, counts, Q, N, D, lowp, stream
+    "cmhse_rankcount": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "cmhse_rankcount_smem_bytes": (_I,),
 }
 
 # Kernel launches by (kernel, dtype, variant), for proof that a run went

@@ -8,12 +8,17 @@ accumulation). For each query it counts the valid gallery rows scoring
 strictly above the query's positive, without materializing the ``[Q, N]``
 similarity block.
 
-What bounds it on an H100: the ``2*Q*N*D`` f32 FLOPs (compute, not bytes:
-the gallery is re-read once per 128-query tile, mostly from L2). The
-kernel keeps every score in registers (8 x 8 per thread, 128 x 128 per
-block) and reduces counts in shared memory, one integer atomic per query
-per block, so the result is deterministic; PERF.md has its times against
-the bound. See the source for the full note.
+What bounds it on an H100: the ``2*Q*N*D`` operations (3.1 ms in f32 FFMA,
+0.21 ms on the bf16 tensor cores at Q=1024, N=100k, D=1024), not bytes:
+both branches walk (gallery tile, query tile) gallery-major, so a gallery
+tile comes from HBM once and from L2 for the other query tiles. The f32
+branch is a register-blocked FFMA product (f32-exact, so no tensor core);
+the ``lowp`` branch is a persistent TMA + ``wgmma`` kernel on bf16
+operands (a TMA producer warp feeding a 4-stage shared-memory ring, two
+consumer warpgroups). Both compare, mask and count straight from the
+scores in registers, one integer atomic per query per tile or block, so
+the result is deterministic; PERF.md has their times against the bound.
+See the source for the full note.
 
 Dispatch: a CPU tensor takes :func:`violation_counts_plain`; a CUDA tensor
 launches the kernel or raises. There is no fallback between the two.
@@ -125,9 +130,14 @@ def violation_counts(
         precision, so near-tie counts may differ from the f32 ones).
 
     On the CPU it is the plain version. On a CUDA device it launches the
-    ``rankcount`` kernel's branch for ``precision``, which takes f32
-    contiguous inputs (the lowp branch rounds them itself); anything else
-    raises. Each launch counts in ``cuda_lib.launches`` under
+    ``rankcount`` kernel's branch for ``precision``; both take contiguous
+    operands and an f32 ``pos_score``. ``"float32"`` takes f32
+    ``queries`` / ``gallery`` with D a multiple of 4. ``"bfloat16"`` takes
+    f32 or bf16 ones, any D: f32 operands are rounded to bf16 here (nearest
+    even, as the TPU's ``astype``; the cast is part of the call's time), and
+    D is padded with zero columns to a multiple of 8 where it is not one
+    (exact); bf16 operands with D a multiple of 8 are read in place.
+    Anything else raises. Each launch counts in ``cuda_lib.launches`` under
     ("rankcount", precision, "f32" or "lowp").
     """
     if queries.dim() != 2:
@@ -140,46 +150,63 @@ def violation_counts(
     if queries.device.type != "cuda":
         raise ValueError(f"violation_counts runs on cpu or cuda, not "
                          f"{queries.device.type}")
+    lowp = precision == "bfloat16"
+    takes = (torch.float32, torch.bfloat16) if lowp else (torch.float32,)
+    for name, x in (("queries", queries), ("gallery", gallery)):
+        if x.dtype not in takes:
+            raise TypeError(f"the rankcount kernel ({precision}) takes "
+                            f"{name} of a type in {takes}, got {x.dtype}")
+    if pos_score.dtype != torch.float32:
+        raise TypeError(f"the rankcount kernel takes float32 pos_score, got "
+                        f"{pos_score.dtype}")
     for name, x in (("queries", queries), ("gallery", gallery),
                     ("pos_score", pos_score)):
-        if x.dtype != torch.float32:
-            raise TypeError(f"the rankcount kernel takes float32 {name}, got "
-                            f"{x.dtype}")
         if not x.is_contiguous():
             raise ValueError(f"the rankcount kernel takes a contiguous {name}")
     q, d = queries.shape
     n = gallery.shape[0]
-    if d % 4:
+    if not lowp and d % 4:
         raise ValueError(f"the rankcount kernel takes D a multiple of 4, "
                          f"got {d}")
-    # 16-byte loads: an offset view gets an aligned copy
-    queries, gallery = [x if x.data_ptr() % 16 == 0 else x.clone()
-                        for x in (queries, gallery)]
     counts = torch.zeros(q, dtype=torch.int32, device=queries.device)
     if q == 0 or n == 0:
         return counts
+    if lowp:
+        queries, gallery = _bf16_operand(queries), _bf16_operand(gallery)
+    else:
+        # 16-byte loads: an offset view gets an aligned copy
+        queries, gallery = [x if x.data_ptr() % 16 == 0 else x.clone()
+                            for x in (queries, gallery)]
     # the kernel reads these two as int32 / uint8: convert (small, [Q]/[N])
     posidx = None if pos_idx is None else pos_idx.to(torch.int32).contiguous()
     gvalid = (None if gallery_valid is None
               else gallery_valid.to(torch.uint8).contiguous())
     lib = cuda_lib.library()
-    q_tiles = -(-q // lib.cmhse_rankcount_tile_queries())
-    n_tiles = -(-n // lib.cmhse_rankcount_tile_rows())
-    sms = torch.cuda.get_device_properties(queries.device).multi_processor_count
-    # ~2 resident blocks per SM; each split walks n_tiles/splits tiles
-    splits = max(1, min(n_tiles, -(-2 * sms // q_tiles), 65535))
     stream = torch.cuda.current_stream(queries.device).cuda_stream
     with torch.cuda.device(queries.device):
         err = lib.cmhse_rankcount(
             queries.data_ptr(), gallery.data_ptr(), pos_score.data_ptr(),
             None if posidx is None else posidx.data_ptr(),
             None if gvalid is None else gvalid.data_ptr(),
-            counts.data_ptr(), q, n, d, splits, int(precision == "bfloat16"),
-            stream)
+            counts.data_ptr(), q, n, queries.shape[1], int(lowp), stream)
     cuda_lib.check(err, "rankcount launch")
-    cuda_lib.count_launch("rankcount", precision,
-                          "lowp" if precision == "bfloat16" else "f32")
+    cuda_lib.count_launch("rankcount", precision, "lowp" if lowp else "f32")
     return counts
+
+
+def _bf16_operand(x: torch.Tensor) -> torch.Tensor:
+    """``x`` as the lowp kernel reads it: bf16 (f32 rounded to nearest
+    even), rows of a multiple of 8 values (zero columns appended, which
+    changes no product), 16-byte aligned (TMA's rule)."""
+    d = x.shape[1]
+    dp = -(-d // 8) * 8
+    if dp == d:
+        if x.dtype != torch.bfloat16:
+            return x.to(torch.bfloat16)
+        return x if x.data_ptr() % 16 == 0 else x.clone()
+    out = torch.zeros(x.shape[0], dp, dtype=torch.bfloat16, device=x.device)
+    out[:, :d] = x
+    return out
 
 
 def rank_counts(

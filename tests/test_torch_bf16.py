@@ -57,7 +57,8 @@ from cmhse_tpu.ops.loss import reconstruction_loss as jax_recon  # noqa: E402
 from cmhse_tpu.ops.pallas_gru import pallas_gru_sequence  # noqa: E402
 from cmhse_tpu.ops.pallas_gru_grad import (_gru_bwd_pallas,  # noqa: E402
                                            pallas_gru_trainable)
-from cmhse_tpu.ops.pallas_sim import pallas_rank_counts  # noqa: E402
+from cmhse_tpu.ops.pallas_sim import (pallas_rank_counts,  # noqa: E402
+                                     pallas_violation_counts)
 from cmhse_tpu.train.objective import total_loss as jax_total_loss  # noqa: E402
 from cmhse_tpu_torch.config import (DataConfig, LossConfig,  # noqa: E402
                                     ModelConfig)
@@ -626,6 +627,41 @@ def test_rank_counts_bf16_precision_matches_pallas():
     assert (f32.numpy() != want).any()  # the perturbation counts in f32
     with pytest.raises(ValueError):
         rankcount_kernel.violation_counts(*args, precision="float16")
+
+
+def test_violation_counts_takes_bf16_operands_as_pallas():
+    """bf16 ``queries`` / ``gallery`` go into the lowp count as they are:
+    the port's counts equal JAX's ``pallas_violation_counts`` on the same
+    bf16 arrays (Pallas in interpret mode), and their f32 copies count the
+    same. Values are multiples of 2**-6 below 2 (exact in bf16), so every
+    sum of products is exact in f32 whatever its order; with exact ties
+    with the positive, a NaN positive, invalid rows, an out-of-range
+    pos_idx and a D that is not a multiple of 8."""
+    rng = np.random.RandomState(11)
+    q, n, d = 24, 150, 20
+    qv = (rng.randint(-127, 128, (q, d)) / 64).astype(np.float32)
+    gv = (rng.randint(-127, 128, (n, d)) / 64).astype(np.float32)
+    pos_idx = rng.randint(0, n, q).astype(np.int32)
+    gv[[3, 90]] = gv[pos_idx[0]]  # two rows tie with query 0's positive
+    pos = (qv * gv[pos_idx]).sum(1).astype(np.float32)
+    pos_idx[2] = n + 3  # out of range: nothing excluded
+    pos[4] = np.nan
+    valid = rng.rand(n) > 0.2
+    want = np.asarray(pallas_violation_counts(
+        jnp.asarray(qv, jnp.bfloat16), jnp.asarray(gv, jnp.bfloat16),
+        jnp.asarray(pos), jnp.asarray(valid), jnp.asarray(pos_idx),
+        precision="bfloat16"))
+    assert want[4] == 0
+    args = (torch.from_numpy(pos), torch.from_numpy(valid),
+            torch.from_numpy(pos_idx))
+    tq, tg = torch.from_numpy(qv).to(BF16), torch.from_numpy(gv).to(BF16)
+    got = rankcount_kernel.violation_counts(tq, tg, *args,
+                                            precision="bfloat16")
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    f32 = rankcount_kernel.violation_counts(tq.float(), tg.float(), *args,
+                                            precision="bfloat16")
+    np.testing.assert_array_equal(f32.numpy(), want)
 
 
 # ---- the bf16 serving path -------------------------------------------------

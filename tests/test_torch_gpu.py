@@ -719,6 +719,168 @@ def test_rankcount_lowp_matches_plain_exactly(cuda, q, n, d):
     assert not torch.equal(rankcount_kernel.violation_counts(*args), exact)
 
 
+# ---- rankcount at the edges of its tiles (both branches) -------------------
+# Tiles are 128 queries x 256 gallery rows (lowp: 64 queries a warpgroup;
+# f32: 128 gallery rows where 256-row tiles would leave an SM without a
+# block, as at these small shapes), with 32-deep (f32) and 64-deep (lowp)
+# slabs; the shapes straddle them.
+
+RC_PRECISIONS = ("float32", "bfloat16")
+
+
+def _rankcount_case(cuda, q, n, d, seed, precision, masks=True):
+    """Exact rows, a NaN positive and (with ``masks``) holes in the gallery
+    and pos_idx: the kernel's counts must equal the plain version's, in one
+    launch."""
+    rng = np.random.RandomState(seed)
+    queries = torch.from_numpy(_exact_rows(rng, q, d)).to(cuda)
+    gallery = torch.from_numpy(_exact_rows(rng, n, d)).to(cuda)
+    pos_idx = torch.from_numpy(rng.randint(0, n, q)).to(cuda)
+    pos = (queries * gallery[pos_idx]).sum(1)
+    pos[q // 2] = float("nan")
+    valid = torch.from_numpy(rng.rand(n) > 0.2).to(cuda)
+    gv, pi = (valid, pos_idx) if masks else (None, None)
+    want = rankcount_kernel.violation_counts_plain(queries, gallery, pos, gv,
+                                                   pi, precision=precision)
+    cuda_lib.reset_launches()
+    got = rankcount_kernel.violation_counts(queries, gallery, pos, gv, pi,
+                                            precision=precision)
+    torch.cuda.synchronize()
+    variant = "lowp" if precision == "bfloat16" else "f32"
+    assert cuda_lib.launches == {("rankcount", precision, variant): 1}
+    assert torch.equal(got, want)
+    assert int(got[q // 2]) == 0  # a NaN positive counts nothing
+    return got
+
+
+@pytest.mark.parametrize("precision", RC_PRECISIONS)
+@pytest.mark.parametrize("q", [1, 63, 64, 65, 129, 257])
+def test_rankcount_query_edges(cuda, precision, q):
+    _rankcount_case(cuda, q, 300, 36, q, precision)
+
+
+# smaller than one tile; one short of a tile; one past a tile
+@pytest.mark.parametrize("precision", RC_PRECISIONS)
+@pytest.mark.parametrize("n", [100, 255, 257])
+def test_rankcount_gallery_edges(cuda, precision, n):
+    _rankcount_case(cuda, 70, n, 36, n, precision)
+
+
+# D = 4, 36 and 100 are not multiples of 8 (lowp pads them); 36, 100 and
+# 1028 end in a ragged slab in both branches
+@pytest.mark.parametrize("precision", RC_PRECISIONS)
+@pytest.mark.parametrize("d", [4, 36, 100, 1028])
+def test_rankcount_depth_edges(cuda, precision, d):
+    for masks in (False, True):
+        _rankcount_case(cuda, 65, 257, d, d, precision, masks)
+
+
+@pytest.mark.parametrize("precision", RC_PRECISIONS)
+def test_rankcount_wide_tiles_at_ragged_edges(cuda, precision):
+    """Enough 256-row gallery tiles for every SM (the f32 branch's wide
+    tiles), with Q, N and D all ragged."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    n = 256 * (sms // 2 + 1) + 1  # two query tiles x this many: >= sms
+    _rankcount_case(cuda, 129, n, 100, 3, precision)
+
+
+@pytest.mark.parametrize("precision", RC_PRECISIONS)
+def test_rankcount_masks_and_ties(cuda, precision):
+    """An all-invalid gallery counts nothing; pos_idx out of range excludes
+    nothing; rows that tie the positive exactly never count (strictly
+    greater), also duplicates of the positive's own row."""
+    rng = np.random.RandomState(5)
+    q, n, d = 70, 300, 64
+    queries = torch.from_numpy(_exact_rows(rng, q, d)).to(cuda)
+    gallery = torch.from_numpy(_exact_rows(rng, n, d)).to(cuda)
+    pos_idx = torch.from_numpy(rng.randint(0, n, q)).to(cuda)
+    gallery[[7, 150, 299]] = gallery[pos_idx[0]].clone()  # ties, query 0
+    gallery[[8, 260]] = queries[1]  # rows that score |q_1|^2 for query 1
+    # the positive scores in the branch's own arithmetic (exact sums)
+    r = ((lambda x: x.to(BF16).float()) if precision == "bfloat16"
+         else (lambda x: x))
+    pos = (r(queries) * r(gallery)[pos_idx]).sum(1)
+    pos[1] = (r(queries[1]) * r(queries[1])).sum()  # query 1's ties
+    kw = dict(precision=precision)
+    none = torch.zeros(n, dtype=torch.bool, device=cuda)
+    got = rankcount_kernel.violation_counts(queries, gallery, pos, none,
+                                            pos_idx, **kw)
+    assert int(got.abs().sum()) == 0
+    out_of_range = pos_idx.clone()
+    out_of_range[::3] = -1
+    out_of_range[1::3] = n + 5
+    for pi in (pos_idx, out_of_range):
+        want = rankcount_kernel.violation_counts_plain(queries, gallery, pos,
+                                                       None, pi, **kw)
+        got = rankcount_kernel.violation_counts(queries, gallery, pos, None,
+                                                pi, **kw)
+        assert torch.equal(got, want)
+    # just below the positive the ties count: they are there
+    got = rankcount_kernel.violation_counts(queries, gallery, pos, None,
+                                            pos_idx, **kw)
+    below = rankcount_kernel.violation_counts(queries, gallery,
+                                              pos - 2.0**-20, None, pos_idx,
+                                              **kw)
+    for i, rows in ((0, {7, 150, 299}), (1, {8, 260})):
+        ties = len(rows - {int(pos_idx[i])})  # the positive's own row: out
+        assert int(below[i]) >= int(got[i]) + ties
+
+
+def test_rankcount_lowp_takes_bf16_operands(cuda):
+    """bf16 queries and gallery, read as they are (also a D that is not a
+    multiple of 8, and an offset view), count the same as their f32
+    copies, in one launch each."""
+    rng = np.random.RandomState(9)
+    for q, n, d in ((65, 257, 64), (70, 300, 36), (130, 1000, 100)):
+        queries = torch.from_numpy(_exact_rows(rng, q, d)).to(cuda).to(BF16)
+        gallery = torch.from_numpy(_exact_rows(rng, n, d)).to(cuda).to(BF16)
+        pos_idx = torch.from_numpy(rng.randint(0, n, q)).to(cuda)
+        pos = (queries.float() * gallery[pos_idx].float()).sum(1)
+        valid = torch.from_numpy(rng.rand(n) > 0.2).to(cuda)
+        flat = torch.empty(n * d + 1, dtype=BF16, device=cuda)
+        offset = flat[1:].view(n, d)  # 2 bytes off 16-byte alignment
+        offset.copy_(gallery)
+        want = rankcount_kernel.violation_counts(
+            queries.float(), gallery.float(), pos, valid, pos_idx,
+            precision="bfloat16")
+        for g in (gallery, offset):
+            cuda_lib.reset_launches()
+            got = rankcount_kernel.violation_counts(
+                queries, g, pos, valid, pos_idx, precision="bfloat16")
+            torch.cuda.synchronize()
+            assert cuda_lib.launches == {("rankcount", "bfloat16", "lowp"): 1}
+            assert torch.equal(got, want)
+    with pytest.raises(TypeError):  # the f32 branch takes f32 only
+        rankcount_kernel.violation_counts(queries, gallery, pos)
+    with pytest.raises(TypeError):
+        rankcount_kernel.violation_counts(queries.half(), gallery.half(), pos,
+                                          precision="bfloat16")
+
+
+@pytest.mark.parametrize("precision", RC_PRECISIONS)
+def test_rankcount_is_bitwise_repeatable(cuda, precision):
+    """Two runs at the serving shape (Q=1024, N=100,000, D=1024) give the
+    same counts, equal to the plain version's on exact rows."""
+    gen = torch.Generator(device=cuda).manual_seed(4)
+
+    def rows(n, d):
+        x = torch.randn(n, d, device=cuda, generator=gen)
+        x /= torch.linalg.vector_norm(x, dim=1, keepdim=True)
+        return torch.round(x * 1024) / 1024
+
+    q, n, d = 1024, 100_000, 1024
+    queries, gallery = rows(q, d), rows(n, d)
+    pos_idx = torch.randint(0, n, (q,), device=cuda, generator=gen)
+    valid = torch.rand(n, device=cuda, generator=gen) > 0.03
+    pos = (queries * gallery[pos_idx]).sum(1)
+    args = (queries, gallery, pos, valid, pos_idx)
+    first = rankcount_kernel.violation_counts(*args, precision=precision)
+    second = rankcount_kernel.violation_counts(*args, precision=precision)
+    assert torch.equal(first, second)
+    want = rankcount_kernel.violation_counts_plain(*args, precision=precision)
+    assert torch.equal(first, want)
+
+
 def _bf16_batch():
     rng = np.random.RandomState(1)
     frames = torch.from_numpy(rng.randn(6, 3, 7, 20).astype(np.float32))
