@@ -30,7 +30,7 @@ Phases (any failure raises and the script exits non-zero):
      on exact-arithmetic rows, inside the near-tie band on random rows,
      Q=1024, N=100,000;
   4. the serving path at full ``cmhse_full`` width (H = E = 1024, batch
-     64, random weights from the seed): encode a 1,024-video synthetic
+     64, random weights from the seed): encode a 512-video synthetic
      gallery, answer 8 text->video and 8 video->text top-10 requests, score
      it with ``validate_metrics(streaming=True)``; the first batch is
      re-encoded on the CPU (plain versions) and must agree; 4b.
@@ -48,9 +48,24 @@ Phases (any failure raises and the script exits non-zero):
      in bf16 (only the bf16 GRU kernels may launch; card vs CPU on four
      batches with the hardest negatives pinned, in the bf16 bands of
      ``tests/test_torch_bf16.py``; how often bf16 changes the picks);
-  6. one JSON line listing each kernel and bf16 variant with its path, its
+  6. the training loop at the same width, f32: 6a. can ``train_steps``
+     (K steps in one CUDA graph) capture and replay the step, against
+     ``train_step`` at batch 8; 6. ``fit`` for 2 epochs over 384
+     correlated synthetic videos (validation of 256 at each epoch's end,
+     snapshots, a best checkpoint; losses, step and validation times,
+     checkpoint seconds, launches per epoch); 6b. a run killed after step 5
+     and resumed from its step-4 snapshot, against the uninterrupted run
+     tensor by tensor; 6c. one epoch at two steps a dispatch against the
+     first run's checkpoint after one epoch;
+     6d. train steps with batches through the prefetch and through
+     pageable copies, timed in turns; 6e. eight steps at lr 1e-3 on phase
+     5's batch from weights drawn with numpy (the card's side of
+     ``scripts/lr_rise_check.py``). Phases 4 and 4c also time the encode
+     through the prefetch against the pageable ``Batch.to`` path, and 4b
+     shows on which stream the host-to-device copies ran;
+  7. one JSON line listing each kernel and bf16 variant with its path, its
      launches there, its error against its plain version, times and bound;
-  7. last line: ``{"ok": true, "device": {...}}``.
+  8. last line: ``{"ok": true, "device": {...}}``.
 
 With no CUDA device it exits with code 1 and prints no result.
 """
@@ -98,6 +113,16 @@ TRAIN_STEPS = 8
 # rise for several steps, so the falling-loss check would test that
 # transient rather than the gradients (PERF.md, Findings).
 TRAIN_LR = 2e-4
+# phase 6: two runs' parameters and Adam moments, tensor by tensor, within
+# this fraction of the tensor's largest entry
+STATE_RTOL = 1e-6
+# phase 6's fit: correlated synthetic videos at the preset's widths
+FIT_TRAIN_VIDEOS = 384  # 6 steps an epoch at batch 64
+FIT_VAL_VIDEOS = 256
+FIT_EPOCHS = 2
+FIT_SNAPSHOT = 4  # snapshot_step
+FIT_KILL_AFTER = 5  # 6b kills the second run after this many steps
+FIT_PIPELINE_STEPS = 6  # 6d's steps a timed window
 ENCODE_ATOL = 1e-4  # card vs CPU embeddings of one full-width batch
 SCORE_ATOL = 1e-4  # served top-k scores vs the gallery embeddings' products
 # Random weights embed every video close to every other (cosines near 1), so
@@ -1184,6 +1209,99 @@ def phase_train_parity_bf16(torch, np, seed: int) -> dict:
                 bf16_vs_f32=n_bf16_f32)
 
 
+def stack_batches(np, batches):
+    """One ``[K, B, ...]`` batch from K host batches of one shape (the
+    loader's grouping for ``steps_per_dispatch`` K)."""
+    import dataclasses
+
+    from cmhse_tpu_torch.data import Batch
+
+    return Batch(**{f.name: np.stack([getattr(b, f.name) for b in batches])
+                    for f in dataclasses.fields(Batch)})
+
+
+def compare_states(torch, a: dict, b: dict) -> dict:
+    """Two train states tensor by tensor, each a ``TrainState.state_dict()``
+    or a checkpoint's payload: every parameter and Adam's two moments.
+    Returns dict(worst=(name, largest |a - b| over the tensor's largest
+    |entry|), bitwise=all equal, max_abs={name: largest |a - b|},
+    steps=(a's step, b's step))."""
+    def tensors(sd):
+        moments = sd["optimizer"]["state"]
+        out = {}
+        for i, (name, p) in enumerate(sd["model"].items()):
+            out[name] = p
+            out[name + " exp_avg"] = moments[i]["exp_avg"]
+            out[name + " exp_avg_sq"] = moments[i]["exp_avg_sq"]
+        return out
+
+    ta, tb = tensors(a), tensors(b)
+    max_abs, rel, bitwise = {}, {}, True
+    for k, x in ta.items():
+        y = tb[k].to(x.device)
+        d = (x.float() - y.float()).abs().max().item()
+        max_abs[k] = d
+        rel[k] = d / max(x.float().abs().max().item(), 1e-30)
+        bitwise &= bool(torch.equal(x, y))
+    worst = max(rel, key=rel.get)
+    return dict(worst=(worst, rel[worst]), bitwise=bitwise, max_abs=max_abs,
+                steps=(int(a["step"]), int(b["step"])))
+
+
+def phase_graph_probe(torch, np, seed: int) -> dict:
+    """6a: can one train step be captured in a CUDA graph on this card?
+    ``train_steps`` over two stacked batches of 8 videos at full width,
+    dispatched twice (the first runs eagerly and captures, the second
+    replays the graph), against four ``train_step``s from the same
+    weights: every parameter and Adam moment within STATE_RTOL of its
+    largest entry."""
+    import dataclasses
+
+    from cmhse_tpu_torch.config import get_preset
+    from cmhse_tpu_torch.data import (SyntheticHierarchicalDataset,
+                                      batches_from_dataset)
+    from cmhse_tpu_torch.models import CMHSE
+    from cmhse_tpu_torch.train import (create_train_state, train_step,
+                                       train_steps)
+
+    cfg = get_preset("cmhse_full")
+    dc = dataclasses.replace(cfg.data, batch_size=8)
+    ds = SyntheticHierarchicalDataset(
+        num_videos=16, feat_dim=dc.feat_dim, vocab_size=dc.vocab_size,
+        max_clips=dc.max_clips, max_frames=dc.max_frames,
+        max_words=dc.max_words, seed=seed + 3)
+    host = list(batches_from_dataset(ds, dc, shuffle=False))
+    stacked = stack_batches(np, host)
+    states = {}
+    for mode in ("graph", "eager"):
+        model = CMHSE(cfg.model, dc.vocab_size,
+                      generator=torch.Generator().manual_seed(seed))
+        state = create_train_state(cfg, model)
+        losses = []
+        for _ in range(2):
+            if mode == "graph":
+                state, m = train_steps(state, stacked, cfg.loss)
+                losses += m["loss"].tolist()
+            else:
+                for b in host:
+                    state, m = train_step(state, b, cfg.loss)
+                    losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        states[mode] = state
+        log(f"  {mode}: losses {losses}")
+    cmp = compare_states(torch, states["graph"].state_dict(),
+                         states["eager"].state_dict())
+    log(f"  train_steps (K=2) replayed a graph {states['graph'].graph_replays}"
+        f" time(s); against 4 train_steps: steps {cmp['steps']}, bitwise "
+        f"equal {cmp['bitwise']}, worst {cmp['worst'][0]} "
+        f"{cmp['worst'][1]:.3g} of its largest entry (limit {STATE_RTOL})")
+    if states["graph"].graph_replays != 1:
+        raise AssertionError("train_steps did not replay its graph")
+    if not cmp["worst"][1] <= STATE_RTOL or cmp["steps"] != (4, 4):
+        raise AssertionError("the graph's steps differ from train_step's")
+    return cmp
+
+
 def serve(torch, np, model, batches, qb, picks) -> dict:
     """Encode -> serve both directions -> validate, with the checks of the
     served answers: encode the gallery (``encode_gallery_device``), answer
@@ -1433,18 +1551,26 @@ def phase_serving_bf16(torch, np, f32: dict) -> dict:
     return dict(counts=counts, model=model, batches=batches)
 
 
-def phase_breakdown(torch, model, batches) -> None:
-    """Where the encode's device time goes: torch.profiler over two
-    full-width batches, device time summed by kernel family."""
-    from torch.profiler import ProfilerActivity, profile
-
+def encode_pageable(torch, model, batches):
+    """The encode as it ran before the prefetch: each batch copied from
+    pageable host memory by ``Batch.to`` on the compute stream, then
+    encoded."""
     from cmhse_tpu_torch.eval.encode import encode_batch
+
+    out = [encode_batch(model, b) for b in batches]
+    return torch.cat([o[0] for o in out]), torch.cat([o[1] for o in out])
+
+
+def profile_families(torch, fn) -> dict:
+    """torch.profiler over ``fn()``: wall and device-busy ms, device time
+    by kernel family, and the streams the host-to-device copies and the
+    ``gru_fwd`` kernels ran on (None where the profiler gives no stream)."""
+    from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for b in batches[:2]:
-            encode_batch(model, b)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     families = {"gru_fwd": 0.0, "host-to-device copy": 0.0,
@@ -1462,13 +1588,88 @@ def phase_breakdown(torch, model, batches) -> None:
             families["matrix products"] += us
         else:
             families["other kernels"] += us
+    streams = {"copy": set(), "gru_fwd": set()}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        sid = getattr(e, "device_resource_id", None)
+        if e.name.startswith("Memcpy HtoD"):
+            streams["copy"].add(sid)
+        elif "gru_fwd" in e.name:
+            streams["gru_fwd"].add(sid)
     busy_ms = sum(families.values()) / 1e3
     if busy_ms <= 0:
         raise AssertionError("the profiler recorded no device time")
-    log(f"  2 batches: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms "
-        f"({100 * busy_ms / wall_ms:.1f}%)")
-    for name, us in families.items():
-        log(f"    {name}: {us / 1e3:.3f} ms ({100 * us / 1e3 / busy_ms:.1f}%)")
+    return dict(wall_ms=wall_ms, busy_ms=busy_ms, families=families,
+                streams=streams)
+
+
+def phase_breakdown(torch, model, batches) -> None:
+    """Where the encode's device time goes: torch.profiler over two
+    full-width batches through ``encode_gallery_device`` (the prefetch),
+    device time summed by kernel family; in brackets the same two batches
+    through the pageable ``Batch.to`` path. Checks that the prefetch's
+    host-to-device copies left the compute stream."""
+    from cmhse_tpu_torch.eval import encode_gallery_device
+
+    runs = {"prefetch": profile_families(
+                torch, lambda: encode_gallery_device(model, batches[:2])),
+            "pageable": profile_families(
+                torch, lambda: encode_pageable(torch, model, batches[:2]))}
+    new, old = runs["prefetch"], runs["pageable"]
+    log(f"  2 batches: wall {new['wall_ms']:.3f} ms [{old['wall_ms']:.3f}], "
+        f"device busy {new['busy_ms']:.3f} ms [{old['busy_ms']:.3f}] "
+        f"({100 * new['busy_ms'] / new['wall_ms']:.1f}% "
+        f"[{100 * old['busy_ms'] / old['wall_ms']:.1f}%])")
+    for name, us in new["families"].items():
+        was = old["families"][name]
+        log(f"    {name}: {us / 1e3:.3f} ms "
+            f"({100 * us / 1e3 / new['busy_ms']:.1f}%) [{was / 1e3:.3f} ms, "
+            f"{100 * was / 1e3 / old['busy_ms']:.1f}%]")
+    for label, run in runs.items():
+        st = run["streams"]
+        known = None not in st["copy"] | st["gru_fwd"]
+        shared = bool(st["copy"] & st["gru_fwd"]) if known else None
+        log(f"  {label}: host-to-device copies on stream(s) "
+            f"{sorted(map(str, st['copy']))}, gru_fwd on "
+            f"{sorted(map(str, st['gru_fwd']))}: the copy "
+            + ("sits on the compute stream" if shared else
+               "is off the compute stream" if known else
+               "stream not reported by the profiler"))
+        if label == "prefetch" and shared:
+            raise AssertionError("the prefetch's copies ran on the compute "
+                                 "stream")
+
+
+def phase_encode_pipeline(torch, np, model, batches) -> dict:
+    """The whole gallery's encode through the prefetch
+    (``encode_gallery_device``) and through the pageable ``Batch.to`` path,
+    timed in turns (pageable, prefetch, prefetch, pageable) on the same
+    batches; the embeddings of the two paths must be equal."""
+    from cmhse_tpu_torch.eval import encode_gallery_device
+
+    n = sum(int(np.asarray(b.valid).sum()) for b in batches)
+    rates = {"prefetch": [], "pageable": []}
+    outs = {}
+    for label in ("pageable", "prefetch", "prefetch", "pageable"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = (encode_gallery_device(model, batches)[:2]
+               if label == "prefetch" else
+               encode_pageable(torch, model, batches))
+        torch.cuda.synchronize()
+        rates[label].append(n / (time.perf_counter() - t0))
+        outs[label] = out
+    same = all(torch.equal(a, b) for a, b in zip(outs["prefetch"],
+                                                 outs["pageable"]))
+    new, old = (float(np.mean(rates[k])) for k in ("prefetch", "pageable"))
+    log(f"  encode {n} videos: prefetch {new:.1f} videos/s (turns "
+        f"{rates['prefetch'][0]:.1f}, {rates['prefetch'][1]:.1f}) "
+        f"[pageable {old:.1f}: {rates['pageable'][0]:.1f}, "
+        f"{rates['pageable'][1]:.1f}]; embeddings equal: {same}")
+    if not same:
+        raise AssertionError("the prefetch changed the embeddings")
+    return dict(prefetch=new, pageable=old)
 
 
 def phase_topk(torch, rng) -> None:
@@ -1534,10 +1735,296 @@ def phase_topk(torch, rng) -> None:
         torch.cuda.empty_cache()
 
 
+class patched:
+    """Set ``obj.name = value`` for the ``with`` block, then restore it."""
+
+    def __init__(self, obj, name: str, value) -> None:
+        self.obj, self.name, self.value = obj, name, value
+
+    def __enter__(self):
+        self.saved = getattr(self.obj, self.name)
+        setattr(self.obj, self.name, self.value)
+
+    def __exit__(self, *exc) -> None:
+        setattr(self.obj, self.name, self.saved)
+
+
+class Killed(RuntimeError):
+    """Phase 6's simulated kill: the process dies mid-epoch, with no chance
+    to run the end-of-epoch save."""
+
+
+def fit_datasets(seed: int):
+    """Phase 6's data at the preset's widths: correlated synthetic train and
+    validation splits (one topic space, disjoint videos), each drawn once
+    into a list of examples (set-up): the runs then pay for padding the
+    batches, as a loader over stored features would, not for drawing
+    random frames again each epoch."""
+    from cmhse_tpu_torch.config import get_preset
+    from cmhse_tpu_torch.data import CorrelatedSyntheticDataset
+
+    dc = get_preset("cmhse_full").data
+
+    def make(n, s):
+        return CorrelatedSyntheticDataset(
+            num_videos=n, feat_dim=dc.feat_dim, vocab_size=dc.vocab_size,
+            max_clips=dc.max_clips, max_frames=dc.max_frames,
+            max_words=dc.max_words, seed=s)
+
+    t0 = time.perf_counter()
+    out = tuple([ds[i] for i in range(len(ds))] for ds in (
+        make(FIT_TRAIN_VIDEOS, seed), make(FIT_VAL_VIDEOS, seed + 1)))
+    log(f"  {FIT_TRAIN_VIDEOS} + {FIT_VAL_VIDEOS} synthetic videos drawn "
+        f"(host): {time.perf_counter() - t0:.3f} s")
+    return out
+
+
+def fit_config(seed: int, ckpt_dir: str, **train):
+    """cmhse_full at its published widths with phase 6's schedule."""
+    import dataclasses
+
+    from cmhse_tpu_torch.config import get_preset
+
+    cfg = get_preset("cmhse_full")
+    over = dict(num_epochs=FIT_EPOCHS, lr_update=1, val_step=0,
+                snapshot_step=FIT_SNAPSHOT, log_step=1, seed=seed,
+                checkpoint_dir=ckpt_dir)
+    over.update(train)
+    return cfg.replace(train=dataclasses.replace(cfg.train, **over))
+
+
+def jsonl(path: str, event: str) -> list:
+    with open(path) as f:
+        return [e for e in map(json.loads, f) if e["event"] == event]
+
+
+def phase_fit(torch, np, seed: int, train_ds, val_ds) -> dict:
+    """6: ``fit`` at full cmhse_full width, f32, on the card: FIT_EPOCHS
+    epochs of FIT_TRAIN_VIDEOS correlated synthetic videos (batch 64),
+    validating FIT_VAL_VIDEOS at each epoch's end, a snapshot every
+    FIT_SNAPSHOT steps, lr decay each epoch. Then 6b: a second run killed
+    after step FIT_KILL_AFTER and resumed from its last snapshot, held
+    against the first tensor by tensor; 6c: one epoch at two steps a
+    dispatch (train_steps, a CUDA graph) against the first run's
+    checkpoint after its first epoch.
+    Checkpoints go to a temporary directory, removed at the end."""
+    import os
+    import shutil
+    import tempfile
+
+    import cmhse_tpu_torch.train.loop as loop_mod
+    from cmhse_tpu_torch.ops import cuda_lib
+    from cmhse_tpu_torch.train.checkpoint import CheckpointManager
+
+    root = tempfile.mkdtemp(prefix="cmhse_fit_")
+    real_step, real_val = loop_mod.train_step, loop_mod.validate_metrics
+    real_save = CheckpointManager.save
+    timings = {"step": [], "val": [], "save": []}
+
+    def timed_step(state, batch, loss_cfg):
+        t0 = time.perf_counter()
+        out = real_step(state, batch, loss_cfg)
+        torch.cuda.synchronize()
+        timings["step"].append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def timed_val(*a, **kw):
+        t0 = time.perf_counter()
+        m = real_val(*a, **kw)
+        torch.cuda.synchronize()
+        timings["val"].append((time.perf_counter() - t0, m["rsum"]))
+        return m
+
+    def timed_save(self, *a, **kw):
+        t0 = time.perf_counter()
+        real_save(self, *a, **kw)
+        timings["save"].append(time.perf_counter() - t0)
+
+    try:
+        cfg_a = fit_config(seed, os.path.join(root, "a"))
+        log(f"  {FIT_TRAIN_VIDEOS} train / {FIT_VAL_VIDEOS} validation "
+            f"videos (CorrelatedSyntheticDataset), batch "
+            f"{cfg_a.data.batch_size}, {FIT_EPOCHS} epochs, lr "
+            f"{cfg_a.train.lr} decay x{cfg_a.train.lr_decay} each epoch, "
+            f"snapshot every {FIT_SNAPSHOT} steps, seed {seed}")
+        with patched(loop_mod, "train_step", timed_step), \
+                patched(loop_mod, "validate_metrics", timed_val), \
+                patched(CheckpointManager, "save", timed_save):
+            cuda_lib.reset_launches()
+            t0 = time.perf_counter()
+            state_a, best = loop_mod.fit(cfg_a, train_ds, val_ds)
+            t_fit = time.perf_counter() - t0
+            counts = launch_counts()
+        log_path = os.path.join(cfg_a.train.checkpoint_dir, "log.jsonl")
+        steps = jsonl(log_path, "train_step")
+        losses = [e["loss"] for e in steps]
+        epochs = jsonl(log_path, "epoch_end")
+        ckpt_dir = os.path.join(cfg_a.train.checkpoint_dir, "ckpt")
+        best_payload = torch.load(os.path.join(cfg_a.train.checkpoint_dir,
+                                               "best"), weights_only=True)
+        size = os.path.getsize(os.path.join(ckpt_dir, str(state_a.step)))
+        log(f"  fit: {t_fit:.2f} s, {state_a.step} steps; median step "
+            f"{float(np.median(timings['step'])):.3f} ms (first "
+            f"{timings['step'][0]:.3f}); seconds per epoch "
+            + ", ".join(f"{e['seconds']:.3f}" for e in epochs))
+        log("  losses: " + json.dumps(losses))
+        log("  validations: " + ", ".join(
+            f"{t:.3f} s rsum {r:.2f}" for t, r in timings["val"])
+            + f"; best rsum {best:.2f}, best checkpoint at step "
+            f"{best_payload['step']} (epoch {best_payload['epoch']})")
+        log(f"  checkpoints: {len(timings['save'])} saves, "
+            f"{sum(timings['save']):.2f} s in all ({size / 2**30:.3f} GiB a "
+            f"file); kept steps {sorted(map(int, os.listdir(ckpt_dir)))}")
+        per_epoch = {k: v / FIT_EPOCHS for k, v in counts.items()}
+        log(f"  launches per epoch (steps and validation): {per_epoch}")
+        if len(losses) != state_a.step or not all(np.isfinite(losses)):
+            raise AssertionError(f"fit's losses {losses}")
+        if not (np.isfinite(best) and len(timings["val"]) == FIT_EPOCHS):
+            raise AssertionError("fit's validations")
+        if len(os.listdir(ckpt_dir)) > 3:
+            raise AssertionError("more than three checkpoints kept")
+        for k in ("gru_fwd float32 save_gates", "gru_bwd float32 zero_h0",
+                  "simhinge float32 pair"):
+            if counts.get(k, 0) <= 0:
+                raise AssertionError(f"{k} was not launched by fit")
+
+        # 6b: kill after step FIT_KILL_AFTER, resume from the snapshot
+        calls = {"n": 0}
+
+        def killer(state, batch, loss_cfg):
+            if calls["n"] >= FIT_KILL_AFTER:
+                raise Killed()
+            calls["n"] += 1
+            return real_step(state, batch, loss_cfg)
+
+        cfg_b = fit_config(seed, os.path.join(root, "b"))
+        with patched(loop_mod, "train_step", killer):
+            try:
+                loop_mod.fit(cfg_b, train_ds, val_ds)
+                raise AssertionError("the run was not killed")
+            except Killed:
+                pass
+        mgr = CheckpointManager(cfg_b.train.checkpoint_dir)
+        snap = torch.load(os.path.join(mgr.ckpt_dir, str(mgr.latest_step())),
+                          weights_only=True)
+        log(f"  killed after step {FIT_KILL_AFTER}: last snapshot step "
+            f"{snap['step']}, epoch {snap['epoch']}, {snap['groups_done']} "
+            f"groups done")
+        if (snap["step"], snap["epoch"], snap["groups_done"]) != \
+                (FIT_SNAPSHOT, 0, FIT_SNAPSHOT):
+            raise AssertionError("the snapshot is not where it should be")
+        t0 = time.perf_counter()
+        cfg_r = fit_config(seed, cfg_b.train.checkpoint_dir,
+                           resume=cfg_b.train.checkpoint_dir)
+        state_b, _ = loop_mod.fit(cfg_r, train_ds, val_ds)
+        resume_cmp = compare_states(torch, state_a.state_dict(),
+                                    state_b.state_dict())
+        log(f"  resumed run: {time.perf_counter() - t0:.2f} s; against the "
+            f"uninterrupted run: steps {resume_cmp['steps']}, bitwise equal "
+            f"{resume_cmp['bitwise']}, worst {resume_cmp['worst'][0]} "
+            f"{resume_cmp['worst'][1]:.3g} of its largest entry (limit "
+            f"{STATE_RTOL})")
+        log("  max abs difference per tensor: "
+            + json.dumps(resume_cmp["max_abs"]))
+        if resume_cmp["worst"][1] > STATE_RTOL or \
+                resume_cmp["steps"][0] != resume_cmp["steps"][1]:
+            raise AssertionError("the resumed run differs")
+        del state_b
+
+        # 6c: one epoch at two steps a dispatch against the first run's
+        # checkpoint after its first epoch (step 6: validation and
+        # snapshots change no weight)
+        cfg_d = fit_config(seed, os.path.join(root, "spd2"), num_epochs=1,
+                           snapshot_step=0, steps_per_dispatch=2)
+        t0 = time.perf_counter()
+        state_d, _ = loop_mod.fit(cfg_d, train_ds, None)
+        after_one = torch.load(os.path.join(ckpt_dir, str(state_d.step)),
+                               weights_only=True,
+                               map_location=state_d.model.device)
+        spd_cmp = compare_states(torch, after_one, state_d.state_dict())
+        log(f"  one epoch at two steps a dispatch: "
+            f"{time.perf_counter() - t0:.2f} s, graph replays "
+            f"{state_d.graph_replays}; against the first run's step-"
+            f"{state_d.step} checkpoint: steps {spd_cmp['steps']}, bitwise "
+            f"equal {spd_cmp['bitwise']}, worst {spd_cmp['worst'][0]} "
+            f"{spd_cmp['worst'][1]:.3g} of its largest entry (limit "
+            f"{STATE_RTOL})")
+        log("  max abs difference per tensor: "
+            + json.dumps(spd_cmp["max_abs"]))
+        if spd_cmp["worst"][1] > STATE_RTOL or state_d.graph_replays <= 0 \
+                or spd_cmp["steps"][0] != spd_cmp["steps"][1]:
+            raise AssertionError("train_steps differs from train_step")
+        del state_d, state_a
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return dict(counts=counts, step_ms=float(np.median(timings["step"])))
+
+
+def phase_step_pipeline(torch, np, seed: int, train_ds) -> dict:
+    """6d: train steps at full width with their batches through the
+    prefetch (the loop's way) and through the pageable ``Batch.to`` path,
+    on the same FIT_PIPELINE_STEPS host batches, timed in turns (pageable,
+    prefetch, prefetch, pageable) after one untimed prefetch pass; a
+    window's ms a step is its wall time over its steps, one
+    synchronisation at its end."""
+    from cmhse_tpu_torch.config import get_preset
+    from cmhse_tpu_torch.data import Prefetcher, batches_from_dataset
+    from cmhse_tpu_torch.models import CMHSE
+    from cmhse_tpu_torch.train import create_train_state, train_step
+
+    cfg = get_preset("cmhse_full")
+    n = FIT_PIPELINE_STEPS * cfg.data.batch_size
+    host = list(batches_from_dataset(train_ds[:n], cfg.data, shuffle=False))
+    model = CMHSE(cfg.model, cfg.data.vocab_size,
+                  generator=torch.Generator().manual_seed(seed))
+    state = create_train_state(cfg, model)
+    pre = Prefetcher(model.device)
+
+    def window(label: str) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if label == "prefetch":
+            for _, b in pre(host):
+                train_step(state, b, cfg.loss)
+        else:
+            for b in host:
+                train_step(state, b, cfg.loss)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / len(host)
+
+    window("prefetch")
+    ms = {"prefetch": [], "pageable": []}
+    for label in ("pageable", "prefetch", "prefetch", "pageable"):
+        ms[label].append(window(label))
+    new, old = (float(np.mean(ms[k])) for k in ("prefetch", "pageable"))
+    log(f"  {len(host)} steps a window: prefetch {new:.3f} ms a step (turns "
+        f"{ms['prefetch'][0]:.3f}, {ms['prefetch'][1]:.3f}) [pageable "
+        f"{old:.3f}: {ms['pageable'][0]:.3f}, {ms['pageable'][1]:.3f}]")
+    return dict(prefetch=new, pageable=old)
+
+
+def phase_lr_check(torch, np, seed: int) -> list:
+    """6e: the card's side of ``scripts/lr_rise_check.py``: phase 5's
+    batch, weights drawn with numpy from the seed (the same on every
+    machine), eight steps at lr 1e-3."""
+    sys.path.insert(0, str(ROOT / "scripts"))
+    import lr_rise_check
+
+    cfg, batch, weights = lr_rise_check.setup(seed)
+    losses = lr_rise_check.run_port(cfg, batch, weights, "cuda")
+    log("  " + json.dumps({"run": "port, card", "lr": lr_rise_check.LR,
+                           "losses": losses}))
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite losses {losses}")
+    return losses
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--videos", type=int, default=1024,
+    # 512 keeps the whole script, phase 6 included, inside the two minutes
+    # it is held to on a busy host
+    ap.add_argument("--videos", type=int, default=512,
                     help="synthetic gallery size of the serving path")
     args = ap.parse_args()
     t_start = time.perf_counter()
@@ -1645,14 +2132,18 @@ def main() -> int:
     phase("phase 4: serving path at full cmhse_full width")
     main_out = phase_main_path(torch, np, args.seed, args.videos)
     counts = main_out["counts"]
-    phase("phase 4b: where the encode's device time goes (torch.profiler)")
+    phase_encode_pipeline(torch, np, main_out["model"], main_out["batches"])
+    phase("phase 4b: where the encode's device time goes (torch.profiler; "
+          "the pageable path in brackets)")
     phase_breakdown(torch, main_out["model"], main_out["batches"])
     phase("phase 4c: serving path in bf16 (dtype and feature_dtype "
           "bfloat16), same weights and batches")
     bf16_serve = phase_serving_bf16(torch, np, main_out)
     bf16_counts = bf16_serve["counts"]
+    phase_encode_pipeline(torch, np, bf16_serve["model"],
+                          bf16_serve["batches"])
     phase("phase 4c: where the bf16 encode's device time goes "
-          "(torch.profiler)")
+          "(torch.profiler; the pageable path in brackets)")
     phase_breakdown(torch, bf16_serve["model"], bf16_serve["batches"])
     del main_out, bf16_serve
     phase(f"phase 5: training path at full cmhse_full width ({TRAIN_STEPS} "
@@ -1676,6 +2167,19 @@ def main() -> int:
     del bf16_train
     phase("phase 5d: one bf16 train step at batch 8, card vs CPU")
     phase_train_parity_bf16(torch, np, args.seed)
+    phase("phase 6a: can a train step be captured in a CUDA graph? "
+          "(train_steps, K=2, batch 8, against train_step)")
+    phase_graph_probe(torch, np, args.seed)
+    phase(f"phase 6: fit at full cmhse_full width, f32 ({FIT_EPOCHS} epochs; "
+          "6b kill and resume; 6c two steps a dispatch)")
+    train_ds, val_ds = fit_datasets(args.seed)
+    fit_out = phase_fit(torch, np, args.seed, train_ds, val_ds)
+    fcounts = fit_out["counts"]
+    phase("phase 6d: train steps with the prefetch and with pageable copies")
+    phase_step_pipeline(torch, np, args.seed, train_ds)
+    phase("phase 6e: phase 5's batch, numpy-drawn weights, lr 1e-3 "
+          "(scripts/lr_rise_check.py's card run)")
+    phase_lr_check(torch, np, args.seed)
 
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith(("jax.", "cmhse_tpu.")))
@@ -1697,19 +2201,28 @@ def main() -> int:
     k4 = "cmhse_tpu/ops/pallas_sim.py:286"
     entries = [
         entry("gru_fwd", "gru_fwd.cu", k1, gru_rows + fwd_rows,
-              "serve+train", total(counts, "gru_fwd float32")
-              + total(tcounts, "gru_fwd float32"),
+              "serve+train+fit", total(counts, "gru_fwd float32")
+              + total(tcounts, "gru_fwd float32")
+              + total(fcounts, "gru_fwd float32"),
               launches_by_path={"serve": total(counts, "gru_fwd"),
-                                "train": total(tcounts, "gru_fwd")},
+                                "train": total(tcounts, "gru_fwd"),
+                                "fit": total(fcounts, "gru_fwd")},
               launches_train_by_variant={
-                  k: n for k, n in tcounts.items() if k.startswith("gru_fwd")}),
-        entry("gru_bwd", "gru_bwd.cu", k2, bwd_rows, "train",
-              total(tcounts, "gru_bwd float32")),
+                  k: n for k, n in tcounts.items() if k.startswith("gru_fwd")},
+              launches_fit_by_variant={k: n for k, n in fcounts.items()
+                                       if k.startswith("gru_fwd")}),
+        entry("gru_bwd", "gru_bwd.cu", k2, bwd_rows, "train+fit",
+              total(tcounts, "gru_bwd float32")
+              + total(fcounts, "gru_bwd float32"),
+              launches_by_path={"train": total(tcounts, "gru_bwd"),
+                                "fit": total(fcounts, "gru_bwd")}),
         entry("simhinge", "simhinge.cu", "cmhse_tpu/ops/pallas_sim.py:58",
-              sh_rows, "train",
-              total(tcounts, "simhinge") + total(bcounts, "simhinge"),
+              sh_rows, "train+fit",
+              total(tcounts, "simhinge") + total(bcounts, "simhinge")
+              + total(fcounts, "simhinge"),
               launches_by_path={"train": total(tcounts, "simhinge"),
-                                "train bf16": total(bcounts, "simhinge")},
+                                "train bf16": total(bcounts, "simhinge"),
+                                "fit": total(fcounts, "simhinge")},
               ms_from="CUDA-graph replay of one call (graph_ms)",
               call_ms=sh_rows[0]["call_ms"]),
         entry("rankcount", "rankcount.cu", k4, rc_rows, "serve+train",

@@ -3,8 +3,10 @@
 Shapes are static per bucket; raggedness lives in the length fields and
 padding rows of a short batch are flagged by ``valid``. The loader builds
 batches of numpy arrays on the host; :meth:`Batch.to` moves them to a torch
-device. bf16 ``frames`` are already a CPU ``torch.bfloat16`` tensor on the
-host (see :func:`cmhse_tpu_torch.data.bucketing.pad_batch`).
+device, and :meth:`Batch.pin_memory` puts them in page-locked host memory
+first, so that a ``non_blocking`` copy runs asynchronously. bf16 ``frames``
+are already a CPU ``torch.bfloat16`` tensor on the host (see
+:func:`cmhse_tpu_torch.data.bucketing.pad_batch`).
 """
 
 from __future__ import annotations
@@ -70,9 +72,21 @@ class Batch:
         """bool[B, Smax] — which sentence slots are real."""
         return self._slots_valid(self.words.shape[1], self.sent_len)
 
-    def to(self, device: str | torch.device) -> "Batch":
-        """The same batch as torch tensors on ``device`` (dtypes kept)."""
+    def to(self, device: str | torch.device,
+           non_blocking: bool = False) -> "Batch":
+        """The same batch as torch tensors on ``device`` (dtypes kept). A
+        field already on ``device`` is passed through, not copied; numpy
+        fields become CPU tensors that share their memory. ``non_blocking``
+        lets a copy from pinned memory run asynchronously."""
         return Batch(**{
-            f.name: torch.as_tensor(getattr(self, f.name)).to(device)
+            f.name: torch.as_tensor(getattr(self, f.name)).to(
+                device, non_blocking=non_blocking)
+            for f in dataclasses.fields(self)
+        })
+
+    def pin_memory(self) -> "Batch":
+        """The same batch as CPU tensors in page-locked memory."""
+        return Batch(**{
+            f.name: torch.as_tensor(getattr(self, f.name)).pin_memory()
             for f in dataclasses.fields(self)
         })

@@ -1,0 +1,106 @@
+"""Host-to-device batch pipeline, counterpart of ``_prefetch`` in
+``cmhse_tpu/train/loop.py`` (``device_put`` is asynchronous there, so the
+next batches move while the current step runs).
+
+On a CUDA device each batch is staged in a ring of ``LOOKAHEAD + 1``
+page-locked host buffers, reused from batch to batch, and copied with
+``non_blocking`` copies on one side stream, ``LOOKAHEAD`` batches ahead of
+the consumer (two, as in the JAX loop). The consumer's stream waits on an
+event recorded after each batch's copies (a device-side wait: the host
+does not block), and each device tensor is marked with ``record_stream``
+so that the caching allocator does not hand its memory out again while
+that stream may still read it. Before a pinned buffer is refilled, the
+host waits for the copy that last read from it.
+
+On the CPU the batches are handed over as they are: there is nothing to
+copy, and :meth:`Batch.to` on the CPU shares the numpy arrays' memory.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from collections import deque
+from typing import Callable, Iterable, Iterator
+
+import torch
+
+from cmhse_tpu_torch.data.batch import Batch
+
+FIELDS = tuple(f.name for f in dataclasses.fields(Batch))
+LOOKAHEAD = 2
+
+
+def _identity(item):
+    return item
+
+
+class _PinnedSlot:
+    """One host staging buffer a field, grown as needed and reused, and
+    the event of the copy that last read from it."""
+
+    def __init__(self) -> None:
+        self.buffers: dict[str, torch.Tensor] = {}
+        self.event: torch.cuda.Event | None = None
+
+    def fill(self, batch: Batch) -> dict[str, torch.Tensor]:
+        if self.event is not None:
+            self.event.synchronize()  # the last copy out of it has ended
+        out = {}
+        for name in FIELDS:
+            src = torch.as_tensor(getattr(batch, name))
+            buf = self.buffers.get(name)
+            if buf is None or buf.dtype != src.dtype or \
+                    buf.numel() < src.numel():
+                buf = torch.empty(src.numel(), dtype=src.dtype,
+                                  pin_memory=True)
+                self.buffers[name] = buf
+            view = buf[:src.numel()].view(src.shape)
+            view.copy_(src)
+            out[name] = view
+        return out
+
+
+class Prefetcher:
+    """Batches to ``device``, LOOKAHEAD ahead, through pinned buffers (see
+    the module docstring). One object keeps its ring and its copy stream
+    across calls, so a training run pins its buffers once."""
+
+    def __init__(self, device: str | torch.device) -> None:
+        self.device = torch.device(device)
+        self.slots = [_PinnedSlot() for _ in range(LOOKAHEAD + 1)]
+        self.stream: torch.cuda.Stream | None = None  # made on first use
+
+    def __call__(self, items: Iterable,
+                 batch_of: Callable[..., Batch] = _identity
+                 ) -> Iterator[tuple]:
+        """Yield ``(item, batch)`` for each of ``items``, where ``batch`` is
+        ``batch_of(item)`` (a host :class:`Batch`) on the device, ready for
+        use on the current stream."""
+        if self.device.type != "cuda":
+            for item in items:
+                yield item, batch_of(item)
+            return
+        if self.stream is None:
+            self.stream = torch.cuda.Stream(self.device)
+        queue: deque = deque()
+        for i, item in enumerate(items):
+            slot = self.slots[i % len(self.slots)]
+            pinned = slot.fill(batch_of(item))
+            with torch.cuda.stream(self.stream):
+                placed = {k: v.to(self.device, non_blocking=True)
+                          for k, v in pinned.items()}
+                slot.event = torch.cuda.Event()
+                slot.event.record(self.stream)
+            queue.append((item, placed, slot.event))
+            if len(queue) >= LOOKAHEAD:
+                yield self._hand_over(*queue.popleft())
+        while queue:
+            yield self._hand_over(*queue.popleft())
+
+    def _hand_over(self, item, placed: dict, event: torch.cuda.Event):
+        compute = torch.cuda.current_stream(self.device)
+        compute.wait_event(event)
+        for t in placed.values():
+            t.record_stream(compute)
+        return item, Batch(**placed)
+

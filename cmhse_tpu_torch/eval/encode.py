@@ -5,7 +5,9 @@ Two paths:
     copied to numpy and padded rows dropped (offline analysis, export);
   * :func:`encode_gallery_device` — the serving and evaluation path:
     embeddings stay on the model's device, padded rows stay in place and
-    are flagged by ``valid``.
+    are flagged by ``valid``; batches reach the card through
+    :class:`~cmhse_tpu_torch.data.prefetch.Prefetcher` (pinned buffers, copies on a side
+    stream, overlapping the encode).
 
 Both run on the model's device (the card unless the model was made on the
 CPU) under ``torch.inference_mode``.
@@ -17,13 +19,14 @@ import numpy as np
 import torch
 
 from cmhse_tpu_torch.data.batch import Batch
+from cmhse_tpu_torch.data.prefetch import Prefetcher
 from cmhse_tpu_torch.models.cmhse import CMHSE
 
 
 @torch.inference_mode()
 def encode_batch(model: CMHSE, batch: Batch):
     """(video_emb, para_emb, clip_emb, sent_emb) of one batch, on the
-    model's device."""
+    model's device (a batch already there is not copied)."""
     b = batch.to(model.device)
     v, clip = model.encode_video(b.frames, b.frame_len, b.clip_len)
     p, sent = model.encode_text(b.words, b.word_len, b.sent_len)
@@ -69,17 +72,17 @@ def encode_gallery_device(model: CMHSE, batches, return_ids: bool = False):
     ``video_ids`` int32[Np], used by serving to map rows back to keys.
     """
     v_all, p_all, valid_all, ids_all = [], [], [], []
-    for batch in batches:
+    for host, batch in Prefetcher(model.device)(batches):
+        batch = batch.to(model.device)  # on the CPU: numpy -> tensors
         v, p, _, _ = encode_batch(model, batch)
         v_all.append(v)
         p_all.append(p)
-        valid_all.append(torch.as_tensor(np.asarray(batch.valid)))
+        valid_all.append(batch.valid)
         if return_ids:
-            ids_all.append(np.asarray(batch.video_ids))
+            ids_all.append(np.asarray(host.video_ids))
     if not v_all:
         raise ValueError("no batches to encode (empty split)")
-    out = (torch.cat(v_all), torch.cat(p_all),
-           torch.cat(valid_all).to(model.device))
+    out = (torch.cat(v_all), torch.cat(p_all), torch.cat(valid_all))
     if return_ids:
         return out + (np.concatenate(ids_all),)
     return out

@@ -154,7 +154,7 @@ class FusedContrastiveLoss(torch.autograd.Function):
     """The max-violation loss of :func:`cmhse_tpu_torch.ops.loss.
     contrastive_loss` from one :func:`simhinge_pair` call; the backward
     is ``_loss_bwd`` of the JAX package: gathers and a scatter-add by the
-    saved argmaxes, O(B * D)."""
+    saved argmaxes, O(B * D), repeatable bit for bit on the card."""
 
     @staticmethod
     def forward(ctx, emb_a, emb_b, neg_mask, valid, margin):
@@ -184,10 +184,14 @@ class FusedContrastiveLoss(torch.autograd.Function):
         row_arg, col_arg = row_arg.long(), col_arg.long()
         # dS: row term +1 at (i, row_arg[i]) and -1 at (i, i); column term
         # +1 at (col_arg[j], j) and -1 at (j, j). dA = dS B, dB = dS^T A.
+        # The scatter-adds accumulate with index_put_, which sums duplicate
+        # indices in a fixed order on the card too (index_add_ there adds
+        # them with atomics, in whatever order they land: the step would
+        # not repeat bit for bit); on the CPU both add in index order.
         d_a = act_r * (b32.index_select(0, row_arg) - b32) - act_c * b32
-        d_a.index_add_(0, col_arg, act_c * b32)
+        d_a.index_put_((col_arg,), act_c * b32, accumulate=True)
         d_b = act_c * (a32.index_select(0, col_arg) - a32) - act_r * a32
-        d_b.index_add_(0, row_arg, act_r * a32)
+        d_b.index_put_((row_arg,), act_r * a32, accumulate=True)
         return (d_a.to(ctx.dtypes[0]), d_b.to(ctx.dtypes[1]), None, None,
                 None)
 

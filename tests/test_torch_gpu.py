@@ -944,3 +944,196 @@ def test_bf16_train_step_on_card_matches_cpu(cuda):
     card, cpu = res["cuda"], res["cpu"]
     assert abs(card[0] - cpu[0]) <= 1e-2 * abs(cpu[0])
     assert _rel_l2(card[1], cpu[1]) <= BF16_GRAD_RL2
+
+
+# ---- the training loop on the card: prefetch, graphs, checkpoints ----------
+
+def _loop_cfg(tmp_path=None, **train):
+    from cmhse_tpu_torch.config import DataConfig, TrainConfig
+
+    return ExperimentConfig(
+        data=DataConfig(batch_size=8, feat_dim=20, vocab_size=64,
+                        max_clips=3, max_frames=7, max_sentences=3,
+                        max_words=5),
+        model=ModelConfig(embed_size=32, word_dim=16, feat_dim=20,
+                          rnn_hidden=32, hierarchical=True,
+                          attention_pool=True, reconstruction=True),
+        train=TrainConfig(lr=1e-3, checkpoint_dir=str(tmp_path or "unused"),
+                          **train))
+
+
+def _loop_batches(cfg, n=24, seed=0, **kw):
+    from cmhse_tpu_torch.data import (SyntheticHierarchicalDataset,
+                                      batches_from_dataset)
+
+    ds = SyntheticHierarchicalDataset(num_videos=n, feat_dim=20,
+                                      vocab_size=64, max_clips=3,
+                                      max_frames=7, max_words=5, seed=seed)
+    return list(batches_from_dataset(ds, cfg.data, shuffle=False, **kw))
+
+
+def test_prefetch_matches_batch_to_and_keeps_buffers_pinned(cuda):
+    """Bucketed batches of several shapes: each prefetched batch equals
+    ``Batch.to``'s, the ring holds LOOKAHEAD + 1 slots of pinned buffers,
+    and the copies ran on the prefetcher's own stream."""
+    from cmhse_tpu_torch.data import Prefetcher
+
+    cfg = _loop_cfg()
+    short = dataclasses.replace(cfg, data=dataclasses.replace(
+        cfg.data, max_clips=2, max_frames=4, max_sentences=2, max_words=3))
+    host = (_loop_batches(cfg, n=20) + _loop_batches(short, n=12)
+            + _loop_batches(cfg, n=8, seed=1))
+    assert len({b.frames.shape for b in host}) > 1
+    pre = Prefetcher(cuda)
+    got = [(h, b) for h, b in pre(host)]
+    assert [h for h, _ in got] == host and len(pre.slots) == 3
+    for h, b in got:
+        want = h.to(cuda)
+        for f in dataclasses.fields(Batch):
+            assert torch.equal(getattr(b, f.name), getattr(want, f.name))
+            assert getattr(b, f.name).device.type == "cuda"
+    bufs = [t for s in pre.slots for t in s.buffers.values()]
+    assert bufs and all(t.is_pinned() for t in bufs)
+    pinned = host[0].pin_memory()  # Batch's own pinned copy
+    for f in dataclasses.fields(Batch):
+        assert getattr(pinned, f.name).is_pinned()
+    placed = pinned.to(cuda, non_blocking=True)
+    for f in dataclasses.fields(Batch):
+        assert torch.equal(getattr(placed, f.name).cpu(),
+                           torch.as_tensor(getattr(host[0], f.name)))
+    assert pre.stream is not None and \
+        pre.stream != torch.cuda.current_stream()
+
+
+def test_prefetch_refill_waits_for_the_copy_in_flight(cuda):
+    """With the copy stream held up by a long kernel, each pinned slot is
+    refilled while the copy out of it is still queued: the refill must
+    wait for it, or a batch would arrive with a later one's values."""
+    from cmhse_tpu_torch.data import Prefetcher
+
+    cfg = _loop_cfg()
+    host = _loop_batches(cfg, n=64)
+    pre = Prefetcher(cuda)
+    pre.stream = torch.cuda.Stream()
+    with torch.cuda.stream(pre.stream):
+        torch.cuda._sleep(200_000_000)  # ~0.1 s of the copy stream
+    kept = [b.frames.clone() for _, b in pre(host)]
+    torch.cuda.synchronize()
+    for h, frames in zip(host, kept):
+        assert torch.equal(frames.cpu(), torch.as_tensor(h.frames))
+
+
+def test_encode_gallery_through_prefetch_matches_pageable(cuda):
+    from cmhse_tpu_torch.eval.encode import encode_batch, encode_gallery_device
+
+    cfg = _loop_cfg()
+    host = _loop_batches(cfg, n=20)
+    model = CMHSE(cfg.model, 64, generator=torch.Generator().manual_seed(2))
+    v, p, valid, ids = encode_gallery_device(model, host, return_ids=True)
+    want = [encode_batch(model, b) for b in host]
+    assert torch.equal(v, torch.cat([w[0] for w in want]))
+    assert torch.equal(p, torch.cat([w[1] for w in want]))
+    assert valid.device.type == "cuda" and int(valid.sum()) == 20
+    np.testing.assert_array_equal(ids, np.concatenate(
+        [b.video_ids for b in host]))
+
+
+def test_train_step_repeats_bitwise_and_graph_replay_matches(cuda):
+    """The card's train step is repeatable bit for bit (the loss's
+    scatter-adds included), and ``train_steps`` (a CUDA graph of K steps,
+    replayed from its second dispatch) is bitwise equal to K
+    ``train_step``s, the metrics too."""
+    from cmhse_tpu_torch.train import train_steps
+    from cmhse_tpu_torch.train.loop import _grouped_host_batches
+
+    cfg = _loop_cfg()
+    host = _loop_batches(cfg, n=32)
+    (_, _, s0), (_, _, s1) = list(_grouped_host_batches(
+        [tuple(host[:2]), tuple(host[2:])], 2))
+    runs = []
+    for mode in ("eager", "eager", "graph"):
+        model = CMHSE(cfg.model, 64,
+                      generator=torch.Generator().manual_seed(1))
+        state = create_train_state(cfg, model)
+        losses = []
+        if mode == "graph":
+            for stacked in (s0, s1, s0):
+                state, m = train_steps(state, stacked, cfg.loss)
+                losses += m["loss"].tolist()
+            assert state.graph_replays == 2
+        else:
+            for b in host + host[:2]:
+                state, m = train_step(state, b, cfg.loss)
+                losses.append(float(m["loss"]))
+        runs.append((state, losses))
+    (a, la), (b, lb), (g, lg) = runs
+    assert la == lb == lg and a.step == g.step == 6
+    for k, v in a.model.state_dict().items():
+        assert torch.equal(v, b.model.state_dict()[k]), k
+        assert torch.equal(v, g.model.state_dict()[k]), k
+    for pa, pg in zip(a.model.parameters(), g.model.parameters()):
+        for key in ("exp_avg", "exp_avg_sq", "step"):
+            assert torch.equal(a.optimizer.state[pa][key],
+                               g.optimizer.state[pg][key]), key
+
+
+def test_checkpoint_moves_between_card_and_cpu(cuda, tmp_path):
+    """A checkpoint written on the card restores on the CPU, and one
+    written on the CPU restores on the card, where training goes on
+    (capturable Adam, its step counts moved to the card)."""
+    from cmhse_tpu_torch.train.checkpoint import CheckpointManager
+
+    cfg = _loop_cfg(tmp_path)
+    host = _loop_batches(cfg, n=8)
+    states = {}
+    for dev in (cuda, "cpu"):
+        model = CMHSE(cfg.model, 64, device=dev,
+                      generator=torch.Generator().manual_seed(4))
+        states[str(dev)] = create_train_state(cfg, model)
+    card, cpu = states["cuda"], states["cpu"]
+    train_step(card, host[0], cfg.loss)
+    mgr = CheckpointManager(str(tmp_path / "run"), cfg)
+    mgr.save(card, epoch=1, best_rsum=3.0, groups_done=2)
+    cpu, epoch, best, groups = mgr.restore(cpu)
+    assert (cpu.step, epoch, best, groups) == (1, 1, 3.0, 2)
+    for k, v in card.model.state_dict().items():
+        assert torch.equal(v.cpu(), cpu.model.state_dict()[k]), k
+    assert cpu.optimizer.param_groups[0]["capturable"] is False
+    train_step(cpu, host[0], cfg.loss)
+    mgr.save(cpu, epoch=1, best_rsum=3.0)
+    card, _, _, _ = mgr.restore(card)
+    group = card.optimizer.param_groups[0]
+    assert group["capturable"] is True and group["lr"].device.type == "cuda"
+    for p in card.model.parameters():
+        assert card.optimizer.state[p]["step"].device.type == "cuda"
+    train_step(card, host[0], cfg.loss)
+    assert card.step == 3
+
+
+def test_full_width_step_gradients_repeat_bitwise(cuda):
+    """Two identical eager forward/backward passes at full cmhse_full width
+    (batch 8) give bit-equal gradients: the loss's scatter-adds of the
+    hardest negatives must not add duplicate indices in whatever order
+    atomics land (they did with ``index_add_``)."""
+    from cmhse_tpu_torch.config import get_preset
+    from cmhse_tpu_torch.data import (SyntheticHierarchicalDataset,
+                                      batches_from_dataset)
+
+    cfg = get_preset("cmhse_full")
+    dc = dataclasses.replace(cfg.data, batch_size=8)
+    ds = SyntheticHierarchicalDataset(
+        num_videos=8, feat_dim=dc.feat_dim, vocab_size=dc.vocab_size,
+        max_clips=dc.max_clips, max_frames=dc.max_frames,
+        max_words=dc.max_words, seed=3)
+    batch = next(batches_from_dataset(ds, dc, shuffle=False)).to(cuda)
+    model = CMHSE(cfg.model, dc.vocab_size,
+                  generator=torch.Generator().manual_seed(0))
+    runs = []
+    for _ in range(2):
+        model.zero_grad(set_to_none=True)
+        loss, _ = total_loss(model(batch), batch, cfg.loss)
+        loss.backward()
+        runs.append({k: p.grad.clone() for k, p in model.named_parameters()
+                     if p.grad is not None})
+    differ = [k for k, g in runs[0].items() if not torch.equal(g, runs[1][k])]
+    assert differ == []

@@ -6,6 +6,7 @@ import os
 import subprocess
 import sys
 
+import pytest
 import torch
 
 torch.set_num_threads(2)
@@ -36,3 +37,31 @@ def test_port_imports_no_jax_and_builds_nothing():
     assert int(lines["modules"]) >= 15
     assert lines["bad"] == "[]"
     assert lines["built"] == "0"
+
+
+LOOP_MODULES = [
+    "cmhse_tpu_torch.train.loop", "cmhse_tpu_torch.train.checkpoint",
+    "cmhse_tpu_torch.utils.logging", "cmhse_tpu_torch.data.vocab",
+    "cmhse_tpu_torch.data.word_vectors", "cmhse_tpu_torch.data.datasets",
+    "cmhse_tpu_torch.data.prefetch",
+]
+
+ALONE = """
+import importlib, sys
+importlib.import_module(sys.argv[1])
+print(sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
+                                    "orbax", "cmhse_tpu", "h5py")))
+"""
+
+
+@pytest.mark.parametrize("module", LOOP_MODULES)
+def test_training_loop_modules_import_alone_without_jax(module):
+    """Each module of the training loop, imported first and alone, loads
+    nothing of JAX or the JAX package (nor h5py, which only an h5 dataset
+    file needs)."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", ALONE, module], cwd=ROOT,
+                         env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
