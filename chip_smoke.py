@@ -63,9 +63,20 @@ Phases (any failure raises and the script exits non-zero):
      ``scripts/lr_rise_check.py``). Phases 4 and 4c also time the encode
      through the prefetch against the pageable ``Batch.to`` path, and 4b
      shows on which stream the host-to-device copies ran;
-  7. one JSON line listing each kernel and bf16 variant with its path, its
+  7. the command-line chain at the same width: 7a. the native packer
+     against ``pad_batch`` on 64 of phase 6's videos, f32 and bf16 (bit for
+     bit; host ms of each); then over a reference-layout directory written
+     by the port's fixtures (384 train / 256 val videos, 1-8 clips of 4-64
+     rows): ``cli.build_vocab``, ``cli.train`` for one epoch (K1
+     ``save_gates`` / ``with_h0``, K2, K3), ``cli.evaluate --streaming
+     --dump_ranks`` as ``python -m`` in a subprocess and in this process
+     (K4; the dump against a dense ``validate_metrics``),
+     ``cli.export_torch`` / ``cli.import_torch`` (bit-equal round trip, the
+     import's dump identical) and ``cli.retrieve`` (5 hits a query), with
+     each stage's seconds and launches;
+  8. one JSON line listing each kernel and bf16 variant with its path, its
      launches there, its error against its plain version, times and bound;
-  8. last line: ``{"ok": true, "device": {...}}``.
+  9. last line: ``{"ok": true, "device": {...}}``.
 
 With no CUDA device it exits with code 1 and prints no result.
 """
@@ -123,6 +134,12 @@ FIT_EPOCHS = 2
 FIT_SNAPSHOT = 4  # snapshot_step
 FIT_KILL_AFTER = 5  # 6b kills the second run after this many steps
 FIT_PIPELINE_STEPS = 6  # 6d's steps a timed window
+PACK_REPS = 20  # 7a: host timings a packer
+# phase 7's reference-layout data: ActivityNet-like lengths, as phase 4's
+CLI_TRAIN_VIDEOS = 384
+CLI_VAL_VIDEOS = 256
+CLI_CLIPS = (1, 9)  # 1-8 clips a video (half-open, as rng.randint takes it)
+CLI_ROWS = (4, 65)  # 4-64 feature rows a clip
 ENCODE_ATOL = 1e-4  # card vs CPU embeddings of one full-width batch
 SCORE_ATOL = 1e-4  # served top-k scores vs the gallery embeddings' products
 # Random weights embed every video close to every other (cosines near 1), so
@@ -1957,7 +1974,8 @@ def phase_fit(torch, np, seed: int, train_ds, val_ds) -> dict:
         del state_d, state_a
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    return dict(counts=counts, step_ms=float(np.median(timings["step"])))
+    return dict(counts=counts, step_ms=float(np.median(timings["step"])),
+                epoch_s=[e["seconds"] for e in epochs])
 
 
 def phase_step_pipeline(torch, np, seed: int, train_ds) -> dict:
@@ -2017,6 +2035,274 @@ def phase_lr_check(torch, np, seed: int) -> list:
     if not all(np.isfinite(losses)):
         raise AssertionError(f"non-finite losses {losses}")
     return losses
+
+
+def phase_packer(torch, np, train_ds, epoch_s: list) -> None:
+    """7a: the native packer against ``pad_batch`` on one 64-video batch of
+    phase 6's examples, f32 and bf16: every field equal, frames bit for
+    bit; host ms of each (median of PACK_REPS), and the share of phase 6's
+    median epoch that packing an epoch's batches (train and validation)
+    this way saves."""
+    from cmhse_tpu_torch import native
+    from cmhse_tpu_torch.config import get_preset
+    from cmhse_tpu_torch.data import BucketSpec, pad_batch
+
+    dc = get_preset("cmhse_full").data
+    examples = train_ds[:dc.batch_size]
+    batches_a_epoch = (-(-FIT_TRAIN_VIDEOS // dc.batch_size)
+                       - (-FIT_VAL_VIDEOS // dc.batch_size))
+    t0 = time.perf_counter()
+    native.library()
+    log(f"  packer built and loaded in {time.perf_counter() - t0:.2f} s "
+        f"({native.build()})")
+    for dtype in ("float32", "bfloat16"):
+        spec = BucketSpec(dc.batch_size, dc.max_clips, dc.max_frames,
+                          dc.max_sentences, dc.max_words, dc.feat_dim, dtype)
+        got = native.pack_batch_native(examples, spec)
+        want = pad_batch(examples, spec)
+        for f in ("frames", "frame_len", "clip_len", "words", "word_len",
+                  "sent_len", "video_ids", "valid"):
+            a, b = getattr(got, f), getattr(want, f)
+            if isinstance(a, torch.Tensor):
+                a, b = a.view(torch.int16).numpy(), b.view(torch.int16).numpy()
+            elif a.dtype == np.float32:
+                a, b = a.view(np.int32), b.view(np.int32)
+            if a.dtype != b.dtype or not np.array_equal(a, b):
+                raise AssertionError(f"packer {dtype} {f} differs from "
+                                     "pad_batch")
+        ms = {}
+        for name, fn in (("pad_batch", pad_batch),
+                         ("packer", native.pack_batch_native)):
+            times = []
+            for _ in range(PACK_REPS):
+                t0 = time.perf_counter()
+                fn(examples, spec)
+                times.append((time.perf_counter() - t0) * 1e3)
+            ms[name] = float(np.median(times))
+        saved = (ms["pad_batch"] - ms["packer"]) * batches_a_epoch / 1e3
+        log(f"  {dtype}: every field equal to pad_batch's, frames bit for "
+            f"bit; host ms a batch (median of {PACK_REPS}): pad_batch "
+            f"{ms['pad_batch']:.3f}, packer {ms['packer']:.3f}; "
+            f"{batches_a_epoch} batches an epoch save {saved:.4f} s, "
+            f"{saved / float(np.median(epoch_s)):.1%} of phase 6's median "
+            f"epoch ({float(np.median(epoch_s)):.3f} s)")
+
+
+def read_hits(text: str) -> dict:
+    """``cli.retrieve``'s printout -> {query line: [(key, score), ...]}."""
+    out, current = {}, None
+    for line in text.splitlines():
+        if line.startswith(("query: ", "video query: ")):
+            current = out.setdefault(line, [])
+        elif line.startswith("  ") and current is not None:
+            _, key, score = line.split()
+            current.append((key, float(score.split("=")[1])))
+    return out
+
+
+def dump_rows(path: str) -> list:
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def phase_cli(torch, np, seed: int) -> dict:
+    """7b-7f: the command-line chain at cmhse_full's published widths over a
+    reference-layout directory written by the port's fixtures: build_vocab,
+    train (one epoch), evaluate --streaming --dump_ranks (a subprocess, then
+    in the process), export_torch, import_torch, evaluate of the import,
+    retrieve. Each stage of the chain runs with the launch counts set to 0
+    and read after; the comparisons run outside them."""
+    import collections
+    import contextlib
+    import importlib.util
+    import io
+    import os
+    import shutil
+    import tempfile
+
+    from cmhse_tpu_torch.cli import (build_vocab, evaluate, export_torch,
+                                     import_torch, retrieve)
+    from cmhse_tpu_torch.cli import train as train_cli
+    from cmhse_tpu_torch.config import get_preset
+    from cmhse_tpu_torch.data import (PrecompDataset, Vocabulary,
+                                      batches_from_dataset)
+    from cmhse_tpu_torch.data.fixtures import write_reference_dataset
+    from cmhse_tpu_torch.eval.encode import encode_gallery_device
+    from cmhse_tpu_torch.eval.retrieval import validate_metrics
+    from cmhse_tpu_torch.ops import cuda_lib
+    from cmhse_tpu_torch.train.checkpoint import restore_for_eval
+
+    cfg = get_preset("cmhse_full")
+    dc, mc = cfg.data, cfg.model
+    cli_counts = collections.Counter()
+    stage_s = {}
+
+    def stage(name, fn, counted=True):
+        """Run one stage of the chain; its wall seconds, and its launches
+        into the chain's counts."""
+        if counted:
+            cuda_lib.reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        stage_s[name] = time.perf_counter() - t0
+        counts = launch_counts() if counted else {}
+        cli_counts.update(counts)
+        log(f"  {name}: {stage_s[name]:.2f} s; launches {counts}")
+        return out, counts
+
+    def ok(rc, what):
+        if rc != 0:
+            raise AssertionError(f"{what} returned {rc}")
+
+    root = tempfile.mkdtemp(prefix="cmhse_cli_")
+    try:
+        data, run = os.path.join(root, "data"), os.path.join(root, "run")
+        layout = "h5" if importlib.util.find_spec("h5py") else "npy"
+        t0 = time.perf_counter()
+        info = write_reference_dataset(
+            data, n_train=CLI_TRAIN_VIDEOS, n_val=CLI_VAL_VIDEOS,
+            feat_dim=dc.feat_dim, seed=seed, features=layout,
+            clips=CLI_CLIPS, rows=CLI_ROWS)
+        val_keys = set(info["keys"]["val"])
+        log(f"  7b: {CLI_TRAIN_VIDEOS} train / {CLI_VAL_VIDEOS} val videos "
+            f"in the reference layout, features as {layout} (h5py "
+            f"{'present' if layout == 'h5' else 'absent'}), clips "
+            f"{CLI_CLIPS[0]}-{CLI_CLIPS[1] - 1} of "
+            f"{CLI_ROWS[0]}-{CLI_ROWS[1] - 1} rows, feat {dc.feat_dim}: "
+            f"{time.perf_counter() - t0:.2f} s (set-up)")
+
+        widths = ["--vocab_size", str(dc.vocab_size), "--word_dim",
+                  str(mc.word_dim), "--feat_dim", str(mc.feat_dim),
+                  "--rnn_hidden", str(mc.rnn_hidden), "--embed_size",
+                  str(mc.embed_size), "--max_clips", str(dc.max_clips),
+                  "--max_frames", str(dc.max_frames), "--max_sentences",
+                  str(dc.max_sentences), "--max_words", str(dc.max_words),
+                  "--batch_size", str(dc.batch_size)]
+        log("  7c: cli.build_vocab, cli.train (cmhse_full, "
+            + " ".join(widths) + ", 1 epoch)")
+        stage("build_vocab", lambda: ok(build_vocab.main(
+            ["--data_path", data, "--threshold", "1"]), "build_vocab"),
+            counted=False)
+        _, train_counts = stage("train", lambda: ok(train_cli.main(
+            ["--preset", "cmhse_full", "--data_path", data, *widths,
+             "--num_epochs", "1", "--snapshot_step", "4", "--val_step", "0",
+             "--log_step", "1", "--seed", str(seed), "--logger_name", run]),
+            "train"))
+        events = {e for e in ("train_step", "epoch_end", "validate")
+                  if jsonl(os.path.join(run, "log.jsonl"), e)}
+        if events != {"train_step", "epoch_end", "validate"} or \
+                not os.path.exists(os.path.join(run, "best")):
+            raise AssertionError(f"the train run logged {events}")
+        for k in ("gru_fwd float32 save_gates",
+                  "gru_fwd float32 save_gates+with_h0", "gru_bwd float32",
+                  "simhinge float32", "gru_fwd float32 encode"):
+            if total(train_counts, k) <= 0:
+                raise AssertionError(f"cli.train launched no {k}")
+
+        log("  7d: cli.evaluate --streaming --dump_ranks, as a module in a "
+            "subprocess, then in this process")
+        dump_sub = os.path.join(root, "ranks_sub.jsonl")
+        env = dict(os.environ, PYTHONPATH=str(ROOT))
+        proc, _ = stage("evaluate (subprocess)", lambda: subprocess.run(
+            [sys.executable, "-m", "cmhse_tpu_torch.cli.evaluate", run,
+             "--streaming", "--dump_ranks", dump_sub], cwd=ROOT, env=env,
+            capture_output=True, text=True, timeout=600), counted=False)
+        log("  " + "\n  ".join(proc.stdout.strip().splitlines()[-4:]))
+        if proc.returncode != 0:
+            raise AssertionError(f"cli.evaluate: rc {proc.returncode}\n"
+                                 f"{proc.stderr[-4000:]}")
+        dump_in = os.path.join(root, "ranks_in.jsonl")
+        _, eval_counts = stage("evaluate (in process)", lambda: ok(
+            evaluate.main([run, "--streaming", "--dump_ranks", dump_in]),
+            "evaluate"))
+        rows = dump_rows(dump_sub)
+        if total(eval_counts, "rankcount float32") != 2 or \
+                total(eval_counts, "gru_fwd float32 encode") <= 0:
+            raise AssertionError(f"cli.evaluate launches {eval_counts}")
+        if dump_rows(dump_in) != rows or len(rows) != CLI_VAL_VIDEOS:
+            raise AssertionError("the subprocess's dump differs from the "
+                                 "in-process one")
+
+        def dense():
+            model, rcfg = restore_for_eval(run)
+            ds = PrecompDataset(data, "val",
+                                Vocabulary.load(os.path.join(
+                                    data, "vocab.json")),
+                                feat_dim=rcfg.data.feat_dim)
+            batches = list(batches_from_dataset(ds, rcfg.data,
+                                                shuffle=False))
+            _, ranks = validate_metrics(model, batches, streaming=False,
+                                        return_ranks=True)
+            v, p, valid = encode_gallery_device(model, batches)
+            return ranks, (v[valid] @ p[valid].T).float()
+
+        (ranks, sims), _ = stage("dense validate_metrics (comparison)",
+                                 dense, counted=False)
+        n_diff, gaps = 0, []
+        for key, direction, s in (("v2p_ranks", "v2p_rank", sims),
+                                  ("p2v_ranks", "p2v_rank", sims.T)):
+            dumped = np.asarray([r[direction] for r in rows])
+            differ = np.flatnonzero(dumped != ranks[key])
+            n_diff += len(differ)
+            check_rank_band(torch, dumped, s, direction)
+            for i in differ:  # how near the positive's closest rival lies
+                gap = (s[i] - s[i, i]).abs()
+                gap[i] = float("inf")
+                gaps.append(float(gap.min()))
+        log(f"  the dump against validate_metrics(streaming=False): {n_diff} "
+            f"of {2 * len(rows)} ranks differ, all within the "
+            f"+-{RANK_TIE_TOL} near-tie band (largest gap to the nearest "
+            f"rival among them {max(gaps, default=0.0):.3g}); keys "
+            f"{rows[0]['key']}..{rows[-1]['key']}")
+
+        log("  7e: cli.export_torch -> .pth.tar, cli.import_torch, "
+            "cli.evaluate --dump_ranks of the import")
+        pth = os.path.join(root, "exported.pth.tar")
+        imported = os.path.join(root, "imported")
+        stage("export_torch", lambda: ok(export_torch.main([run, pth]),
+                                         "export_torch"))
+        stage("import_torch", lambda: ok(import_torch.main([pth, imported]),
+                                         "import_torch"))
+        a, _ = restore_for_eval(run, device="cpu")
+        b, _ = restore_for_eval(imported, device="cpu")
+        sa, sb = a.state_dict(), b.state_dict()
+        unequal = [k for k in sa if k not in sb or not torch.equal(sa[k],
+                                                                   sb[k])]
+        if unequal or sorted(sa) != sorted(sb):
+            raise AssertionError(f"the round trip changed {unequal}")
+        n_params = sum(v.numel() for v in sa.values())
+        log(f"  round trip: {len(sa)} tensors, {n_params:,} parameters, "
+            f"bit-equal; {os.path.getsize(pth) / 2**20:.1f} MiB file")
+        dump_imp = os.path.join(root, "ranks_imported.jsonl")
+        stage("evaluate (import)", lambda: ok(evaluate.main(
+            [imported, "--data_path", data, "--streaming", "--dump_ranks",
+             dump_imp]), "evaluate"))
+        if dump_rows(dump_imp) != rows:
+            raise AssertionError("the imported model's dump differs")
+
+        log("  7f: cli.retrieve, one --query and one --query_video, -k 5")
+        buf = io.StringIO()
+        query = "a man runs in the park."
+        qkey = info["keys"]["val"][0]
+
+        def run_retrieve():
+            with contextlib.redirect_stdout(buf):
+                ok(retrieve.main([run, "--query", query, "--query_video",
+                                  qkey, "-k", "5"]), "retrieve")
+
+        stage("retrieve", run_retrieve)
+        hits = read_hits(buf.getvalue())
+        for label, got in hits.items():
+            log(f"  {label} -> " + ", ".join(f"{k} {s:.4f}" for k, s in got))
+        if len(hits) != 2 or any(len(h) != 5 or not {k for k, _ in h}
+                                 <= val_keys for h in hits.values()):
+            raise AssertionError(f"cli.retrieve's hits {hits}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log("  stage seconds: " + json.dumps(
+        {k: round(v, 3) for k, v in stage_s.items()}))
+    return dict(counts=dict(cli_counts))
 
 
 def main() -> int:
@@ -2180,6 +2466,12 @@ def main() -> int:
     phase("phase 6e: phase 5's batch, numpy-drawn weights, lr 1e-3 "
           "(scripts/lr_rise_check.py's card run)")
     phase_lr_check(torch, np, args.seed)
+    phase("phase 7a: the native packer vs pad_batch (64 of phase 6's videos)")
+    phase_packer(torch, np, train_ds, fit_out["epoch_s"])
+    del train_ds, val_ds
+    phase("phase 7: the command-line chain at full cmhse_full width")
+    cli_out = phase_cli(torch, np, args.seed)
+    ccounts = cli_out["counts"]
 
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith(("jax.", "cmhse_tpu.")))
@@ -2201,35 +2493,44 @@ def main() -> int:
     k4 = "cmhse_tpu/ops/pallas_sim.py:286"
     entries = [
         entry("gru_fwd", "gru_fwd.cu", k1, gru_rows + fwd_rows,
-              "serve+train+fit", total(counts, "gru_fwd float32")
+              "serve+train+fit+cli", total(counts, "gru_fwd float32")
               + total(tcounts, "gru_fwd float32")
-              + total(fcounts, "gru_fwd float32"),
+              + total(fcounts, "gru_fwd float32")
+              + total(ccounts, "gru_fwd float32"),
               launches_by_path={"serve": total(counts, "gru_fwd"),
                                 "train": total(tcounts, "gru_fwd"),
-                                "fit": total(fcounts, "gru_fwd")},
+                                "fit": total(fcounts, "gru_fwd"),
+                                "cli": total(ccounts, "gru_fwd")},
               launches_train_by_variant={
                   k: n for k, n in tcounts.items() if k.startswith("gru_fwd")},
               launches_fit_by_variant={k: n for k, n in fcounts.items()
+                                       if k.startswith("gru_fwd")},
+              launches_cli_by_variant={k: n for k, n in ccounts.items()
                                        if k.startswith("gru_fwd")}),
-        entry("gru_bwd", "gru_bwd.cu", k2, bwd_rows, "train+fit",
+        entry("gru_bwd", "gru_bwd.cu", k2, bwd_rows, "train+fit+cli",
               total(tcounts, "gru_bwd float32")
-              + total(fcounts, "gru_bwd float32"),
+              + total(fcounts, "gru_bwd float32")
+              + total(ccounts, "gru_bwd float32"),
               launches_by_path={"train": total(tcounts, "gru_bwd"),
-                                "fit": total(fcounts, "gru_bwd")}),
+                                "fit": total(fcounts, "gru_bwd"),
+                                "cli": total(ccounts, "gru_bwd")}),
         entry("simhinge", "simhinge.cu", "cmhse_tpu/ops/pallas_sim.py:58",
-              sh_rows, "train+fit",
+              sh_rows, "train+fit+cli",
               total(tcounts, "simhinge") + total(bcounts, "simhinge")
-              + total(fcounts, "simhinge"),
+              + total(fcounts, "simhinge") + total(ccounts, "simhinge"),
               launches_by_path={"train": total(tcounts, "simhinge"),
                                 "train bf16": total(bcounts, "simhinge"),
-                                "fit": total(fcounts, "simhinge")},
+                                "fit": total(fcounts, "simhinge"),
+                                "cli": total(ccounts, "simhinge")},
               ms_from="CUDA-graph replay of one call (graph_ms)",
               call_ms=sh_rows[0]["call_ms"]),
-        entry("rankcount", "rankcount.cu", k4, rc_rows, "serve+train",
+        entry("rankcount", "rankcount.cu", k4, rc_rows, "serve+train+cli",
               total(counts, "rankcount float32")
-              + total(tcounts, "rankcount float32"),
+              + total(tcounts, "rankcount float32")
+              + total(ccounts, "rankcount float32"),
               launches_by_path={"serve": total(counts, "rankcount"),
-                                "train": total(tcounts, "rankcount")}),
+                                "train": total(tcounts, "rankcount"),
+                                "cli": total(ccounts, "rankcount")}),
         entry("gru_fwd bf16", "gru_fwd.cu", k1, bf16_rows["encode"],
               "serve bf16", total(bf16_counts, "gru_fwd bfloat16 encode")),
         entry("gru_fwd bf16 save_gates", "gru_fwd.cu", k1,
@@ -2250,6 +2551,10 @@ def main() -> int:
         if e["launches"] <= 0:
             raise AssertionError(f"kernel {e['name']} was not launched on "
                                  f"its path ({e['path']})")
+        if "cli" in e.get("launches_by_path", {}) and \
+                e["launches_by_path"]["cli"] <= 0:
+            raise AssertionError(f"the command-line chain launched no "
+                                 f"{e['name']}")
     phase("done")
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -64,6 +64,21 @@ def pick_bucket(value: int, edges: tuple[int, ...]) -> int:
     return edges[min(i, len(edges) - 1)]
 
 
+def _to_bf16(frames: np.ndarray) -> torch.Tensor:
+    """f32 -> a CPU bf16 tensor, rounded to nearest even as
+    ``astype(jnp.bfloat16)`` and the native packer round. torch writes one
+    NaN pattern for every NaN; a NaN here keeps its sign and top payload
+    bits with the quiet bit set, as ml_dtypes (and so the JAX package)
+    does, so that the bits agree with both."""
+    out = torch.from_numpy(frames).to(torch.bfloat16)
+    nan = np.isnan(frames)
+    if nan.any():
+        bits = out.view(torch.int16).numpy()  # shares out's memory
+        bits[nan] = ((frames.view(np.uint32)[nan] >> 16) | 0x40).astype(
+            np.uint16).view(np.int16)
+    return out
+
+
 def pad_batch(examples: list, spec: BucketSpec) -> Batch:
     """Pad a list of :class:`RaggedExample` into one fixed-shape Batch.
 
@@ -104,8 +119,7 @@ def pad_batch(examples: list, spec: BucketSpec) -> Batch:
         valid[i] = True
 
     if spec.feature_dtype == "bfloat16":
-        # torch rounds to nearest even, as astype(jnp.bfloat16) does
-        frames = torch.from_numpy(frames).to(torch.bfloat16)
+        frames = _to_bf16(frames)
     return Batch(
         frames=frames,
         frame_len=frame_len,

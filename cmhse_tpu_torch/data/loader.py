@@ -1,7 +1,9 @@
 """Host-side batch iteration, counterpart of ``cmhse_tpu/data/loader.py``.
 
-Batches come from the numpy :func:`pad_batch` (the JAX package's native C++
-packer is not bound yet; its output equals ``pad_batch``'s). Same order,
+Batches are packed by the native C++ packer
+(:func:`cmhse_tpu_torch.native.pack_batch_native`, built with ``g++`` at
+first use), as the JAX loader packs whenever its packer builds; the numpy
+:func:`pad_batch` is its plain version, equal field for field. Same order,
 grouping and multi-process slicing as the JAX loader, so the batches are
 array-equal for the same seed.
 """
@@ -12,10 +14,10 @@ from typing import Iterator
 
 import numpy as np
 
+from cmhse_tpu_torch import native
 from cmhse_tpu_torch.config import DataConfig
 from cmhse_tpu_torch.data.batch import Batch
-from cmhse_tpu_torch.data.bucketing import (BucketSpec, bucket_for_examples,
-                                            pad_batch)
+from cmhse_tpu_torch.data.bucketing import BucketSpec, bucket_for_examples
 
 
 def batches_from_dataset(
@@ -112,4 +114,4 @@ def batches_from_dataset(
                 word_buckets=cfg.word_buckets,
                 feature_dtype=cfg.feature_dtype,
             )
-        yield pad_batch(examples, spec)
+        yield native.pack_batch_native(examples, spec)

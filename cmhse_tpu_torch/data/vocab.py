@@ -184,3 +184,29 @@ def build_vocab(
     for w in words:
         vocab.add_word(w)
     return vocab
+
+
+def find_vocab(data_path: str, explicit: str | None = None) -> str:
+    """Resolve the vocabulary file of a data directory, as the JAX
+    package's ``find_vocab`` does: an explicit path wins; then the first of
+    ``vocab.json`` / ``vocab.pkl`` / ``vocab.pickle`` present; then the
+    first ``*vocab*.pkl`` (reference users arrive with pickled vocabularies,
+    such as ``anet_precomp_vocab.pkl``)."""
+    import glob
+    import os
+
+    if explicit:
+        return explicit
+    for name in ("vocab.json", "vocab.pkl", "vocab.pickle"):
+        p = os.path.join(data_path, name)
+        if os.path.exists(p):
+            return p
+    hits = sorted(glob.glob(os.path.join(data_path, "*vocab*.pkl")))
+    if hits:
+        return hits[0]
+    raise FileNotFoundError(
+        f"no vocabulary file found under {data_path} (looked for "
+        "vocab.json / vocab.pkl / *vocab*.pkl); build one with python -m "
+        "cmhse_tpu_torch.cli.build_vocab (cmhse-vocab in the JAX package) "
+        "or pass --vocab_path"
+    )

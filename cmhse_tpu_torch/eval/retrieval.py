@@ -1,8 +1,9 @@
 """Retrieval evaluation, counterpart of ``cmhse_tpu/eval/retrieval.py``
-(single device; the sharded mesh path and ``evalrank`` wait).
+(single device; the sharded mesh path waits).
 
 Encode a split, rank both directions on the device, report R@k / MedR /
-MeanR / rsum. Galleries of at least ``STREAMING_GALLERY_MIN`` rows on the
+MeanR / rsum; :func:`evalrank` does it for a checkpoint directory, the
+reference's ``python evaluation.py`` entry. Galleries of at least ``STREAMING_GALLERY_MIN`` rows on the
 card rank through the ``rankcount`` kernel and never materialize ``[N, N]``.
 """
 
@@ -101,3 +102,61 @@ def format_table(metrics: dict, ks=(1, 5, 10, 50)) -> str:
     if "rsum" in metrics:
         lines.append(f"rsum: {metrics['rsum']:.1f}")
     return "\n".join(lines)
+
+
+def evalrank(
+    checkpoint_path: str,
+    data_path: str | None = None,
+    split: str = "val",
+    ks: tuple[int, ...] = (1, 5, 10, 50),
+    streaming: bool | None = None,
+    dump_ranks: str | None = None,
+    device: str | torch.device | None = None,
+) -> dict[str, float]:
+    """Load a checkpoint and evaluate a split on ``device`` (the card
+    unless ``"cpu"`` is passed), printing the R@k table.
+
+    ``dump_ranks``: also write one JSONL line per example, ``{"index",
+    "key", "v2p_rank", "p2v_rank"}``, in the JAX package's format, so two
+    runs can be diffed line for line."""
+    import json
+    import os
+
+    from cmhse_tpu_torch.data import (PrecompDataset, Vocabulary,
+                                      batches_from_dataset, find_vocab)
+    from cmhse_tpu_torch.train.checkpoint import restore_for_eval
+
+    if dump_ranks is not None:
+        # fail on an unwritable dump path before the encode; make missing
+        # parent directories, probe without truncating
+        os.makedirs(os.path.dirname(os.path.abspath(dump_ranks)),
+                    exist_ok=True)
+        with open(dump_ranks, "a"):
+            pass
+
+    model, cfg = restore_for_eval(checkpoint_path, device=device)
+    data_path = data_path or cfg.data.data_path
+    vocab = Vocabulary.load(find_vocab(data_path))
+    # a flat model takes the whole video as one clip and the paragraph as
+    # one sentence, as the train CLI sets it
+    dataset = PrecompDataset(data_path, split, vocab,
+                             feat_dim=cfg.data.feat_dim,
+                             flat=not cfg.model.hierarchical)
+    batches = batches_from_dataset(dataset, cfg.data, shuffle=False)
+    out = validate_metrics(model, batches, ks=ks, streaming=streaming,
+                           return_ranks=dump_ranks is not None)
+    metrics, ranks = out if dump_ranks is not None else (out, None)
+    # the table first: a failed dump write must not lose the metrics
+    print(format_table(metrics, ks))
+    if ranks is not None:
+        v2p, p2v = ranks["v2p_ranks"], ranks["p2v_ranks"]
+        with open(dump_ranks, "w") as f:
+            for i in range(len(v2p)):
+                f.write(json.dumps({
+                    "index": i,
+                    "key": dataset.keys[i],
+                    "v2p_rank": int(v2p[i]),
+                    "p2v_rank": int(p2v[i]),
+                }) + "\n")
+        print(f"wrote {len(v2p)} per-query ranks to {dump_ranks}")
+    return metrics

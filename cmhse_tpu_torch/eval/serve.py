@@ -3,7 +3,8 @@
 
 Encode a gallery once with :meth:`Retriever.build_gallery`, then answer
 text->video (:meth:`Retriever.retrieve`) or video->text
-(:meth:`Retriever.retrieve_video`) top-k queries. Adding, removing and
+(:meth:`Retriever.retrieve_video`) top-k queries; :func:`text_query_batch`
+and :func:`video_query_batch` make the query batches. Adding, removing and
 compacting gallery rows, the int8 path, the mesh and the daemon wait.
 """
 
@@ -31,6 +32,49 @@ def text_query_batch(vocab, texts: list, max_sentences: int,
         words[i, 0, : len(ids)] = ids
         word_len[i, 0] = len(ids)
     return words, word_len, sent_len
+
+
+def key_index(dataset) -> dict:
+    """Key -> row map of a dataset, cached on the instance: serving looks up
+    one key a video query and must not rebuild a gallery-sized dict each
+    time. The cache is keyed on ``(keys_version, len(keys))``: a dataset
+    that changes its ``keys`` in place bumps ``keys_version``
+    (``PrecompDataset.keys`` never changes after construction)."""
+    version = (getattr(dataset, "keys_version", 0), len(dataset.keys))
+    cached = getattr(dataset, "_key_to_idx_cache", None)
+    if cached is not None and cached[0] == version:
+        return cached[1]
+    m = {key: i for i, key in enumerate(dataset.keys)}
+    try:
+        dataset._key_to_idx_cache = (version, m)
+    except AttributeError:
+        pass  # slotted or frozen datasets rebuild it each call
+    return m
+
+
+def video_query_batch(dataset, data_cfg, keys: list) -> tuple:
+    """Pack dataset examples, looked up by video key, into a query batch for
+    :meth:`Retriever.retrieve_video`: ``(frames, frame_len, clip_len)``,
+    packed as the loader packs (the native packer, in
+    ``data_cfg.feature_dtype``). Raises ``KeyError`` whose ``args[0]`` is
+    the list of keys absent from the dataset."""
+    from cmhse_tpu_torch import native
+    from cmhse_tpu_torch.data.bucketing import BucketSpec
+
+    key_to_idx = key_index(dataset)
+    missing = [k for k in keys if k not in key_to_idx]
+    if missing:
+        raise KeyError(missing)
+    spec = BucketSpec(
+        batch_size=len(keys), max_clips=data_cfg.max_clips,
+        max_frames=data_cfg.max_frames,
+        max_sentences=data_cfg.max_sentences,
+        max_words=data_cfg.max_words, feat_dim=data_cfg.feat_dim,
+        feature_dtype=data_cfg.feature_dtype,
+    )
+    qb = native.pack_batch_native([dataset[key_to_idx[k]] for k in keys],
+                                  spec)
+    return qb.frames, qb.frame_len, qb.clip_len
 
 
 class Retriever:

@@ -1137,3 +1137,96 @@ def test_full_width_step_gradients_repeat_bitwise(cuda):
                      if p.grad is not None})
     differ = [k for k, g in runs[0].items() if not torch.equal(g, runs[1][k])]
     assert differ == []
+
+
+# ---- the command-line chain on the card: packer, evaluate ------------------
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_packed_batch_drives_encode_as_pad_batch(cuda, dtype):
+    """The native packer's batch, moved to the card, gives the same
+    embeddings as pad_batch's: the two batches are bit-equal."""
+    from cmhse_tpu_torch import native
+    from cmhse_tpu_torch.data import (BucketSpec, SyntheticHierarchicalDataset,
+                                      pad_batch)
+
+    ds = SyntheticHierarchicalDataset(num_videos=8, feat_dim=20,
+                                      vocab_size=64, max_clips=4,
+                                      max_frames=9, max_words=6, seed=7)
+    examples = [ds[i] for i in range(7)]
+    spec = BucketSpec(8, 3, 7, 3, 5, 20, dtype)
+    cfg = ModelConfig(embed_size=32, word_dim=16, feat_dim=20, rnn_hidden=32,
+                      hierarchical=True, attention_pool=True, dtype=dtype)
+    model = CMHSE(cfg, 64, generator=torch.Generator().manual_seed(2))
+    out = []
+    for batch in (native.pack_batch_native(examples, spec),
+                  pad_batch(examples, spec)):
+        b = batch.to(cuda)
+        with torch.inference_mode():
+            v, _ = model.encode_video(b.frames, b.frame_len, b.clip_len)
+            p, _ = model.encode_text(b.words, b.word_len, b.sent_len)
+        out.append((v, p))
+    assert torch.equal(out[0][0], out[1][0])
+    assert torch.equal(out[0][1], out[1][1])
+
+
+def test_cli_evaluate_streaming_on_card_matches_cpu(cuda, tmp_path):
+    """``cli.evaluate --streaming`` at N = 1,024 on the card (K4) dumps the
+    CPU's ranks, line for line; a rank may differ only where the positive
+    lies within 1e-5 of another item's score (f32 sums in another order)."""
+    import json
+
+    from cmhse_tpu_torch.cli.evaluate import main as eval_main
+    from cmhse_tpu_torch.config import DataConfig
+    from cmhse_tpu_torch.data import (PrecompDataset, Vocabulary,
+                                      batches_from_dataset, build_vocab)
+    from cmhse_tpu_torch.data.fixtures import write_reference_dataset
+    from cmhse_tpu_torch.eval.encode import encode_data
+    from cmhse_tpu_torch.train.checkpoint import eval_payload, write_best_dir
+
+    n, data = 1024, str(tmp_path / "data")
+    write_reference_dataset(data, splits=[("val", n)], feat_dim=20,
+                            features="npy")
+    with open(f"{data}/val_captions.json") as f:
+        caps = json.load(f)
+    vocab = build_vocab([s for m in caps.values() for s in m["sentences"]],
+                        threshold=1)
+    vocab.save(f"{data}/vocab.json")
+    cfg = ExperimentConfig(
+        data=DataConfig(batch_size=64, feat_dim=20, vocab_size=len(vocab),
+                        max_clips=3, max_frames=4, max_sentences=3,
+                        max_words=12, data_path=data),
+        model=ModelConfig(embed_size=32, word_dim=16, feat_dim=20,
+                          rnn_hidden=32, hierarchical=True,
+                          attention_pool=True))
+    run = tmp_path / "run"
+    run.mkdir()
+    (run / "config.json").write_text(cfg.to_json())
+    model = CMHSE(cfg.model, len(vocab), device="cpu",
+                  generator=torch.Generator().manual_seed(5))
+    write_best_dir(str(run), eval_payload(model.state_dict()))
+
+    cuda_lib.reset_launches()
+    assert eval_main([str(run), "--streaming", "--dump_ranks",
+                      str(tmp_path / "card.jsonl")]) == 0
+    assert cuda_lib.launch_count("rankcount") == 2
+    assert eval_main([str(run), "--platform", "cpu", "--dump_ranks",
+                      str(tmp_path / "cpu.jsonl")]) == 0
+
+    def rows(name):
+        return [json.loads(ln) for ln in (tmp_path / name).read_text()
+                .splitlines()]
+
+    card, cpu = rows("card.jsonl"), rows("cpu.jsonl")
+    assert len(card) == len(cpu) == n
+    ds = PrecompDataset(data, "val", Vocabulary.load(f"{data}/vocab.json"),
+                        feat_dim=20)
+    v, p, _ = encode_data(model, batches_from_dataset(ds, cfg.data,
+                                                      shuffle=False))
+    sims = v @ p.T
+    for a, b in zip(card, cpu):
+        assert a["index"] == b["index"] and a["key"] == b["key"]
+        i = a["index"]
+        for d, row in (("v2p_rank", sims[i]), ("p2v_rank", sims[:, i])):
+            if a[d] != b[d]:
+                gap = np.abs(np.delete(row, i) - row[i]).min()
+                assert gap <= 1e-5, (i, d, a[d], b[d], gap)

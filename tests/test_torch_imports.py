@@ -1,6 +1,6 @@
 """The port stands alone: importing every module of ``cmhse_tpu_torch`` in a
 fresh interpreter loads no ``jax*``, ``flax``, ``optax``, ``orbax`` or
-``cmhse_tpu`` module, and builds no kernel."""
+``cmhse_tpu`` module, and builds no kernel and no native packer."""
 
 import os
 import subprocess
@@ -25,6 +25,8 @@ print("modules", len([m for m in sys.modules if m.startswith("cmhse_tpu_torch")]
 print("bad", bad)
 from cmhse_tpu_torch.ops import cuda_lib
 print("built", cuda_lib.library.cache_info().currsize)
+from cmhse_tpu_torch import native
+print("packer", native.library.cache_info().currsize)
 """
 
 
@@ -37,6 +39,7 @@ def test_port_imports_no_jax_and_builds_nothing():
     assert int(lines["modules"]) >= 15
     assert lines["bad"] == "[]"
     assert lines["built"] == "0"
+    assert lines["packer"] == "0"
 
 
 LOOP_MODULES = [
@@ -44,6 +47,15 @@ LOOP_MODULES = [
     "cmhse_tpu_torch.utils.logging", "cmhse_tpu_torch.data.vocab",
     "cmhse_tpu_torch.data.word_vectors", "cmhse_tpu_torch.data.datasets",
     "cmhse_tpu_torch.data.prefetch",
+]
+
+# the command-line chain and what it stands on
+CHAIN_MODULES = [
+    "cmhse_tpu_torch.native", "cmhse_tpu_torch.data.fixtures",
+    "cmhse_tpu_torch.utils.timing", "cmhse_tpu_torch.interop",
+    "cmhse_tpu_torch.cli.build_vocab", "cmhse_tpu_torch.cli.train",
+    "cmhse_tpu_torch.cli.evaluate", "cmhse_tpu_torch.cli.import_torch",
+    "cmhse_tpu_torch.cli.export_torch", "cmhse_tpu_torch.cli.retrieve",
 ]
 
 ALONE = """
@@ -55,11 +67,11 @@ print(sorted(m for m in sys.modules
 """
 
 
-@pytest.mark.parametrize("module", LOOP_MODULES)
+@pytest.mark.parametrize("module", LOOP_MODULES + CHAIN_MODULES)
 def test_training_loop_modules_import_alone_without_jax(module):
-    """Each module of the training loop, imported first and alone, loads
-    nothing of JAX or the JAX package (nor h5py, which only an h5 dataset
-    file needs)."""
+    """Each module of the training loop and of the command-line chain,
+    imported first and alone, loads nothing of JAX or the JAX package (nor
+    h5py, which only an h5 dataset file needs)."""
     env = dict(os.environ, PYTHONPATH=ROOT)
     out = subprocess.run([sys.executable, "-c", ALONE, module], cwd=ROOT,
                          env=env, capture_output=True, text=True, timeout=120)
