@@ -74,9 +74,24 @@ Phases (any failure raises and the script exits non-zero):
      ``cli.export_torch`` / ``cli.import_torch`` (bit-equal round trip, the
      import's dump identical) and ``cli.retrieve`` (5 hits a query), with
      each stage's seconds and launches;
-  8. one JSON line listing each kernel and bf16 variant with its path, its
+  8. the serving stack at the same width: 8a. the int8 two-stage top-k
+     against the exact streaming one over 1,048,576 unit rows (+128
+     invalid), Q=1024, k=10, at the Retriever level: every differing
+     (query, rank) slot a pool miss or a near tie, the capture rate;
+     prepare, queries per second, an append of 4,096 rows against a
+     re-prepare, a compaction after a 1% remove (the top-k mapped through
+     ``old_to_new``); the int8 product (``torch._int_mm`` against the
+     values as f32) and the grouped pre-select against the plain per-chunk
+     top-k, timed; 8b. ``serve_daemon.main`` on phase 7's best checkpoint
+     and data, on a thread (``--socket --warm --batch_window_ms 2``),
+     driven by the port's client: 8 text and 8 video_key requests against
+     a direct Retriever, an add of a 64-video split while a second client
+     queries, remove, compact, stats, shutdown; 8c. a daemon context with
+     40,000 spliced rows, ``--quantized``: the same queries, an add, a
+     remove with auto-compaction, against the exact top-k;
+  9. one JSON line listing each kernel and bf16 variant with its path, its
      launches there, its error against its plain version, times and bound;
-  9. last line: ``{"ok": true, "device": {...}}``.
+  10. last line: ``{"ok": true, "device": {...}}``.
 
 With no CUDA device it exits with code 1 and prints no result.
 """
@@ -2105,20 +2120,20 @@ def dump_rows(path: str) -> list:
         return [json.loads(line) for line in f]
 
 
-def phase_cli(torch, np, seed: int) -> dict:
+def phase_cli(torch, np, seed: int, root: str) -> dict:
     """7b-7f: the command-line chain at cmhse_full's published widths over a
-    reference-layout directory written by the port's fixtures: build_vocab,
-    train (one epoch), evaluate --streaming --dump_ranks (a subprocess, then
-    in the process), export_torch, import_torch, evaluate of the import,
-    retrieve. Each stage of the chain runs with the launch counts set to 0
-    and read after; the comparisons run outside them."""
+    reference-layout directory written by the port's fixtures under
+    ``root``: build_vocab, train (one epoch), evaluate --streaming
+    --dump_ranks (a subprocess, then in the process), export_torch,
+    import_torch, evaluate of the import, retrieve. Each stage of the chain
+    runs with the launch counts set to 0 and read after; the comparisons run
+    outside them. Returns the launch counts, the run and the data directory
+    (phase 8 serves them)."""
     import collections
     import contextlib
     import importlib.util
     import io
     import os
-    import shutil
-    import tempfile
 
     from cmhse_tpu_torch.cli import (build_vocab, evaluate, export_torch,
                                      import_torch, retrieve)
@@ -2155,154 +2170,744 @@ def phase_cli(torch, np, seed: int) -> dict:
         if rc != 0:
             raise AssertionError(f"{what} returned {rc}")
 
-    root = tempfile.mkdtemp(prefix="cmhse_cli_")
-    try:
-        data, run = os.path.join(root, "data"), os.path.join(root, "run")
-        layout = "h5" if importlib.util.find_spec("h5py") else "npy"
-        t0 = time.perf_counter()
-        info = write_reference_dataset(
-            data, n_train=CLI_TRAIN_VIDEOS, n_val=CLI_VAL_VIDEOS,
-            feat_dim=dc.feat_dim, seed=seed, features=layout,
-            clips=CLI_CLIPS, rows=CLI_ROWS)
-        val_keys = set(info["keys"]["val"])
-        log(f"  7b: {CLI_TRAIN_VIDEOS} train / {CLI_VAL_VIDEOS} val videos "
-            f"in the reference layout, features as {layout} (h5py "
-            f"{'present' if layout == 'h5' else 'absent'}), clips "
-            f"{CLI_CLIPS[0]}-{CLI_CLIPS[1] - 1} of "
-            f"{CLI_ROWS[0]}-{CLI_ROWS[1] - 1} rows, feat {dc.feat_dim}: "
-            f"{time.perf_counter() - t0:.2f} s (set-up)")
+    data, run = os.path.join(root, "data"), os.path.join(root, "run")
+    layout = "h5" if importlib.util.find_spec("h5py") else "npy"
+    t0 = time.perf_counter()
+    info = write_reference_dataset(
+        data, n_train=CLI_TRAIN_VIDEOS, n_val=CLI_VAL_VIDEOS,
+        feat_dim=dc.feat_dim, seed=seed, features=layout,
+        clips=CLI_CLIPS, rows=CLI_ROWS)
+    val_keys = set(info["keys"]["val"])
+    log(f"  7b: {CLI_TRAIN_VIDEOS} train / {CLI_VAL_VIDEOS} val videos "
+        f"in the reference layout, features as {layout} (h5py "
+        f"{'present' if layout == 'h5' else 'absent'}), clips "
+        f"{CLI_CLIPS[0]}-{CLI_CLIPS[1] - 1} of "
+        f"{CLI_ROWS[0]}-{CLI_ROWS[1] - 1} rows, feat {dc.feat_dim}: "
+        f"{time.perf_counter() - t0:.2f} s (set-up)")
 
-        widths = ["--vocab_size", str(dc.vocab_size), "--word_dim",
-                  str(mc.word_dim), "--feat_dim", str(mc.feat_dim),
-                  "--rnn_hidden", str(mc.rnn_hidden), "--embed_size",
-                  str(mc.embed_size), "--max_clips", str(dc.max_clips),
-                  "--max_frames", str(dc.max_frames), "--max_sentences",
-                  str(dc.max_sentences), "--max_words", str(dc.max_words),
-                  "--batch_size", str(dc.batch_size)]
-        log("  7c: cli.build_vocab, cli.train (cmhse_full, "
-            + " ".join(widths) + ", 1 epoch)")
-        stage("build_vocab", lambda: ok(build_vocab.main(
-            ["--data_path", data, "--threshold", "1"]), "build_vocab"),
-            counted=False)
-        _, train_counts = stage("train", lambda: ok(train_cli.main(
-            ["--preset", "cmhse_full", "--data_path", data, *widths,
-             "--num_epochs", "1", "--snapshot_step", "4", "--val_step", "0",
-             "--log_step", "1", "--seed", str(seed), "--logger_name", run]),
-            "train"))
-        events = {e for e in ("train_step", "epoch_end", "validate")
-                  if jsonl(os.path.join(run, "log.jsonl"), e)}
-        if events != {"train_step", "epoch_end", "validate"} or \
-                not os.path.exists(os.path.join(run, "best")):
-            raise AssertionError(f"the train run logged {events}")
-        for k in ("gru_fwd float32 save_gates",
-                  "gru_fwd float32 save_gates+with_h0", "gru_bwd float32",
-                  "simhinge float32", "gru_fwd float32 encode"):
-            if total(train_counts, k) <= 0:
-                raise AssertionError(f"cli.train launched no {k}")
+    widths = ["--vocab_size", str(dc.vocab_size), "--word_dim",
+              str(mc.word_dim), "--feat_dim", str(mc.feat_dim),
+              "--rnn_hidden", str(mc.rnn_hidden), "--embed_size",
+              str(mc.embed_size), "--max_clips", str(dc.max_clips),
+              "--max_frames", str(dc.max_frames), "--max_sentences",
+              str(dc.max_sentences), "--max_words", str(dc.max_words),
+              "--batch_size", str(dc.batch_size)]
+    log("  7c: cli.build_vocab, cli.train (cmhse_full, "
+        + " ".join(widths) + ", 1 epoch)")
+    stage("build_vocab", lambda: ok(build_vocab.main(
+        ["--data_path", data, "--threshold", "1"]), "build_vocab"),
+        counted=False)
+    _, train_counts = stage("train", lambda: ok(train_cli.main(
+        ["--preset", "cmhse_full", "--data_path", data, *widths,
+         "--num_epochs", "1", "--snapshot_step", "4", "--val_step", "0",
+         "--log_step", "1", "--seed", str(seed), "--logger_name", run]),
+        "train"))
+    events = {e for e in ("train_step", "epoch_end", "validate")
+              if jsonl(os.path.join(run, "log.jsonl"), e)}
+    if events != {"train_step", "epoch_end", "validate"} or \
+            not os.path.exists(os.path.join(run, "best")):
+        raise AssertionError(f"the train run logged {events}")
+    for k in ("gru_fwd float32 save_gates",
+              "gru_fwd float32 save_gates+with_h0", "gru_bwd float32",
+              "simhinge float32", "gru_fwd float32 encode"):
+        if total(train_counts, k) <= 0:
+            raise AssertionError(f"cli.train launched no {k}")
 
-        log("  7d: cli.evaluate --streaming --dump_ranks, as a module in a "
-            "subprocess, then in this process")
-        dump_sub = os.path.join(root, "ranks_sub.jsonl")
-        env = dict(os.environ, PYTHONPATH=str(ROOT))
-        proc, _ = stage("evaluate (subprocess)", lambda: subprocess.run(
-            [sys.executable, "-m", "cmhse_tpu_torch.cli.evaluate", run,
-             "--streaming", "--dump_ranks", dump_sub], cwd=ROOT, env=env,
-            capture_output=True, text=True, timeout=600), counted=False)
-        log("  " + "\n  ".join(proc.stdout.strip().splitlines()[-4:]))
-        if proc.returncode != 0:
-            raise AssertionError(f"cli.evaluate: rc {proc.returncode}\n"
-                                 f"{proc.stderr[-4000:]}")
-        dump_in = os.path.join(root, "ranks_in.jsonl")
-        _, eval_counts = stage("evaluate (in process)", lambda: ok(
-            evaluate.main([run, "--streaming", "--dump_ranks", dump_in]),
-            "evaluate"))
-        rows = dump_rows(dump_sub)
-        if total(eval_counts, "rankcount float32") != 2 or \
-                total(eval_counts, "gru_fwd float32 encode") <= 0:
-            raise AssertionError(f"cli.evaluate launches {eval_counts}")
-        if dump_rows(dump_in) != rows or len(rows) != CLI_VAL_VIDEOS:
-            raise AssertionError("the subprocess's dump differs from the "
-                                 "in-process one")
+    log("  7d: cli.evaluate --streaming --dump_ranks, as a module in a "
+        "subprocess, then in this process")
+    dump_sub = os.path.join(root, "ranks_sub.jsonl")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc, _ = stage("evaluate (subprocess)", lambda: subprocess.run(
+        [sys.executable, "-m", "cmhse_tpu_torch.cli.evaluate", run,
+         "--streaming", "--dump_ranks", dump_sub], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=600), counted=False)
+    log("  " + "\n  ".join(proc.stdout.strip().splitlines()[-4:]))
+    if proc.returncode != 0:
+        raise AssertionError(f"cli.evaluate: rc {proc.returncode}\n"
+                             f"{proc.stderr[-4000:]}")
+    dump_in = os.path.join(root, "ranks_in.jsonl")
+    _, eval_counts = stage("evaluate (in process)", lambda: ok(
+        evaluate.main([run, "--streaming", "--dump_ranks", dump_in]),
+        "evaluate"))
+    rows = dump_rows(dump_sub)
+    if total(eval_counts, "rankcount float32") != 2 or \
+            total(eval_counts, "gru_fwd float32 encode") <= 0:
+        raise AssertionError(f"cli.evaluate launches {eval_counts}")
+    if dump_rows(dump_in) != rows or len(rows) != CLI_VAL_VIDEOS:
+        raise AssertionError("the subprocess's dump differs from the "
+                             "in-process one")
 
-        def dense():
-            model, rcfg = restore_for_eval(run)
-            ds = PrecompDataset(data, "val",
-                                Vocabulary.load(os.path.join(
-                                    data, "vocab.json")),
-                                feat_dim=rcfg.data.feat_dim)
-            batches = list(batches_from_dataset(ds, rcfg.data,
-                                                shuffle=False))
-            _, ranks = validate_metrics(model, batches, streaming=False,
-                                        return_ranks=True)
-            v, p, valid = encode_gallery_device(model, batches)
-            return ranks, (v[valid] @ p[valid].T).float()
+    def dense():
+        model, rcfg = restore_for_eval(run)
+        ds = PrecompDataset(data, "val",
+                            Vocabulary.load(os.path.join(
+                                data, "vocab.json")),
+                            feat_dim=rcfg.data.feat_dim)
+        batches = list(batches_from_dataset(ds, rcfg.data,
+                                            shuffle=False))
+        _, ranks = validate_metrics(model, batches, streaming=False,
+                                    return_ranks=True)
+        v, p, valid = encode_gallery_device(model, batches)
+        return ranks, (v[valid] @ p[valid].T).float()
 
-        (ranks, sims), _ = stage("dense validate_metrics (comparison)",
-                                 dense, counted=False)
-        n_diff, gaps = 0, []
-        for key, direction, s in (("v2p_ranks", "v2p_rank", sims),
-                                  ("p2v_ranks", "p2v_rank", sims.T)):
-            dumped = np.asarray([r[direction] for r in rows])
-            differ = np.flatnonzero(dumped != ranks[key])
-            n_diff += len(differ)
-            check_rank_band(torch, dumped, s, direction)
-            for i in differ:  # how near the positive's closest rival lies
-                gap = (s[i] - s[i, i]).abs()
-                gap[i] = float("inf")
-                gaps.append(float(gap.min()))
-        log(f"  the dump against validate_metrics(streaming=False): {n_diff} "
-            f"of {2 * len(rows)} ranks differ, all within the "
-            f"+-{RANK_TIE_TOL} near-tie band (largest gap to the nearest "
-            f"rival among them {max(gaps, default=0.0):.3g}); keys "
-            f"{rows[0]['key']}..{rows[-1]['key']}")
+    (ranks, sims), _ = stage("dense validate_metrics (comparison)",
+                             dense, counted=False)
+    n_diff, gaps = 0, []
+    for key, direction, s in (("v2p_ranks", "v2p_rank", sims),
+                              ("p2v_ranks", "p2v_rank", sims.T)):
+        dumped = np.asarray([r[direction] for r in rows])
+        differ = np.flatnonzero(dumped != ranks[key])
+        n_diff += len(differ)
+        check_rank_band(torch, dumped, s, direction)
+        for i in differ:  # how near the positive's closest rival lies
+            gap = (s[i] - s[i, i]).abs()
+            gap[i] = float("inf")
+            gaps.append(float(gap.min()))
+    log(f"  the dump against validate_metrics(streaming=False): {n_diff} "
+        f"of {2 * len(rows)} ranks differ, all within the "
+        f"+-{RANK_TIE_TOL} near-tie band (largest gap to the nearest "
+        f"rival among them {max(gaps, default=0.0):.3g}); keys "
+        f"{rows[0]['key']}..{rows[-1]['key']}")
 
-        log("  7e: cli.export_torch -> .pth.tar, cli.import_torch, "
-            "cli.evaluate --dump_ranks of the import")
-        pth = os.path.join(root, "exported.pth.tar")
-        imported = os.path.join(root, "imported")
-        stage("export_torch", lambda: ok(export_torch.main([run, pth]),
-                                         "export_torch"))
-        stage("import_torch", lambda: ok(import_torch.main([pth, imported]),
-                                         "import_torch"))
-        a, _ = restore_for_eval(run, device="cpu")
-        b, _ = restore_for_eval(imported, device="cpu")
-        sa, sb = a.state_dict(), b.state_dict()
-        unequal = [k for k in sa if k not in sb or not torch.equal(sa[k],
-                                                                   sb[k])]
-        if unequal or sorted(sa) != sorted(sb):
-            raise AssertionError(f"the round trip changed {unequal}")
-        n_params = sum(v.numel() for v in sa.values())
-        log(f"  round trip: {len(sa)} tensors, {n_params:,} parameters, "
-            f"bit-equal; {os.path.getsize(pth) / 2**20:.1f} MiB file")
-        dump_imp = os.path.join(root, "ranks_imported.jsonl")
-        stage("evaluate (import)", lambda: ok(evaluate.main(
-            [imported, "--data_path", data, "--streaming", "--dump_ranks",
-             dump_imp]), "evaluate"))
-        if dump_rows(dump_imp) != rows:
-            raise AssertionError("the imported model's dump differs")
+    log("  7e: cli.export_torch -> .pth.tar, cli.import_torch, "
+        "cli.evaluate --dump_ranks of the import")
+    pth = os.path.join(root, "exported.pth.tar")
+    imported = os.path.join(root, "imported")
+    stage("export_torch", lambda: ok(export_torch.main([run, pth]),
+                                     "export_torch"))
+    stage("import_torch", lambda: ok(import_torch.main([pth, imported]),
+                                     "import_torch"))
+    a, _ = restore_for_eval(run, device="cpu")
+    b, _ = restore_for_eval(imported, device="cpu")
+    sa, sb = a.state_dict(), b.state_dict()
+    unequal = [k for k in sa if k not in sb or not torch.equal(sa[k],
+                                                               sb[k])]
+    if unequal or sorted(sa) != sorted(sb):
+        raise AssertionError(f"the round trip changed {unequal}")
+    n_params = sum(v.numel() for v in sa.values())
+    log(f"  round trip: {len(sa)} tensors, {n_params:,} parameters, "
+        f"bit-equal; {os.path.getsize(pth) / 2**20:.1f} MiB file")
+    dump_imp = os.path.join(root, "ranks_imported.jsonl")
+    stage("evaluate (import)", lambda: ok(evaluate.main(
+        [imported, "--data_path", data, "--streaming", "--dump_ranks",
+         dump_imp]), "evaluate"))
+    if dump_rows(dump_imp) != rows:
+        raise AssertionError("the imported model's dump differs")
 
-        log("  7f: cli.retrieve, one --query and one --query_video, -k 5")
-        buf = io.StringIO()
-        query = "a man runs in the park."
-        qkey = info["keys"]["val"][0]
+    log("  7f: cli.retrieve, one --query and one --query_video, -k 5")
+    buf = io.StringIO()
+    query = "a man runs in the park."
+    qkey = info["keys"]["val"][0]
 
-        def run_retrieve():
-            with contextlib.redirect_stdout(buf):
-                ok(retrieve.main([run, "--query", query, "--query_video",
-                                  qkey, "-k", "5"]), "retrieve")
+    def run_retrieve():
+        with contextlib.redirect_stdout(buf):
+            ok(retrieve.main([run, "--query", query, "--query_video",
+                              qkey, "-k", "5"]), "retrieve")
 
-        stage("retrieve", run_retrieve)
-        hits = read_hits(buf.getvalue())
-        for label, got in hits.items():
-            log(f"  {label} -> " + ", ".join(f"{k} {s:.4f}" for k, s in got))
-        if len(hits) != 2 or any(len(h) != 5 or not {k for k, _ in h}
-                                 <= val_keys for h in hits.values()):
-            raise AssertionError(f"cli.retrieve's hits {hits}")
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
+    stage("retrieve", run_retrieve)
+    hits = read_hits(buf.getvalue())
+    for label, got in hits.items():
+        log(f"  {label} -> " + ", ".join(f"{k} {s:.4f}" for k, s in got))
+    if len(hits) != 2 or any(len(h) != 5 or not {k for k, _ in h}
+                             <= val_keys for h in hits.values()):
+        raise AssertionError(f"cli.retrieve's hits {hits}")
     log("  stage seconds: " + json.dumps(
         {k: round(v, 3) for k, v in stage_s.items()}))
-    return dict(counts=dict(cli_counts))
+    return dict(counts=dict(cli_counts), run=run, data=data,
+                val_keys=info["keys"]["val"])
+
+
+# phase 8: the serving stack
+INT8_ROWS = 1 << 20  # 8a: unit rows, plus INT8_PAD invalid tail rows
+INT8_PAD = 128
+INT8_QUERIES = 1024
+INT8_APPEND = 4096
+DAEMON_QUERIES = 8  # 8b: text requests, and video_key requests
+LIVE_VIDEOS = 64    # 8b: the split added while the daemon serves
+SPLICE_ROWS = 40_000  # 8c: the JAX package's streaming-scale gallery
+# the least share of the exact top-k rows in the int8 pool (8a, 8c): a
+# broken quantizer or scale lowers it; 1.0 was measured at every size
+CAPTURE_FLOOR = 0.99
+
+
+def int8_pool(torch, q, prep, k: int, rescore_m=None):
+    """The candidate pool ``quantized_sim_topk`` rescores for each query
+    (its first stage, step by step, through the module's own helpers)."""
+    from cmhse_tpu_torch.ops import topk
+
+    n_chunks, csize, _ = prep.int8_chunks.shape
+    m = min(max(64, 4 * k) if rescore_m is None else rescore_m,
+            n_chunks * csize)
+    kk = min(max(k, -(-m // n_chunks)), csize)
+    qi, _ = topk._quantize_rows_int8(q)
+    cand = []
+    for ci in range(n_chunks):
+        sims = (topk.int8_product(qi, prep.int8_chunks[ci]).float()
+                * prep.int8_scale[ci][None, :])
+        sims = torch.where(prep.valid[ci][None, :], sims, float("-inf"))
+        cand.append(topk._chunk_topk(sims, kk)[1] + ci * csize)
+    return torch.cat(cand, dim=1)
+
+
+def classify_slots(torch, want_s, want_i, got_s, got_i, pool=None) -> dict:
+    """The (query, rank) slots whose index differs between an exact top-k
+    (``want``) and another (``got``), each explained as a pool miss (an
+    exact row at this rank or above is not in the query's pool, which
+    shifts the ranks below it) or a near tie (the two scores at this rank
+    within RANK_TIE_TOL); ``other`` counts the rest. ``capture``: the share
+    of exact rows in the pool."""
+    want_s, want_i, got_s, got_i = (torch.as_tensor(x).to(want_i.device)
+                                    for x in (want_s, want_i, got_s, got_i))
+    moved = got_i != want_i
+    near = (got_s - want_s).abs() <= RANK_TIE_TOL
+    if pool is None:
+        in_pool = torch.ones_like(moved)
+    else:
+        in_pool = (pool[:, :, None] == want_i[:, None, :]).any(dim=1)
+    missed_above = torch.cummax((~in_pool).int(), dim=1).values.bool()
+    miss = moved & missed_above
+    tie = moved & ~miss & near
+    other = moved & ~miss & ~near
+    return dict(slots=moved.numel(), differ=int(moved.sum()),
+                miss=int(miss.sum()), tie=int(tie.sum()),
+                other=int(other.sum()),
+                capture=None if pool is None
+                else float(in_pool.float().mean()))
+
+
+def profile_kernels(torch, fn, top: int = 6) -> tuple[float, float, list]:
+    """torch.profiler over ``fn()``: wall ms, device-busy ms, and the
+    ``top`` kernels by device time as (name, ms, calls)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                      for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA
+                      and not e.key.startswith("Activity Buffer")),
+                     key=lambda x: -x[1])
+    busy_ms = sum(ms for _, ms, _ in kernels)
+    if busy_ms <= 0:
+        raise AssertionError("the profiler recorded no device time")
+    return wall_ms, busy_ms, kernels[:top]
+
+
+def check_slots(what: str, c: dict) -> None:
+    capture = ("" if c["capture"] is None
+               else f"; capture rate {c['capture']:.6f}")
+    log(f"  {what}: {c['differ']} of {c['slots']} (query, rank) slots "
+        f"differ from the reference: {c['miss']} below a pool miss, "
+        f"{c['tie']} near ties (<= {RANK_TIE_TOL}){capture}")
+    if c["other"]:
+        raise AssertionError(f"{what}: {c['other']} slots differ with no "
+                             "pool miss and no near tie")
+    if c["capture"] is not None and not c["capture"] >= CAPTURE_FLOOR:
+        raise AssertionError(f"{what}: capture rate {c['capture']} below "
+                             f"{CAPTURE_FLOOR}")
+
+
+def phase_int8(torch, np, rng) -> None:
+    """8a: the int8 two-stage top-k against the exact streaming one at a
+    million rows, at the Retriever level: prepare, queries per second,
+    an append against a re-prepare, a compaction after a 1% remove; the
+    int8 product's two candidates and the grouped pre-select against the
+    plain per-chunk top-k, each timed in the whole top-k."""
+    from cmhse_tpu_torch.eval.serve import Retriever
+    from cmhse_tpu_torch.ops import topk
+    from cmhse_tpu_torch.ops.similarity import l2norm
+
+    dev = torch.device("cuda")
+    gen = card_generator(torch, rng)
+    n, d, k = INT8_ROWS, 1024, 10
+    rows = n + INT8_PAD
+    g = l2norm(torch.randn(rows, d, device=dev, generator=gen))
+    valid = torch.arange(rows, device=dev) < n
+    q = l2norm(torch.randn(INT8_QUERIES, d, device=dev, generator=gen))
+    encoded = (g, g, valid, np.arange(rows))
+    retr = {}
+    for name, quantize in (("exact", False), ("int8", True)):
+        r = Retriever(None, quantize=quantize)
+        t0 = time.perf_counter()
+        r.build_gallery(encoded=encoded)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        prep_ms = cuda_ms(lambda: topk.prepare_topk_gallery(
+            g, valid, quantize=quantize), reps=3, warmup=1)
+        retr[name] = r
+        log(f"  {name}: prepare {prep_ms:.3f} ms (build_gallery with the "
+            f"key index {build_s:.3f} s); chunks "
+            f"{tuple(r._prepared.chunks.shape)}")
+    exact, int8 = retr["exact"], retr["int8"]
+    pe, p8 = exact._prepared, int8._prepared
+    if not topk.should_stream_topk(INT8_QUERIES, rows):
+        raise AssertionError("the exact path would not stream here")
+
+    with torch.inference_mode():
+        want_s, want_i = topk.streaming_sim_topk(q, pe, k)
+        got_s, got_i = topk.quantized_sim_topk(q, p8, k)
+        pool = int8_pool(torch, q, p8, k)
+        check_slots(f"int8 vs exact top-{k}, {n:,} rows, Q={INT8_QUERIES}",
+                    classify_slots(torch, want_s, want_i, got_s, got_i,
+                                   pool))
+        dense_s, dense_i = topk.dense_sim_topk(q[:64], g, valid, k)
+        check_slots("exact streaming vs dense (64 queries)",
+                    classify_slots(torch, dense_s, dense_i, want_s[:64],
+                                   want_i[:64]))
+
+        # the int8 product: torch._int_mm against the int8 values as f32
+        # (exact while 127^2 * D < 2^24), on one chunk and in the top-k
+        qi, _ = topk._quantize_rows_int8(q)
+        g8 = p8.int8_chunks[0]
+
+        def f32_product(a, b):
+            return a.float() @ b.float().T
+
+        same = torch.equal(topk.int8_product(qi, g8).float(),
+                           f32_product(qi, g8))
+        mm_ms = cuda_ms(lambda: topk.int8_product(qi, g8))
+        f32_ms = cuda_ms(lambda: f32_product(qi, g8))
+        ops = 2.0 * INT8_QUERIES * g8.shape[0] * d
+        log(f"  int8 product of one chunk ({INT8_QUERIES}x{d} by "
+            f"{g8.shape[0]}x{d}): _int_mm {mm_ms:.4f} ms "
+            f"({ops / mm_ms / 1e9:.1f} TOP/s), int8 values as f32 "
+            f"{f32_ms:.4f} ms; equal {same}")
+        if not same:
+            raise AssertionError("the two int8 products differ")
+        q_ms = cuda_ms(lambda: topk.quantized_sim_topk(q, p8, k), reps=5)
+        with patched(topk, "int8_product", f32_product):
+            q_f32_ms = cuda_ms(lambda: topk.quantized_sim_topk(q, p8, k),
+                               reps=5)
+        e_ms = cuda_ms(lambda: topk.streaming_sim_topk(q, pe, k), reps=5)
+
+        def plain(sims, kk):
+            return topk.topk_lowest_index(sims, kk)
+
+        with patched(topk, "_chunk_topk", plain):
+            e_plain_ms = cuda_ms(lambda: topk.streaming_sim_topk(q, pe, k),
+                                 reps=5)
+            q_plain_ms = cuda_ms(lambda: topk.quantized_sim_topk(q, p8, k),
+                                 reps=5)
+            if not torch.equal(topk.streaming_sim_topk(q, pe, k)[1], want_i) \
+                    or not torch.equal(
+                        topk.quantized_sim_topk(q, p8, k)[1], got_i):
+                raise AssertionError("the plain per-chunk top-k differs "
+                                     "from the grouped pre-select")
+        for name, fn in (
+                ("int8", lambda: topk.quantized_sim_topk(q, p8, k)),
+                ("exact", lambda: topk.streaming_sim_topk(q, pe, k))):
+            wall, busy, kernels = profile_kernels(torch, fn)
+            log(f"  where one {name} call's device time goes "
+                f"(torch.profiler): wall {wall:.3f} ms, device busy "
+                f"{busy:.3f} ms")
+            for kname, ms, calls in kernels:
+                log(f"    {ms:.3f} ms ({100 * ms / busy:.1f}%) in {calls} "
+                    f"call(s): {kname[:100]}")
+    qps = {name: INT8_QUERIES / ms * 1e3 for name, ms in
+           (("int8", q_ms), ("exact", e_ms))}
+    log(f"  top-{k}, Q={INT8_QUERIES}, {n:,} rows: int8 {q_ms:.3f} ms "
+        f"({qps['int8']:,.0f} queries/s; with the f32 product "
+        f"{q_f32_ms:.3f} ms); exact streaming {e_ms:.3f} ms "
+        f"({qps['exact']:,.0f} queries/s); plain per-chunk top-k instead "
+        f"of the grouped pre-select: exact {e_plain_ms:.3f} ms, int8 "
+        f"{q_plain_ms:.3f} ms")
+
+    new = l2norm(torch.randn(INT8_APPEND, d, device=dev, generator=gen))
+    grown = torch.cat([g, new])
+    grown_valid = torch.cat([valid, torch.ones(INT8_APPEND, dtype=torch.bool,
+                                               device=dev)])
+    for name, prep, quantize in (("exact", pe, False), ("int8", p8, True)):
+        app = topk.append_to_prepared(prep, new, n_existing=rows)
+        fresh = topk.prepare_topk_gallery(grown, grown_valid,
+                                          quantize=quantize)
+        total_rows = rows + INT8_APPEND
+        for field in ("chunks", "valid", "int8_chunks", "int8_scale"):
+            a, b = getattr(app, field), getattr(fresh, field)
+            if a is None:
+                continue
+            if not torch.equal(a.reshape(-1, *a.shape[2:])[:total_rows],
+                               b.reshape(-1, *b.shape[2:])[:total_rows]):
+                raise AssertionError(f"{name}: append != re-prepare "
+                                     f"({field})")
+        del app, fresh
+        a_ms = cuda_ms(lambda: topk.append_to_prepared(
+            prep, new, n_existing=rows), reps=3, warmup=1)
+        r_ms = cuda_ms(lambda: topk.prepare_topk_gallery(
+            torch.cat([g, new]), grown_valid, quantize=quantize), reps=3,
+            warmup=1)
+        log(f"  {name}: append {INT8_APPEND:,} rows {a_ms:.3f} ms vs a "
+            f"re-prepare of the concatenation {r_ms:.3f} ms; rows equal")
+    del new, grown, grown_valid
+
+    # the same 1% tombstoned in both; the exact answer after the
+    # compaction equals the one before it mapped through old_to_new (up to
+    # near ties), and the int8 answer after it is held against the exact
+    drop = rng.choice(n, n // 100, replace=False)
+    del pe, p8
+    after = {}
+    for name, r in (("exact", exact), ("int8", int8)):
+        if r.remove_from_gallery(drop.tolist()) != len(drop):
+            raise AssertionError(f"{name}: remove")
+        before_s, before_i = r._search(q, k)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plan = r.plan_compaction()
+        torch.cuda.synchronize()
+        plan_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        old_to_new = r.apply_compaction(plan)
+        apply_s = time.perf_counter() - t0
+        del plan
+        after[name] = [torch.as_tensor(x, device=dev)
+                       for x in r._search(q, k)]
+        log(f"  {name}: removed {len(drop):,} rows (1%); plan_compaction "
+            f"{plan_s:.3f} s, apply_compaction {apply_s * 1e3:.3f} ms; "
+            f"{r.n_valid:,} valid rows")
+        if name == "exact":
+            c = classify_slots(
+                torch, torch.as_tensor(before_s, device=dev),
+                torch.as_tensor(old_to_new[before_i], device=dev),
+                *after["exact"])
+            check_slots(f"exact top-{k} after the compaction vs before, "
+                        "mapped through old_to_new", c)
+        else:
+            with torch.inference_mode():
+                pool = int8_pool(torch, q, r._prepared, k)
+            check_slots(f"int8 top-{k} after the compaction vs the exact",
+                        classify_slots(torch, *after["exact"],
+                                       *after["int8"], pool))
+    del exact, int8, retr, g, valid, q, encoded, after
+    torch.cuda.empty_cache()
+
+
+def embed_texts(torch, model, vocab, cfg, texts):
+    """Text embeddings of ``texts`` as the Retriever makes them."""
+    from cmhse_tpu_torch.eval.serve import text_query_batch
+
+    batch = text_query_batch(vocab, texts, cfg.data.max_sentences,
+                             cfg.data.max_words)
+    with torch.inference_mode():
+        return model.encode_text(*(torch.as_tensor(a).to(model.device)
+                                   for a in batch))[0]
+
+
+def wait_for_socket(path: str, thread, seconds: float = 300.0) -> None:
+    """Until the daemon at ``path`` accepts a connection (its start-up
+    encode done); raises if its thread died or time ran out."""
+    import socket
+
+    deadline = time.monotonic() + seconds
+    while True:
+        try:
+            with socket.socket(socket.AF_UNIX, socket.SOCK_STREAM) as s:
+                s.settimeout(10)
+                s.connect(path)
+            return
+        except OSError:
+            if not thread.is_alive() or time.monotonic() > deadline:
+                raise AssertionError("the daemon did not start")
+            time.sleep(0.05)
+
+
+def same_hits(torch, what, hits, want_keys, want_s, key_rows) -> dict:
+    """A daemon's hit lists against a direct top-k (keys and scores), as
+    (query, rank) slots: differences must be near ties."""
+    got_i = torch.tensor([[key_rows[h["key"]] for h in row]
+                          for row in hits])
+    got_s = torch.tensor([[h["score"] for h in row] for row in hits])
+    want_i = torch.tensor([[key_rows[k] for k in row] for row in want_keys])
+    err = float((got_s - torch.as_tensor(want_s).float()).abs().max())
+    if not err <= SCORE_ATOL:
+        raise AssertionError(f"{what}: scores off by {err}")
+    c = classify_slots(torch, torch.as_tensor(want_s).float(), want_i,
+                       got_s, got_i)
+    check_slots(what, c)
+    return c
+
+
+def phase_daemon(torch, np, seed: int, cli: dict) -> dict:
+    """8b: ``serve_daemon.main`` on phase 7's best checkpoint and data on a
+    thread of this process (``--socket --warm --batch_window_ms 2``),
+    driven by the port's client: text and video_key requests against a
+    direct Retriever, an add racing a second client's queries, remove,
+    compact, stats, shutdown. The direct Retrievers' answers and the
+    add's reference encode are made first; the launch counts are set to 0
+    just before the daemon starts and read after it stops, so they are the
+    daemon's own. The add's gru_fwd launches are counted on its own thread
+    (the racing client's queries launch on others) and held to those of
+    one encode of the same split."""
+    import os
+    import threading
+
+    from cmhse_tpu_torch.cli import serve_daemon
+    from cmhse_tpu_torch.client import ServeClient
+    from cmhse_tpu_torch.data import (PrecompDataset, Vocabulary,
+                                      batches_from_dataset)
+    from cmhse_tpu_torch.data.fixtures import (make_sentence,
+                                               write_reference_dataset)
+    from cmhse_tpu_torch.eval.encode import encode_gallery_device
+    from cmhse_tpu_torch.eval.serve import Retriever, video_query_batch
+    from cmhse_tpu_torch.ops import cuda_lib
+    from cmhse_tpu_torch.train.checkpoint import restore_for_eval
+
+    run, data = cli["run"], cli["data"]
+    rng = np.random.RandomState(seed + 8)
+    texts = [make_sentence(rng) for _ in range(DAEMON_QUERIES)]
+    vkeys = cli["val_keys"][:DAEMON_QUERIES]
+    # the direct Retrievers the daemon's answers are held against
+    model, cfg = restore_for_eval(run)
+    t0 = time.perf_counter()
+    write_reference_dataset(data, splits=[("live", LIVE_VIDEOS)],
+                            feat_dim=cfg.data.feat_dim, seed=seed + 8,
+                            features="npy", clips=CLI_CLIPS, rows=CLI_ROWS)
+    log(f"  a 'live' split of {LIVE_VIDEOS} videos written under the data "
+        f"root for the add: {time.perf_counter() - t0:.2f} s (set-up)")
+    vocab = Vocabulary.load(os.path.join(data, "vocab.json"))
+    ds = PrecompDataset(data, "val", vocab, feat_dim=cfg.data.feat_dim)
+    enc = encode_gallery_device(
+        model, batches_from_dataset(ds, cfg.data, shuffle=False),
+        return_ids=True)
+    direct_v, direct_t = Retriever(model), Retriever(model)
+    direct_v.build_gallery(encoded=enc, side="video")
+    direct_t.build_gallery(encoded=enc, side="text")
+    key_rows = {k: i for i, k in enumerate(ds.keys)}
+    ids = enc[3]
+    from cmhse_tpu_torch.eval.serve import text_query_batch
+
+    ws, wi = direct_v.retrieve(*text_query_batch(
+        vocab, texts, cfg.data.max_sentences, cfg.data.max_words), k=10)
+    vs, vi = direct_t.retrieve_video(
+        *video_query_batch(ds, cfg.data, vkeys), k=10)
+    # one encode of the live split, as the daemon's add makes it
+    live = PrecompDataset(data, "live", vocab, feat_dim=cfg.data.feat_dim,
+                          flat=not cfg.model.hierarchical)
+    before = cuda_lib.thread_launch_count("gru_fwd")
+    encode_gallery_device(model, batches_from_dataset(live, cfg.data,
+                                                      shuffle=False),
+                          return_ids=True)
+    want_add_launches = cuda_lib.thread_launch_count("gru_fwd") - before
+    if want_add_launches < 4:  # 4 GRUs a batch
+        raise AssertionError(f"an encode of the live split launched "
+                             f"{want_add_launches} gru_fwd")
+    add_launches = {}
+
+    def counted_add(req, ctx, _add=serve_daemon._handle_add):
+        before = cuda_lib.thread_launch_count("gru_fwd")
+        try:
+            return _add(req, ctx)
+        finally:
+            add_launches["n"] = (cuda_lib.thread_launch_count("gru_fwd")
+                                 - before)
+
+    sock = os.path.join(os.path.dirname(run), "daemon.sock")
+    rc = {}
+
+    def serve():
+        try:
+            rc["rc"] = serve_daemon.main([run, "--socket", sock,
+                                          "--data_path", data, "--warm",
+                                          "--batch_window_ms", "2"])
+        except BaseException as e:  # reported by the checks below
+            rc["error"] = repr(e)
+            raise
+
+    cuda_lib.reset_launches()
+    t_start = time.perf_counter()
+    thread = threading.Thread(target=serve, daemon=True)
+    thread.start()
+    try:
+        wait_for_socket(sock, thread)
+    except AssertionError:
+        raise AssertionError(f"the daemon did not start: {rc}")
+    start_s = time.perf_counter() - t_start
+    log(f"  daemon up in {start_s:.2f} s (restore, encode of "
+        f"{len(ds)} videos, --warm)")
+    with ServeClient(socket_path=sock, timeout=300) as c:
+        t_hits, v_hits, req_ms = [], [], []
+        for text in texts:
+            t0 = time.perf_counter()
+            t_hits.append(c.query(text, k=10))
+            req_ms.append((time.perf_counter() - t0) * 1e3)
+        for key in vkeys:
+            t0 = time.perf_counter()
+            v_hits.append(c.query_video(key, k=10))
+            req_ms.append((time.perf_counter() - t0) * 1e3)
+        log(f"  {DAEMON_QUERIES} text and {DAEMON_QUERIES} video_key "
+            f"requests, k=10, round trips (ms, in order): "
+            + " ".join(f"{ms:.2f}" for ms in req_ms))
+        same_hits(torch, "daemon text queries vs a direct Retriever",
+                  t_hits, [[ds.keys[ids[j]] for j in row] for row in wi], ws,
+                  key_rows)
+        same_hits(torch, "daemon video_key queries vs a direct Retriever",
+                  v_hits, [[ds.keys[ids[j]] for j in row] for row in vi], vs,
+                  key_rows)
+
+        # an add on one connection while another keeps querying
+        racing = {"n": 0, "err": None}
+        add_done = threading.Event()
+
+        def querier():
+            try:
+                with ServeClient(socket_path=sock, timeout=300) as c2:
+                    while True:
+                        hits = c2.query(texts[racing["n"] % len(texts)],
+                                        k=10)
+                        if len(hits) != 10:
+                            raise AssertionError(f"racing query: {hits}")
+                        racing["n"] += 1
+                        if add_done.is_set():
+                            return
+            except Exception as e:  # reported below
+                racing["err"] = e
+
+        q_thread = threading.Thread(target=querier, daemon=True)
+        q_thread.start()
+        while racing["n"] == 0 and q_thread.is_alive():
+            time.sleep(0.001)
+        before = cuda_lib.launch_count("gru_fwd")
+        n_before = racing["n"]
+        t0 = time.perf_counter()
+        with patched(serve_daemon, "_handle_add", counted_add):
+            added = c.add("live")
+        add_s = time.perf_counter() - t0
+        all_launches = cuda_lib.launch_count("gru_fwd") - before
+        during = racing["n"] - n_before
+        add_done.set()
+        q_thread.join(timeout=300)
+        if q_thread.is_alive() or racing["err"] is not None:
+            raise AssertionError(f"the racing client failed: "
+                                 f"{racing['err']!r}")
+        log(f"  add of {added['added']} videos: {add_s:.3f} s, "
+            f"{add_launches.get('n')} gru_fwd launches on the add's thread "
+            f"(one encode of the split: {want_add_launches}); "
+            f"{all_launches} on all threads meanwhile, with {during} racing "
+            f"queries; the second client answered {racing['n']} queries, "
+            f"all 10 hits; valid rows {added['valid_rows']}")
+        if added["added"] != LIVE_VIDEOS or \
+                added["valid_rows"] != len(ds) + LIVE_VIDEOS:
+            raise AssertionError(f"add: {added}")
+        if add_launches.get("n") != want_add_launches:
+            raise AssertionError(f"the add launched {add_launches} gru_fwd, "
+                                 f"an encode of its split "
+                                 f"{want_add_launches}")
+        live_hits = c.query_video("v_live000", k=5)
+        if len(live_hits) != 5:
+            raise AssertionError(f"an added video as a query: {live_hits}")
+
+        victims = list(dict.fromkeys([t_hits[0][0]["key"], "v_live001",
+                                      *vkeys[1:4]]))
+        removed = c.remove(victims)
+        after = c.query(texts[0], k=10)
+        if removed != len(victims) or \
+                {h["key"] for h in after} & set(victims):
+            raise AssertionError(f"remove: {removed}, {after}")
+        compacted = c.compact()
+        stats = c.stats()
+        log(f"  remove {removed}, compact {compacted}; stats: "
+            + json.dumps({k: stats[k] for k in (
+                "gallery_rows", "valid_rows", "prepared", "quantized",
+                "requests_served", "compactions", "latency_ms_p50",
+                "latency_ms_p90", "latency_ms_p99")}))
+        if stats["valid_rows"] != len(ds) + LIVE_VIDEOS - len(victims) or \
+                stats["invalid_fraction"] != 0.0:
+            raise AssertionError(f"stats {stats}")
+        c.shutdown()
+    thread.join(timeout=120)
+    if thread.is_alive() or rc.get("rc") != 0:
+        raise AssertionError(f"the daemon's main returned {rc}")
+    counts = launch_counts()
+    log(f"  daemon {time.perf_counter() - t_start:.2f} s from start to "
+        f"shutdown; launches {counts}")
+    return dict(counts=counts, texts=texts, model=model, vocab=vocab,
+                cfg=cfg)
+
+
+def phase_splice(torch, np, cli: dict, dmn: dict) -> dict:
+    """8c: the JAX package's streaming-scale case at full width: a daemon
+    context (``build_context --quantized``) with SPLICE_ROWS spliced unit
+    rows, served on a socket: the same text queries, an add, a remove
+    past ``compact_threshold`` (auto-compaction), stats; the answers held
+    against the exact top-k, differences pool misses or near ties."""
+    import os
+    import threading
+
+    from cmhse_tpu_torch.cli import serve_daemon
+    from cmhse_tpu_torch.client import ServeClient
+    from cmhse_tpu_torch.data.fixtures import splice_synthetic_gallery
+    from cmhse_tpu_torch.ops import cuda_lib, topk
+
+    # the reference text embeddings, before the daemon's count starts
+    q = embed_texts(torch, dmn["model"], dmn["vocab"], dmn["cfg"],
+                    dmn["texts"])
+    cuda_lib.reset_launches()
+    t0 = time.perf_counter()
+    ctx = serve_daemon.build_context(cli["run"], cli["data"], "val",
+                                     quantized=True, compact_threshold=0.012,
+                                     batch_window_ms=2.0)
+    splice_synthetic_gallery(ctx, SPLICE_ROWS)
+    r = ctx["retriever"]
+    if r._prepared is None or r._prepared.int8_chunks is None:
+        raise AssertionError("the spliced gallery is not held in int8")
+    log(f"  context and {SPLICE_ROWS:,} spliced rows: "
+        f"{time.perf_counter() - t0:.2f} s (set-up); chunks "
+        f"{tuple(r._prepared.chunks.shape)}")
+    sock = os.path.join(os.path.dirname(cli["run"]), "splice.sock")
+    thread = threading.Thread(target=serve_daemon.serve_forever,
+                              args=(ctx, sock), daemon=True)
+    thread.start()
+    wait_for_socket(sock, thread)
+
+    def check(what, hits):
+        key_rows = {ctx["keys"][int(gk)]: row
+                    for row, gk in enumerate(r.gallery_keys)
+                    if gk is not None and r._valid_host[row]}
+        with torch.inference_mode():
+            want_s, want_i = topk.dense_sim_topk(q, r.gallery,
+                                                 r.gallery_valid, 10)
+            pool = int8_pool(torch, q, r._prepared, 16)
+        got_i = torch.tensor([[key_rows[h["key"]] for h in row]
+                              for row in hits], device=want_i.device)
+        got_s = torch.tensor([[h["score"] for h in row] for row in hits],
+                             device=want_i.device)
+        check_slots(what, classify_slots(torch, want_s, want_i, got_s,
+                                         got_i, pool))
+
+    with ServeClient(socket_path=sock, timeout=300) as c:
+        t0 = time.perf_counter()
+        base = c.query(dmn["texts"], k=10)
+        log(f"  {len(base)} text queries in one request against "
+            f"{SPLICE_ROWS:,} rows, int8: {(time.perf_counter() - t0) * 1e3:.2f}"
+            " ms round trip")
+        check("spliced, int8, vs the exact top-10 (pool of the daemon's k "
+              "bucket, 16)", base)
+        added = c.add("val")
+        protect = {h["key"] for row in base for h in row}
+        victims = [k for k in ctx["keys"][:700] if k not in protect][:600]
+        rm = c.request({"op": "remove", "keys": victims})
+        if rm["removed"] != 600 or "auto_compaction" not in rm:
+            raise AssertionError(f"remove {rm}")
+        again = c.query(dmn["texts"], k=10)
+        check("after an add and a remove with auto-compaction", again)
+        stats = c.stats()
+        log(f"  add {added['added']}, remove {rm['removed']} with "
+            f"auto-compaction {rm['auto_compaction']}; stats "
+            + json.dumps({k: stats[k] for k in (
+                "gallery_rows", "valid_rows", "prepared", "quantized",
+                "compactions", "latency_ms_p50", "latency_ms_p99")}))
+        if not (stats["prepared"] and stats["quantized"]
+                and stats["compactions"] == 1):
+            raise AssertionError(f"stats {stats}")
+        c.shutdown()
+    thread.join(timeout=120)
+    if thread.is_alive():
+        raise AssertionError("the spliced daemon did not stop")
+    counts = launch_counts()
+    log(f"  launches {counts}")
+    return counts
 
 
 def main() -> int:
@@ -2469,9 +3074,28 @@ def main() -> int:
     phase("phase 7a: the native packer vs pad_batch (64 of phase 6's videos)")
     phase_packer(torch, np, train_ds, fit_out["epoch_s"])
     del train_ds, val_ds
-    phase("phase 7: the command-line chain at full cmhse_full width")
-    cli_out = phase_cli(torch, np, args.seed)
-    ccounts = cli_out["counts"]
+    import collections
+    import shutil
+    import tempfile
+
+    cli_root = tempfile.mkdtemp(prefix="cmhse_cli_")
+    try:
+        phase("phase 7: the command-line chain at full cmhse_full width")
+        cli_out = phase_cli(torch, np, args.seed, cli_root)
+        ccounts = cli_out["counts"]
+        phase(f"phase 8a: int8 two-stage top-k vs exact, {INT8_ROWS:,} rows, "
+              f"Q={INT8_QUERIES} (Retriever)")
+        phase_int8(torch, np, rng)
+        phase("phase 8b: serve_daemon.main at full width on phase 7's best "
+              "checkpoint (--socket --warm --batch_window_ms 2)")
+        dmn = phase_daemon(torch, np, args.seed, cli_out)
+        dcounts = collections.Counter(dmn.pop("counts"))
+        phase(f"phase 8c: a daemon context with {SPLICE_ROWS:,} spliced rows, "
+              "--quantized")
+        dcounts.update(phase_splice(torch, np, cli_out, dmn))
+        del dmn
+    finally:
+        shutil.rmtree(cli_root, ignore_errors=True)
 
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith(("jax.", "cmhse_tpu.")))
@@ -2493,14 +3117,16 @@ def main() -> int:
     k4 = "cmhse_tpu/ops/pallas_sim.py:286"
     entries = [
         entry("gru_fwd", "gru_fwd.cu", k1, gru_rows + fwd_rows,
-              "serve+train+fit+cli", total(counts, "gru_fwd float32")
+              "serve+train+fit+cli+daemon", total(counts, "gru_fwd float32")
               + total(tcounts, "gru_fwd float32")
               + total(fcounts, "gru_fwd float32")
-              + total(ccounts, "gru_fwd float32"),
+              + total(ccounts, "gru_fwd float32")
+              + total(dcounts, "gru_fwd float32"),
               launches_by_path={"serve": total(counts, "gru_fwd"),
                                 "train": total(tcounts, "gru_fwd"),
                                 "fit": total(fcounts, "gru_fwd"),
-                                "cli": total(ccounts, "gru_fwd")},
+                                "cli": total(ccounts, "gru_fwd"),
+                                "daemon": total(dcounts, "gru_fwd")},
               launches_train_by_variant={
                   k: n for k, n in tcounts.items() if k.startswith("gru_fwd")},
               launches_fit_by_variant={k: n for k, n in fcounts.items()
@@ -2554,6 +3180,10 @@ def main() -> int:
         if "cli" in e.get("launches_by_path", {}) and \
                 e["launches_by_path"]["cli"] <= 0:
             raise AssertionError(f"the command-line chain launched no "
+                                 f"{e['name']}")
+        if "daemon" in e.get("launches_by_path", {}) and \
+                e["launches_by_path"]["daemon"] <= 0:
+            raise AssertionError(f"the serving daemon launched no "
                                  f"{e['name']}")
     phase("done")
     print(json.dumps({"kernels": entries}), flush=True)

@@ -7,9 +7,11 @@ commands with the same module and flag names::
     python -m cmhse_tpu_torch.cli.import_torch CKPT.pth.tar OUT
     python -m cmhse_tpu_torch.cli.export_torch RUN OUT.pth.tar
     python -m cmhse_tpu_torch.cli.retrieve RUN --query TEXT
+    python -m cmhse_tpu_torch.cli.serve_daemon RUN --socket PATH
 
 Each runs on the CUDA card, and raises where there is none, unless it is
-given ``--platform cpu``.
+given ``--platform cpu`` (``retrieve --connect`` asks a running daemon
+and needs no card).
 """
 
 from __future__ import annotations

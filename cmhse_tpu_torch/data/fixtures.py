@@ -8,7 +8,8 @@ with the matrix nested in a group per video (``f[key]['c3d_features']``)
 or as ``features/{key}.npy``; plus word2vec ``.bin`` vector files. With the
 same seed and arguments the files hold what the JAX package's writes
 (pinned by tests/test_torch_fixtures.py). ``h5py`` is imported only for
-the h5 layout.
+the h5 layout. :func:`splice_synthetic_gallery` puts a synthetic gallery
+of streaming size into a serving daemon's context.
 """
 
 from __future__ import annotations
@@ -108,3 +109,38 @@ def write_word2vec_bin(path: str, words: list[str], dim: int,
             f.write(w.encode("utf-8") + b" ")
             f.write(rng.randn(dim).astype("<f4").tobytes())
             f.write(b"\n")
+
+
+def splice_synthetic_gallery(ctx: dict, n: int, pad: int = 128,
+                             seed: int = 0) -> np.ndarray:
+    """Replace a serving daemon context's startup gallery with ``n``
+    synthetic unit-norm rows (+ ``pad`` invalid tail rows), keyed
+    ``v_syn000000...``, laid out as ``build_context`` lays a gallery out
+    (slot ``s < n`` is row ``s``, padding only at the tail): the daemon then
+    serves a gallery of streaming size without encoding ``n`` videos. The
+    same numpy draw, keys and layout as the JAX package's, so both splice
+    identical rows from one seed. Returns the rows (padding included)."""
+    import torch  # deferred: writing fixtures needs no torch
+
+    r = ctx["retriever"]
+    embed = int(r.gallery.shape[1])
+    rng = np.random.RandomState(seed)
+    v = rng.randn(n + pad, embed).astype(np.float32)
+    v /= np.linalg.norm(v, axis=1, keepdims=True)
+    valid = np.concatenate([np.ones(n, bool), np.zeros(pad, bool)])
+    ids = np.concatenate([np.arange(n), np.zeros(pad, np.int64)])
+    keys = [f"v_syn{i:06d}" for i in range(n)]
+    ctx["keys"] = list(keys)
+    ctx["key_set"] = set(keys)
+    ctx["key_to_row"] = {k: i for i, k in enumerate(keys)}
+    rows = torch.from_numpy(v).to(r.gallery.device)
+    r.build_gallery(encoded=(rows, rows, torch.from_numpy(valid), ids))
+    ctx["retriever_text"] = None
+    # the startup text side would resolve its row ids against the spliced
+    # key table (well-formed, wrong names): drop it, so a video_key request
+    # gets the daemon's "text side unavailable" answer
+    ctx["build_text_side"] = None
+    ctx["added"].clear()
+    ctx["removed_ids"].clear()
+    ctx["removed_keys"].clear()
+    return v

@@ -19,6 +19,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -54,12 +55,23 @@ _SIGNATURES = {
 
 # Kernel launches by (kernel, dtype, variant), for proof that a run went
 # through the kernels: each wrapper adds one to its own key where it
-# launches, and nowhere else.
+# launches, and nowhere else. The serving daemon launches from several
+# threads, so an addition holds a lock; each thread also keeps its own
+# tally (an add encodes on its client's thread while queries launch on
+# others).
 launches: collections.Counter[tuple[str, str, str]] = collections.Counter()
+_launches_lock = threading.Lock()
+_thread = threading.local()
 
 
 def count_launch(kernel: str, dtype: str, variant: str) -> None:
-    launches[(kernel, dtype, variant)] += 1
+    key = (kernel, dtype, variant)
+    with _launches_lock:
+        launches[key] += 1
+    mine = getattr(_thread, "launches", None)
+    if mine is None:
+        mine = _thread.launches = collections.Counter()
+    mine[key] += 1
 
 
 def reset_launches() -> None:
@@ -72,6 +84,14 @@ def launch_count(kernel: str, dtype: str | None = None,
     one is named."""
     return sum(n for (k, d, v), n in launches.items()
                if k == kernel and dtype in (None, d) and variant in (None, v))
+
+
+def thread_launch_count(kernel: str) -> int:
+    """Launches of ``kernel`` made on the calling thread since it started;
+    :func:`reset_launches` leaves this tally alone, so read it as a
+    difference."""
+    mine = getattr(_thread, "launches", None) or {}
+    return sum(n for (k, _, _), n in mine.items() if k == kernel)
 
 
 def _nvcc() -> str:

@@ -19,7 +19,7 @@ from cmhse_tpu_torch.config import ExperimentConfig, get_preset
 torch.set_num_threads(2)
 
 COMMANDS = ("build_vocab", "train", "evaluate", "import_torch",
-            "export_torch", "retrieve")
+            "export_torch", "retrieve", "serve_daemon")
 
 
 def _cfg(argv):
@@ -218,6 +218,7 @@ def _argv(command: str) -> list:
         "import_torch": ["ckpt.pth.tar", "out"],
         "export_torch": ["run", "out.pth.tar"],
         "retrieve": ["run", "--query", "a man runs"],
+        "serve_daemon": ["run", "--tcp", "127.0.0.1:0"],
     }[command]
 
 

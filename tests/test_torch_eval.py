@@ -95,9 +95,12 @@ def test_encode_paths_match_jax(setup):
 @pytest.mark.parametrize("streaming", [False, True])
 def test_retriever_both_directions_match_jax(setup, monkeypatch, streaming):
     jm, params, pm = setup
-    if streaming:  # engage the chunked path on a tiny gallery
+    if streaming:  # engage the chunked path on a tiny gallery: JAX's one
+        # size rule; the port's size rule (a prepared form held) and its
+        # per-request memory rule
         monkeypatch.setattr(jax_serve, "should_stream_topk",
                             lambda n, force=None: True)
+        monkeypatch.setattr(port_serve, "should_prepare_topk", lambda n: True)
         monkeypatch.setattr(port_serve, "should_stream_topk",
                             lambda n_queries, n_gallery: True)
     jenc = jax_encode_gallery(jm, params, _jax_batches(), return_ids=True)

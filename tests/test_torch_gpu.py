@@ -22,7 +22,9 @@ from cmhse_tpu_torch.models import CMHSE, ReconstructionDecoder
 from cmhse_tpu_torch.ops import (cuda_lib, gru_kernel, rankcount_kernel,
                                  simhinge_kernel)
 from cmhse_tpu_torch.train import create_train_state, total_loss, train_step
-from cmhse_tpu_torch.ops.topk import dense_sim_topk, streaming_sim_topk
+from cmhse_tpu_torch.ops.topk import (dense_sim_topk, int8_product,
+                                      prepare_topk_gallery,
+                                      quantized_sim_topk, streaming_sim_topk)
 
 pytestmark = pytest.mark.gpu
 
@@ -174,6 +176,35 @@ def test_topk_on_card_keeps_lowest_index_ties(cuda):
     assert torch.equal(si, di)
     cpu_s, cpu_i = dense_sim_topk(q.cpu(), g.cpu(), valid.cpu(), 300)
     assert torch.equal(di.cpu(), cpu_i)
+
+
+# one query (cuBLASLt's int8 product wants more than 16 rows), D not a
+# multiple of 8 (its K), and a block past both
+@pytest.mark.parametrize("q_rows,d", [(1, 16), (3, 20), (40, 64)])
+def test_int8_topk_on_card_matches_cpu(cuda, q_rows, d):
+    """The int8 path on the card: the int8 rows and scales equal the CPU's
+    bit for bit, ``int8_product`` equals the int32 product, and the int8
+    and the exact grouped scans return the CPU's indices."""
+    rng = np.random.RandomState(q_rows + d)
+    g = rng.randn(6000, d).astype(np.float32)
+    g /= np.linalg.norm(g, axis=1, keepdims=True)
+    q = g[:q_rows] + 0.01 * rng.randn(q_rows, d).astype(np.float32)
+    valid = rng.rand(6000) > 0.1
+    cpu = prepare_topk_gallery(torch.from_numpy(g), torch.from_numpy(valid),
+                               chunk=3000, quantize=True)
+    card = prepare_topk_gallery(torch.from_numpy(g).to(cuda),
+                                torch.from_numpy(valid).to(cuda),
+                                chunk=3000, quantize=True)
+    assert torch.equal(card.int8_chunks.cpu(), cpu.int8_chunks)
+    assert torch.equal(card.int8_scale.cpu(), cpu.int8_scale)
+    a, b = card.int8_chunks[0, :q_rows], card.int8_chunks[1]
+    assert torch.equal(int8_product(a, b).cpu(),
+                       a.cpu().int() @ b.cpu().int().T)
+    for search in (lambda p, x: quantized_sim_topk(x, p, 5, rescore_m=16),
+                   lambda p, x: streaming_sim_topk(x, p, 5)):
+        _, want = search(cpu, torch.from_numpy(q))
+        _, got = search(card, torch.from_numpy(q).to(cuda))
+        assert torch.equal(got.cpu(), want)
 
 
 # (B, T, H): rows not a multiple of 32; H = 1100 (a second pass of units);

@@ -58,6 +58,10 @@ CHAIN_MODULES = [
     "cmhse_tpu_torch.cli.export_torch", "cmhse_tpu_torch.cli.retrieve",
 ]
 
+# the serving stack: the daemon and its client
+SERVE_MODULES = ["cmhse_tpu_torch.client", "cmhse_tpu_torch.cli.serve_daemon",
+                 "cmhse_tpu_torch.eval.serve", "cmhse_tpu_torch.ops.topk"]
+
 ALONE = """
 import importlib, sys
 importlib.import_module(sys.argv[1])
@@ -67,13 +71,27 @@ print(sorted(m for m in sys.modules
 """
 
 
-@pytest.mark.parametrize("module", LOOP_MODULES + CHAIN_MODULES)
+@pytest.mark.parametrize("module",
+                         LOOP_MODULES + CHAIN_MODULES + SERVE_MODULES)
 def test_training_loop_modules_import_alone_without_jax(module):
-    """Each module of the training loop and of the command-line chain,
-    imported first and alone, loads nothing of JAX or the JAX package (nor
+    """Each module of the training loop, the command-line chain and the
+    serving stack, imported first and alone, loads nothing of JAX or the JAX package (nor
     h5py, which only an h5 dataset file needs)."""
     env = dict(os.environ, PYTHONPATH=ROOT)
     out = subprocess.run([sys.executable, "-c", ALONE, module], cwd=ROOT,
                          env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def test_client_imports_no_torch():
+    """The daemon's client is pure stdlib: a client process loads neither
+    torch nor numpy."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    probe = ("import sys, cmhse_tpu_torch.client; "
+             "print(sorted(m for m in ('torch', 'numpy', 'jax') "
+             "if m in sys.modules))")
+    out = subprocess.run([sys.executable, "-c", probe], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
