@@ -16,7 +16,9 @@ Phases (any failure raises and the script exits non-zero):
      shapes (plus a ragged one with zero-length rows, with and without h0);
      2d. the same three ``gru_fwd`` variants and ``gru_bwd`` (with and
      without h0) in bf16 at the same shapes, against their plain versions
-     in bf16, with cuDNN's GRU in bf16 as the yardstick;
+     in bf16, with cuDNN's GRU in bf16 as the yardstick; 2e. both kernels
+     at H = 2,048 (past every resident W_h limit: the streamed variants),
+     f32 and bf16, and at H = 30 (padded to 32), at video_low's lengths;
   3. the ``rankcount`` kernel against its plain version (counts exact) at
      Q=1024, N=100,000, D=1024 and at the main path's shape, with times;
      3b. the streaming top-k (plain torch ops) against the dense one at
@@ -89,9 +91,22 @@ Phases (any failure raises and the script exits non-zero):
      queries, remove, compact, stats, shutdown; 8c. a daemon context with
      40,000 spliced rows, ``--quantized``: the same queries, an add, a
      remove with auto-compaction, against the exact top-k;
-  9. one JSON line listing each kernel and bf16 variant with its path, its
+  9. one NCCL rank (world size 1, from torchrun's variables on a free
+     local port) at full width: 9a. 3 data-parallel ``train_step``s
+     against 3 plain ones from the same weights (bit for bit, median ms of
+     both); 9b. ``train_steps`` K=2 under the mesh, captured with its
+     collectives, against eager steps (bit for bit); 9c.
+     ``validate_metrics(mesh, mode)`` in both modes on phase 4's videos
+     (streaming: K4) and ``sharded_ranks`` on 10,000 rows, equal to the
+     single device's; 9d. ``sharded_sim_topk`` and the int8 prepared path
+     at 100,000 rows, Q=1024, k=10, equal to the single-device top-k; 9e.
+     K1 and K2 while all-reduces of 256 MiB are in flight, equal to a
+     quiet run (a faulthandler watchdog turns a hang into a failure); 9f.
+     one DP step at rnn_hidden 2,048 (f32, bf16: the streamed K1/K2) and
+     30 (padded);
+  10. one JSON line listing each kernel and bf16 variant with its path, its
      launches there, its error against its plain version, times and bound;
-  10. last line: ``{"ok": true, "device": {...}}``.
+  11. last line: ``{"ok": true, "device": {...}}``.
 
 With no CUDA device it exits with code 1 and prints no result.
 """
@@ -2910,6 +2925,447 @@ def phase_splice(torch, np, cli: dict, dmn: dict) -> dict:
     return counts
 
 
+# 2e and phase 9: every H on the card, and one NCCL rank
+STREAM_H = 2048  # past both resident W_h limits in both types: streamed
+PAD_H = 30  # not a multiple of 4: padded to 32
+NCCL_BATCHES = 3  # 9a: DP steps against plain steps, one a batch
+NCCL_GALLERY = 10_000  # 9c: BASELINE config 5's gallery
+NCCL_TOPK_ROWS = 100_000  # 9d
+NCCL_TOPK_QUERIES = 1024
+NCCL_BUSY_MIB = 256  # 9e: the all-reduce in flight beside K1 and K2
+NCCL_WATCHDOG_S = 300  # a hang in phase 9 ends the script with stacks
+
+
+def phase_gru_any_h(torch, rng, lengths_np, t: int, d: int) -> dict:
+    """2e: K1 and K2 at H = STREAM_H (past every resident W_h limit: the
+    streamed variants), f32 and bf16, and at H = PAD_H (padded), f32, at
+    video_low's lengths, each against its plain version, with times,
+    bounds and cuDNN's GRU. Returns rows by (kernel, dtype, H)."""
+    from cmhse_tpu_torch.models.gru import gru_input_projection
+    from cmhse_tpu_torch.ops import cuda_lib
+    from cmhse_tpu_torch.ops import gru_kernel as gk
+
+    dev = torch.device("cuda")
+    rows = {}
+    b = lengths_np.shape[0]
+    lengths = torch.from_numpy(lengths_np).to(dev)
+    live = int(lengths_np.clip(0, t).sum())
+    label = f"video_low {b}x{t} D={d}"
+    for h, name in ((STREAM_H, "float32"), (STREAM_H, "bfloat16"),
+                    (PAD_H, "float32")):
+        dt = getattr(torch, name)
+        bf16 = dt == torch.bfloat16
+        streamed = h > gk.fwd_max_hidden(dt)
+        x, w_i, w_h, b_i, b_h = gru_inputs(torch, rng, b, t, d, h)
+        gen = card_generator(torch, rng)
+        shape = f"{label} H={h}" + (" (streamed)" if streamed else
+                                    f" (padded to {gk.padded_hidden(h)})")
+        with torch.no_grad():
+            xw = gru_input_projection(x.to(dt), w_i, b_i).contiguous()
+            w_hc = w_h.to(dt)
+            before = cuda_lib.launch_count(
+                "gru_fwd", name, "encode+streamed" if streamed else "encode")
+            outs, final = gk.gru_forward(xw, w_hc, b_h, lengths)
+            want = gk.gru_recurrence_plain(xw, w_hc, b_h, lengths)
+            torch.cuda.synchronize()
+            if cuda_lib.launch_count("gru_fwd", name, "encode+streamed"
+                                     if streamed else "encode") != before + 1:
+                raise AssertionError(f"gru_fwd {shape}: not the expected "
+                                     "variant")
+            err = max((outs.float() - want[0].float()).abs().max().item(),
+                      (final.float() - want[1].float()).abs().max().item())
+            tol = BF16_ATOL if bf16 else GRU_ATOL
+            if not err <= tol:
+                raise AssertionError(f"gru_fwd {name} {shape}: max abs err "
+                                     f"{err} > {tol}")
+            ms = cuda_ms(lambda: gk.gru_forward(xw, w_hc, b_h, lengths),
+                         reps=5)
+            plain = cuda_ms(lambda: gk.gru_recurrence_plain(
+                xw, w_hc, b_h, lengths), reps=2, warmup=1)
+            library = library_gru_ms(torch, x, lengths_np, w_i, w_h, b_i,
+                                     b_h, final,
+                                     dtype=dt if bf16 else None)
+            bms, by = gru_bounds(b, t, h, live, bf16=bf16)
+            rows[("gru_fwd", name, h)] = dict(
+                shape=shape, max_abs_err=err, ms=ms, plain_ms=plain,
+                bound_ms=bms, bound_by=by, library_ms=library)
+            log(f"  2e gru_fwd {name} {shape}: err {err:.3g}  kernel "
+                f"{ms:.4f} ms  plain {plain:.4f} ms  cuDNN "
+                f"{'refused' if library is None else f'{library:.4f} ms'}  "
+                f"bound {bms:.4f} ms ({by})")
+            del outs, final, want
+
+            outs, final, gates = gk.gru_forward(xw, w_hc, b_h, lengths,
+                                                save_gates=True)
+            douts = torch.randn(b, t, h, device=dev, generator=gen).to(dt)
+            dfinal = torch.randn(b, h, device=dev, generator=gen).to(dt)
+            got = gk.gru_backward(gates, outs, lengths, w_hc, douts, dfinal)
+            want = gk.gru_backward_plain(gates, outs, lengths, w_hc, douts,
+                                         dfinal)
+            torch.cuda.synchronize()
+            errs, abs_err = {}, 0.0
+            for part, g, w in zip(("dxw", "dhn", "db", "dh0"), got, want):
+                g, w = g.float(), w.float()
+                if not bool(torch.isfinite(g).all()):
+                    raise AssertionError(f"gru_bwd {shape}: non-finite {part}")
+                abs_err = max(abs_err, (g - w).abs().max().item())
+                errs[part] = (((g - w).norm() / w.norm().clamp_min(1e-30))
+                              if bf16 else ((g - w).abs().max()
+                                            / w.abs().max().clamp_min(1e-30))
+                              ).item()
+            tol = BF16_GRAD_RL2 if bf16 else GRU_BWD_RTOL
+            if not max(errs.values()) <= tol:
+                raise AssertionError(f"gru_bwd {name} {shape}: errors {errs} "
+                                     f"> {tol}")
+            ms = cuda_ms(lambda: gk.gru_backward(gates, outs, lengths, w_hc,
+                                                 douts, dfinal), reps=5)
+            plain = cuda_ms(lambda: gk.gru_backward_plain(
+                gates, outs, lengths, w_hc, douts, dfinal), reps=2, warmup=1)
+        library = library_gru_ms(torch, x, lengths_np, w_i, w_h, b_i, b_h,
+                                 final, mode="backward",
+                                 dtype=dt if bf16 else None)
+        bms, by = gru_bounds(b, t, h, live, backward=True, bf16=bf16)
+        rows[("gru_bwd", name, h)] = dict(
+            shape=shape, max_abs_err=abs_err, ms=ms, plain_ms=plain,
+            bound_ms=bms, bound_by=by, library_ms=library, errors=errs)
+        log(f"  2e gru_bwd {name} {shape}: "
+            + ("rel L2 " if bf16 else "rel err ")
+            + " ".join(f"{k} {v:.3g}" for k, v in errs.items())
+            + f"  kernel {ms:.4f} ms  plain {plain:.4f} ms  cuDNN bwd "
+            f"{'refused' if library is None else f'{library:.4f} ms'}  "
+            f"bound {bms:.4f} ms ({by})")
+        del xw, outs, final, gates, got, want, douts, dfinal
+    return rows
+
+
+def nccl_group(torch):
+    """A process group of world size 1 over NCCL, from the environment
+    torchrun would set (a free local port), as ``cli.train`` starts one."""
+    import os
+    import socket
+
+    from cmhse_tpu_torch.parallel import maybe_initialize_distributed
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+               MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    os.environ.update(env)
+    if not maybe_initialize_distributed():
+        raise AssertionError("no process group from the torchrun variables")
+    backend = torch.distributed.get_backend()
+    if backend != "nccl":
+        raise AssertionError(f"the card's group runs {backend}, not nccl")
+    return list(env)
+
+
+def nccl_setup(torch, np, seed: int, batches: int, **model):
+    """cmhse_full at its published widths (``model``: ModelConfig fields
+    to change), weights from the seed, Adam at TRAIN_LR, and ``batches``
+    64-video batches from the seed: (cfg, make_state, host batches)."""
+    import dataclasses
+
+    from cmhse_tpu_torch.config import get_preset
+    from cmhse_tpu_torch.data import (SyntheticHierarchicalDataset,
+                                      batches_from_dataset)
+    from cmhse_tpu_torch.models import CMHSE
+    from cmhse_tpu_torch.train import create_train_state, set_learning_rate
+
+    cfg = get_preset("cmhse_full")
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model,
+                                                             **model))
+    if cfg.model.dtype == "bfloat16":
+        cfg = dataclasses.replace(cfg, data=dataclasses.replace(
+            cfg.data, feature_dtype="bfloat16"))
+    dc = cfg.data
+    ds = SyntheticHierarchicalDataset(
+        num_videos=batches * dc.batch_size, feat_dim=dc.feat_dim,
+        vocab_size=dc.vocab_size, max_clips=dc.max_clips,
+        max_frames=dc.max_frames, max_words=dc.max_words, seed=seed + 9)
+    host = list(batches_from_dataset(ds, dc, shuffle=False))
+
+    def make_state():
+        m = CMHSE(cfg.model, dc.vocab_size,
+                  generator=torch.Generator().manual_seed(seed))
+        return set_learning_rate(create_train_state(cfg, m), TRAIN_LR)
+
+    return cfg, make_state, host
+
+
+def phase_nccl(torch, np, seed: int, n_videos: int) -> dict:
+    """9: the multi-GPU path on one NCCL rank (world size 1) at full
+    cmhse_full width: the process group from torchrun's variables, the mesh
+    of ``TrainConfig.mesh_shape``, and (a) DP train_steps against plain
+    ones, (b) train_steps' graph with its collectives, (c) sharded
+    validation and sharded ranks, (d) sharded top-k, exact and int8, (e) K1
+    and K2 beside an all-reduce in flight, (f) the DP step at rnn_hidden
+    STREAM_H (f32 and bf16: the streamed K1/K2) and PAD_H. At world size 1
+    every result must equal the single-device path's bit for bit. Counts
+    are set to 0 just before each DP or sharded call and read just after
+    it, so the single-device references and (e)'s direct kernel calls are
+    not counted; each part fails if its path launched none of the kernels
+    it runs. Returns the counts' sum."""
+    import collections
+    import faulthandler
+    import os
+
+    from cmhse_tpu_torch.eval import validate_metrics
+    from cmhse_tpu_torch.ops import cuda_lib
+    from cmhse_tpu_torch.ops.rankcount_kernel import rank_counts
+    from cmhse_tpu_torch.ops.ranking import retrieval_ranks
+    from cmhse_tpu_torch.ops.similarity import l2norm
+    from cmhse_tpu_torch.ops.topk import (prepare_topk_gallery,
+                                          quantized_sim_topk,
+                                          streaming_sim_topk)
+    from cmhse_tpu_torch.parallel import (make_mesh, place_state,
+                                          prepare_sharded_topk_gallery,
+                                          sharded_ranks, sharded_sim_topk,
+                                          sharded_sim_topk_prepared)
+    from cmhse_tpu_torch.train import train_step, train_steps
+
+    faulthandler.dump_traceback_later(NCCL_WATCHDOG_S, exit=True)
+    env = nccl_group(torch)
+    counts = collections.Counter()
+    t_phase = time.perf_counter()
+    try:
+        cfg, make_state, host = nccl_setup(torch, np, seed, NCCL_BATCHES)
+        mesh = make_mesh(cfg.train.mesh_shape, cfg.train.mesh_axes)
+        log(f"  nccl, world {mesh.world}, mesh {mesh.shape} on "
+            f"{mesh.device} ({time.perf_counter() - t_phase:.1f} s set-up)")
+
+        # (a) DP steps against plain steps, in turns; only the DP steps
+        # run between a reset of the counts and their reading
+        plain, dp = make_state(), place_state(make_state(), mesh)
+        ms = {"plain": [], "dp": []}
+        losses = {"plain": [], "dp": []}
+        dp_counts = collections.Counter()
+        for b in host:
+            for name in ("plain", "dp"):
+                cuda_lib.reset_launches()
+                t0 = time.perf_counter()
+                if name == "plain":
+                    plain, m = train_step(plain, b, cfg.loss)
+                else:
+                    dp, m = train_step(dp, b, cfg.loss, mesh=mesh)
+                torch.cuda.synchronize()
+                ms[name].append((time.perf_counter() - t0) * 1e3)
+                if name == "dp":
+                    dp_counts.update(launch_counts())
+                losses[name].append({k: float(v) for k, v in m.items()})
+        counts.update(dp_counts)
+        need_launches("9a DP steps", dp_counts,
+                      ("gru_fwd", "gru_bwd", "simhinge"))
+        cmp = compare_states(torch, dp.state_dict(), plain.state_dict())
+        log(f"  9a {NCCL_BATCHES} DP train_steps against plain ones: median "
+            f"{float(np.median(ms['dp'])):.3f} ms DP, "
+            f"{float(np.median(ms['plain'])):.3f} ms plain (first "
+            f"{ms['dp'][0]:.1f} / {ms['plain'][0]:.1f}); losses "
+            f"{[m['loss'] for m in losses['dp']]}; parameters and Adam "
+            f"moments bitwise equal {cmp['bitwise']}")
+        if losses["dp"] != losses["plain"] or not cmp["bitwise"]:
+            raise AssertionError(f"the DP step differs from train_step: "
+                                 f"worst {cmp['worst']}")
+        del plain, dp
+
+        # (b) K = 2 steps a dispatch: captured with the collectives
+        stacked = stack_batches(np, host[:2])
+        graph, eager = place_state(make_state(), mesh), make_state()
+        eager = place_state(eager, mesh)
+        cuda_lib.reset_launches()
+        for _ in range(2):
+            graph, _ = train_steps(graph, stacked, cfg.loss, mesh=mesh)
+            for b in host[:2]:
+                eager, _ = train_step(eager, b, cfg.loss, mesh=mesh)
+        torch.cuda.synchronize()
+        got = launch_counts()
+        counts.update(got)
+        need_launches("9b DP steps", got, ("gru_fwd", "gru_bwd", "simhinge"))
+        cmp = compare_states(torch, graph.state_dict(), eager.state_dict())
+        if graph.graph_refused is not None:
+            log(f"  9b the card refused the capture under the mesh: "
+                f"{graph.graph_refused}; one step a dispatch")
+        else:
+            log(f"  9b train_steps (K=2) under the mesh: graph with its "
+                f"collectives replayed {graph.graph_replays} time(s); "
+                f"against 4 eager DP steps bitwise equal {cmp['bitwise']}")
+            if graph.graph_replays != 1:
+                raise AssertionError("train_steps did not replay its graph")
+        if not cmp["bitwise"] or cmp["steps"] != (4, 4):
+            raise AssertionError(f"the graph's DP steps differ from eager "
+                                 f"ones: {cmp['worst']}")
+        del graph, eager, stacked
+
+        # (c) sharded validation (phase 4's weights and videos), then
+        # sharded ranks at BASELINE config 5's gallery size
+        from cmhse_tpu_torch.models import CMHSE
+
+        batches, _, _ = serving_data(torch, np, seed, n_videos)
+        model = CMHSE(cfg.model, cfg.data.vocab_size,
+                      generator=torch.Generator().manual_seed(seed))
+        want, want_r = validate_metrics(model, batches, streaming=True,
+                                        return_ranks=True)
+        for mode in ("query", "gallery"):
+            cuda_lib.reset_launches()
+            t0 = time.perf_counter()
+            got, got_r = validate_metrics(model, batches, streaming=True,
+                                          return_ranks=True, mesh=mesh,
+                                          mode=mode)
+            torch.cuda.synchronize()
+            launched = launch_counts()
+            counts.update(launched)
+            need_launches(f"9c validate_metrics ({mode})", launched,
+                          ("gru_fwd", "rankcount"))
+            log(f"  9c validate_metrics(mesh, mode={mode}, streaming) on "
+                f"{n_videos} videos: {time.perf_counter() - t0:.3f} s, rsum "
+                f"{got['rsum']:.4f}")
+            if got != want or any(not np.array_equal(got_r[k], want_r[k])
+                                  for k in want_r):
+                raise AssertionError(f"sharded validation ({mode}) differs "
+                                     f"from the single device's")
+        gen = card_generator(torch, np.random.RandomState(seed + 11))
+        v = l2norm(torch.randn(NCCL_GALLERY, 1024, device="cuda",
+                               generator=gen))
+        p = l2norm(v + 0.5 * torch.randn(NCCL_GALLERY, 1024, device="cuda",
+                                         generator=gen))
+        pos = torch.sum(v * p, dim=1)
+        with torch.inference_mode():
+            single = {True: rank_counts(v, p, pos, pos_idx=torch.arange(
+                          NCCL_GALLERY, dtype=torch.int32, device="cuda")),
+                      False: retrieval_ranks(v @ p.T)}
+            for mode in ("query", "gallery"):
+                for stream in (True, False):
+                    cuda_lib.reset_launches()
+                    got = sharded_ranks(v, p, mesh, mode=mode,
+                                        streaming=stream)
+                    launched = launch_counts()
+                    counts.update(launched)
+                    if stream:
+                        need_launches(f"9c sharded_ranks ({mode})", launched,
+                                      ("rankcount",))
+                    if not torch.equal(got, single[stream]):
+                        raise AssertionError(f"sharded_ranks {mode} "
+                                             f"streaming={stream} differs")
+        log(f"  9c sharded_ranks on {NCCL_GALLERY:,} rows, both modes, "
+            "streaming and dense: equal to the single device's")
+        del v, p, pos, single, model, batches
+
+        # (d) sharded top-k, exact and int8 prepared
+        g = l2norm(torch.randn(NCCL_TOPK_ROWS, 1024, device="cuda",
+                               generator=gen))
+        q = l2norm(torch.randn(NCCL_TOPK_QUERIES, 1024, device="cuda",
+                               generator=gen))
+        with torch.inference_mode():
+            _, want_i = streaming_sim_topk(q, g, 10)
+            _, want8 = quantized_sim_topk(q, prepare_topk_gallery(
+                g, quantize=True), 10)
+            cuda_lib.reset_launches()
+            _, got_i = sharded_sim_topk(q, g, 10, mesh, streaming=True)
+            exact = torch.equal(got_i, want_i)
+            prep, rows = prepare_sharded_topk_gallery(g, mesh, quantize=True)
+            _, got8 = sharded_sim_topk_prepared(q, prep, 10, mesh, rows,
+                                                quantized=True)
+        counts.update(launch_counts())
+        log(f"  9d top-10 over {NCCL_TOPK_ROWS:,} rows, Q="
+            f"{NCCL_TOPK_QUERIES}: sharded = streaming {exact}, sharded "
+            f"int8 = int8 {torch.equal(got8, want8)}")
+        if not exact or not torch.equal(got8, want8):
+            raise AssertionError("the sharded top-k differs")
+        del g, q, prep
+
+        # (e) K1 and K2 while an all-reduce is in flight on NCCL's stream:
+        # direct wrapper calls, not the path's, so not counted
+        phase_nccl_busy(torch, np, rng_seed=seed, mesh=mesh)
+
+        # (f) the DP step at every H: streamed (f32, bf16) and padded
+        for h, dtype in ((STREAM_H, "float32"), (STREAM_H, "bfloat16"),
+                         (PAD_H, "float32")):
+            cfg_h, make_h, host_h = nccl_setup(torch, np, seed, 1,
+                                               rnn_hidden=h, dtype=dtype)
+            state = place_state(make_h(), mesh)
+            cuda_lib.reset_launches()
+            t0 = time.perf_counter()
+            state, m = train_step(state, host_h[0], cfg_h.loss, mesh=mesh)
+            torch.cuda.synchronize()
+            got = launch_counts()
+            counts.update(got)
+            log(f"  9f DP step, cmhse_full at rnn_hidden {h} {dtype}: "
+                f"{(time.perf_counter() - t0) * 1e3:.1f} ms (first call), "
+                f"loss {float(m['loss']):.6f}; launches {got}")
+            if not np.isfinite(float(m["loss"])):
+                raise AssertionError(f"rnn_hidden {h}: non-finite loss")
+            tag = "+streamed" if h == STREAM_H else ""
+            need_launches(f"9f rnn_hidden {h} {dtype}", got,
+                          ("gru_fwd", "gru_bwd", "simhinge"))
+            if (got.get(f"gru_fwd {dtype} save_gates{tag}") != 4
+                    or got.get(f"gru_bwd {dtype} zero_h0{tag}") != 4):
+                raise AssertionError(f"rnn_hidden {h} {dtype}: launches "
+                                     f"{got}")
+            del state
+    finally:
+        torch.distributed.destroy_process_group()
+        faulthandler.cancel_dump_traceback_later()
+        for var in env:
+            os.environ.pop(var, None)
+    log(f"  phase 9: {time.perf_counter() - t_phase:.1f} s; launches "
+        f"{dict(counts)}")
+    return dict(counts)
+
+
+def need_launches(what: str, counts: dict, kernels) -> None:
+    """Fail unless ``counts`` holds a launch of each of ``kernels``."""
+    missing = [k for k in kernels if total(counts, k + " ") <= 0]
+    if missing:
+        raise AssertionError(f"{what} launched no {missing}: {counts}")
+
+
+def phase_nccl_busy(torch, np, rng_seed: int, mesh) -> None:
+    """9e: one K1 encode and one K2 backward at video_low's shape (512 x
+    64, H = 1024) enqueued while an ``async_op`` all-reduce of
+    NCCL_BUSY_MIB runs on the group's stream, against the same calls on a
+    quiet card: equal bit for bit (the faulthandler watchdog of phase 9
+    turns a hang into a failure)."""
+    import torch.distributed as dist
+
+    from cmhse_tpu_torch.ops import cuda_lib
+    from cmhse_tpu_torch.ops import gru_kernel as gk
+
+    rng = np.random.RandomState(rng_seed + 13)
+    lengths_np = rng.randint(0, 65, 512).astype(np.int32)
+    x, w_i, w_h, b_i, b_h = gru_inputs(torch, rng, 512, 64, 1024, 1024)
+    lengths = torch.from_numpy(lengths_np).cuda()
+    xw = (x @ w_i + b_i).contiguous()
+    gen = card_generator(torch, rng)
+    douts = torch.randn(512, 64, 1024, device="cuda", generator=gen)
+
+    def calls():
+        outs, final = gk.gru_forward(xw, w_h, b_h, lengths)
+        o, _, gates = gk.gru_forward(xw, w_h, b_h, lengths, save_gates=True)
+        return (outs, final) + gk.gru_backward(gates, o, lengths, w_h, douts)
+
+    with torch.no_grad():
+        quiet = calls()
+        torch.cuda.synchronize()
+        buf = torch.ones(NCCL_BUSY_MIB * 2**18, device="cuda")
+        cuda_lib.reset_launches()
+        t0 = time.perf_counter()
+        works = [dist.all_reduce(buf, group=mesh.group, async_op=True)
+                 for _ in range(3)]
+        busy = calls()
+        for w in works:
+            w.wait()
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        need_launches("9e", launch_counts(), ("gru_fwd", "gru_bwd"))
+    same = all(torch.equal(a, b) for a, b in zip(quiet, busy))
+    log(f"  9e K1 x2 and K2 beside 3 all-reduces of {NCCL_BUSY_MIB} MiB in "
+        f"flight: finished in {elapsed * 1e3:.1f} ms, equal to the quiet "
+        f"run {same}; all-reduced value {buf[0].item():.0f}")
+    if not same:
+        raise AssertionError("K1/K2 beside an all-reduce differ from a "
+                             "quiet run")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3006,6 +3462,10 @@ def main() -> int:
     phase("phase 2d: gru_fwd (three variants) and gru_bwd in bf16 vs plain "
           "(phase 2's and 2b/2c's shapes)")
     bf16_rows = phase_gru_bf16(torch, rng, enc_shapes, train_shapes)
+    phase(f"phase 2e: gru_fwd and gru_bwd at every H: {STREAM_H} (the "
+          f"streamed variants, f32 and bf16) and {PAD_H} (padded) vs plain")
+    any_h = phase_gru_any_h(torch, rng, b0.frame_len.reshape(-1),
+                            dc.max_frames, 500)
     phase("phase 3: rankcount vs plain (exact-arithmetic rows)")
     for line in kernel_resources("rankcount.cu"):
         log("  ptxas " + line)
@@ -3096,6 +3556,9 @@ def main() -> int:
         del dmn
     finally:
         shutil.rmtree(cli_root, ignore_errors=True)
+    phase("phase 9: one NCCL rank (world size 1): DP steps, their graph, "
+          "sharded validation and top-k, K1/K2 beside an all-reduce, every H")
+    ncounts = phase_nccl(torch, np, args.seed, args.videos)
 
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith(("jax.", "cmhse_tpu.")))
@@ -3115,48 +3578,73 @@ def main() -> int:
     k1, k2 = "cmhse_tpu/ops/pallas_gru.py:51", \
         "cmhse_tpu/ops/pallas_gru_grad.py:70"
     k4 = "cmhse_tpu/ops/pallas_sim.py:286"
+    def resident(prefix):  # phase 9's launches of the resident variants
+        return sum(n for k, n in ncounts.items()
+                   if k.startswith(prefix) and not k.endswith("+streamed"))
+
+    def streamed(row_key, name, kernel, dtype):
+        return entry(name, f"{kernel}.cu", k1 if kernel == "gru_fwd" else k2,
+                     [any_h[row_key]], "nccl (9f)",
+                     sum(n for k, n in ncounts.items()
+                         if k.startswith(f"{kernel} {dtype}")
+                         and k.endswith("+streamed")),
+                     variant=f"streamed W_h (H > {kernel}'s resident limit)")
+
     entries = [
-        entry("gru_fwd", "gru_fwd.cu", k1, gru_rows + fwd_rows,
-              "serve+train+fit+cli+daemon", total(counts, "gru_fwd float32")
+        entry("gru_fwd", "gru_fwd.cu", k1,
+              gru_rows + fwd_rows + [any_h[("gru_fwd", "float32", PAD_H)]],
+              "serve+train+fit+cli+daemon+nccl",
+              total(counts, "gru_fwd float32")
               + total(tcounts, "gru_fwd float32")
               + total(fcounts, "gru_fwd float32")
               + total(ccounts, "gru_fwd float32")
-              + total(dcounts, "gru_fwd float32"),
+              + total(dcounts, "gru_fwd float32")
+              + resident("gru_fwd float32"),
               launches_by_path={"serve": total(counts, "gru_fwd"),
                                 "train": total(tcounts, "gru_fwd"),
                                 "fit": total(fcounts, "gru_fwd"),
                                 "cli": total(ccounts, "gru_fwd"),
-                                "daemon": total(dcounts, "gru_fwd")},
+                                "daemon": total(dcounts, "gru_fwd"),
+                                "nccl": resident("gru_fwd")},
               launches_train_by_variant={
                   k: n for k, n in tcounts.items() if k.startswith("gru_fwd")},
               launches_fit_by_variant={k: n for k, n in fcounts.items()
                                        if k.startswith("gru_fwd")},
               launches_cli_by_variant={k: n for k, n in ccounts.items()
                                        if k.startswith("gru_fwd")}),
-        entry("gru_bwd", "gru_bwd.cu", k2, bwd_rows, "train+fit+cli",
+        entry("gru_bwd", "gru_bwd.cu", k2,
+              bwd_rows + [any_h[("gru_bwd", "float32", PAD_H)]],
+              "train+fit+cli+nccl",
               total(tcounts, "gru_bwd float32")
               + total(fcounts, "gru_bwd float32")
-              + total(ccounts, "gru_bwd float32"),
+              + total(ccounts, "gru_bwd float32")
+              + resident("gru_bwd float32"),
               launches_by_path={"train": total(tcounts, "gru_bwd"),
                                 "fit": total(fcounts, "gru_bwd"),
-                                "cli": total(ccounts, "gru_bwd")}),
+                                "cli": total(ccounts, "gru_bwd"),
+                                "nccl": resident("gru_bwd")}),
         entry("simhinge", "simhinge.cu", "cmhse_tpu/ops/pallas_sim.py:58",
-              sh_rows, "train+fit+cli",
+              sh_rows, "train+fit+cli+nccl",
               total(tcounts, "simhinge") + total(bcounts, "simhinge")
-              + total(fcounts, "simhinge") + total(ccounts, "simhinge"),
+              + total(fcounts, "simhinge") + total(ccounts, "simhinge")
+              + total(ncounts, "simhinge"),
               launches_by_path={"train": total(tcounts, "simhinge"),
                                 "train bf16": total(bcounts, "simhinge"),
                                 "fit": total(fcounts, "simhinge"),
-                                "cli": total(ccounts, "simhinge")},
+                                "cli": total(ccounts, "simhinge"),
+                                "nccl": total(ncounts, "simhinge")},
               ms_from="CUDA-graph replay of one call (graph_ms)",
               call_ms=sh_rows[0]["call_ms"]),
-        entry("rankcount", "rankcount.cu", k4, rc_rows, "serve+train+cli",
+        entry("rankcount", "rankcount.cu", k4, rc_rows,
+              "serve+train+cli+nccl",
               total(counts, "rankcount float32")
               + total(tcounts, "rankcount float32")
-              + total(ccounts, "rankcount float32"),
+              + total(ccounts, "rankcount float32")
+              + total(ncounts, "rankcount float32"),
               launches_by_path={"serve": total(counts, "rankcount"),
                                 "train": total(tcounts, "rankcount"),
-                                "cli": total(ccounts, "rankcount")}),
+                                "cli": total(ccounts, "rankcount"),
+                                "nccl": total(ncounts, "rankcount")}),
         entry("gru_fwd bf16", "gru_fwd.cu", k1, bf16_rows["encode"],
               "serve bf16", total(bf16_counts, "gru_fwd bfloat16 encode")),
         entry("gru_fwd bf16 save_gates", "gru_fwd.cu", k1,
@@ -3172,6 +3660,14 @@ def main() -> int:
         entry("rankcount lowp", "rankcount.cu", k4, lowp_rows, "serve bf16",
               bf16_counts.get("rankcount bfloat16 lowp", 0),
               branch="lowp, cmhse_tpu/ops/pallas_sim.py:297-304"),
+        streamed(("gru_fwd", "float32", STREAM_H), "gru_fwd streamed",
+                 "gru_fwd", "float32"),
+        streamed(("gru_fwd", "bfloat16", STREAM_H), "gru_fwd bf16 streamed",
+                 "gru_fwd", "bfloat16"),
+        streamed(("gru_bwd", "float32", STREAM_H), "gru_bwd streamed",
+                 "gru_bwd", "float32"),
+        streamed(("gru_bwd", "bfloat16", STREAM_H), "gru_bwd bf16 streamed",
+                 "gru_bwd", "bfloat16"),
     ]
     for e in entries:
         if e["launches"] <= 0:
@@ -3185,7 +3681,11 @@ def main() -> int:
                 e["launches_by_path"]["daemon"] <= 0:
             raise AssertionError(f"the serving daemon launched no "
                                  f"{e['name']}")
+        if "nccl" in e.get("launches_by_path", {}) and \
+                e["launches_by_path"]["nccl"] <= 0:
+            raise AssertionError(f"phase 9 (NCCL) launched no {e['name']}")
     phase("done")
+    log(f"  total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}), flush=True)

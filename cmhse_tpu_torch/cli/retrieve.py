@@ -15,7 +15,7 @@ from cmhse_tpu_torch.cli import add_platform_flag, device_for
 # no XLA compile to cache
 JAX_ONLY_FLAGS = ("--compile_cache",)
 # flags of the JAX command that wait for a later slice (ROADMAP A)
-LATER_FLAGS = {"--sharded": "A.7 multi-GPU"}
+LATER_FLAGS = {"--sharded": "A.7b the Retriever's mesh"}
 
 
 def _print_hits(label: str, hits) -> None:

@@ -65,7 +65,7 @@ from cmhse_tpu_torch.cli import add_platform_flag, device_for
 # XLA's compile cache has no counterpart here
 JAX_ONLY_FLAGS = ("--compile_cache",)
 # flags of the JAX command that wait for a later slice (ROADMAP A)
-LATER_FLAGS = {"--sharded": "A.7 multi-GPU"}
+LATER_FLAGS = {"--sharded": "A.7b the Retriever's mesh"}
 
 # largest accepted request line: thousands of batched query sentences fit;
 # a runaway (or hostile, on TCP) line cannot balloon the daemon's memory

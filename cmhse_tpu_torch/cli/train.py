@@ -2,7 +2,9 @@
 (the reference's ``python train.py``): the reference's flags mapped onto the
 frozen dataclass config, ``--preset`` choosing a BASELINE config by name,
 then :func:`cmhse_tpu_torch.train.loop.fit` on the card (or the CPU with
-``--platform cpu``).
+``--platform cpu``). Several cards train data-parallel under ``torchrun
+--nproc_per_node=N -m cmhse_tpu_torch.cli.train ...``: each process takes
+one card, and ``fit`` builds the mesh of ``TrainConfig.mesh_shape``.
 """
 
 from __future__ import annotations
@@ -183,6 +185,12 @@ def apply_overrides(cfg, args):
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     device = device_for(args.platform)
+
+    from cmhse_tpu_torch.parallel.mesh import maybe_initialize_distributed
+
+    # under torchrun: the process group from its environment (a no-op
+    # otherwise), as the JAX command initializes jax.distributed
+    maybe_initialize_distributed(device)
 
     from cmhse_tpu_torch.config import get_preset
     from cmhse_tpu_torch.data import (PrecompDataset, Vocabulary,

@@ -245,7 +245,9 @@ def _preset_4() -> ExperimentConfig:
 def _preset_5() -> ExperimentConfig:
     """BASELINE config 5: large-gallery eval — 10k-video similarity matrix
     sharded across a v5e-8 mesh with on-device R@k / median-rank reduction
-    (BASELINE.json:11)."""
+    (BASELINE.json:11). Its ``mesh_shape=(8,)`` asks for 8 ranks:
+    ``parallel.make_mesh`` raises in a run of fewer, as the JAX package's
+    does with fewer devices; a smaller run passes ``mesh_shape=(-1,)``."""
     return ExperimentConfig(
         name="large_gallery_eval",
         data=DataConfig(batch_size=512),

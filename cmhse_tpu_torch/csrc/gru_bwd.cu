@@ -74,6 +74,18 @@
 //   32 rows (two m-tiles) x the pass's 8 units (one n-tile); the W_h slice,
 //   K-contiguous per unit, is the column-major B as it stands.
 //
+// The streamed variant (kStream, past bwd_max_hidden): the block writes
+// its rows of W_h once, in the same [U][WS] layout, to its own part of a
+// global scratch the wrapper allocates, and the product reads them from
+// there every step; only the staging ring and the chunk's rows stay in
+// shared memory. bf16 B fragments come as 32-bit loads from the scratch
+// (ldmatrix reads shared memory only). U is no longer capped at two passes:
+// the product runs over the block's units kMaxPasses passes at a time,
+// each group re-staging the live rows' operand. Up to two passes that is
+// one group, the resident variant's arithmetic in its order, so the two
+// agree bit for bit where both run. Phase 1 keeps one unit a thread of a
+// row sweep, so U is at most kThreads (H up to 256 x the SM count).
+//
 // What bounds it on an H100 (video_low, 512 rows x 64 steps, H = 1024,
 // about 27% of the row-steps live; PERF.md): the product, about 85% of a
 // block's clock in f32 and 65% in bf16. Every block reads the live rows'
@@ -144,13 +156,25 @@ __host__ __device__ constexpr int stage_bytes() {
   return Layout<E>::kChunkRows * Layout<E>::kRowBytes;
 }
 
-// staging ring, the W_h slice [U][3H] and the chunk's batch rows
+// elements of one block's W_h rows, [U][WS]
 template <typename E>
-size_t smem_bytes(int H, int U) {
-  if (U > kMaxPasses * kPassUnits) return ~(size_t)0;
+__host__ __device__ size_t slice_elems(int H, int U) {
+  return (size_t)U * w_stride<E>(3 * H);
+}
+
+// staging ring, the W_h slice [U][3H] unless it is streamed, and the
+// chunk's batch rows; ~0 for a U the variant cannot take
+template <typename E>
+size_t smem_bytes(int H, int U, bool stream) {
+  if (U > (stream ? kThreads : kMaxPasses * kPassUnits)) return ~(size_t)0;
   return kStages * (size_t)stage_bytes<E>() +
-         (size_t)U * w_stride<E>(3 * H) * sizeof(E) +
+         (stream ? 0 : slice_elems<E>(H, U) * sizeof(E)) +
          Layout<E>::kChunkRows * sizeof(int);
+}
+
+template <typename E>
+size_t resident_smem_bytes(int H, int U) {
+  return smem_bytes<E>(H, U, false);
 }
 
 // Where depth k of batch row b's operand lies at step t: dxw for k < 2H,
@@ -314,8 +338,10 @@ __device__ __forceinline__ void store_slab(unsigned char* buf,
 // slab s times the n-tile of pass p (8 units), 64 depths in four k16
 // steps. a_row / a_k and b_base[p] are the lane's ldmatrix addresses: A
 // (x4) row lane % 16 of the m-tile at depth 8 (lane / 16); B (x2) unit
-// lane % 8 at depth 8 ((lane / 8) % 2).
-template <int kPasses>
+// lane % 8 at depth 8 ((lane / 8) % 2). With kStream the rows lie in
+// global memory and b_base[p] is the lane's own fragment: unit lane / 4 at
+// depth 2 (lane % 4), two 32-bit loads a tile.
+template <int kPasses, bool kStream>
 __device__ __forceinline__ void mma_slab(
     float (&c)[2][kMaxPasses][4], const unsigned char* buf, int a_row,
     int a_k, const __nv_bfloat16* const (&b_base)[kMaxPasses], int k0) {
@@ -330,7 +356,13 @@ __device__ __forceinline__ void mma_slab(
 #pragma unroll
     for (int p = 0; p < kPasses; ++p) {
       unsigned b[2];
-      ldmatrix_x2(b, b_base[p] + k0 + 16 * kk);
+      const __nv_bfloat16* bp = b_base[p] + k0 + 16 * kk;
+      if constexpr (kStream) {
+        b[0] = *reinterpret_cast<const unsigned*>(bp);
+        b[1] = *reinterpret_cast<const unsigned*>(bp + 8);
+      } else {
+        ldmatrix_x2(b, bp);
+      }
 #pragma unroll
       for (int mt = 0; mt < 2; ++mt) mma_bf16(c[mt][p], a[mt], b);
     }
@@ -340,8 +372,9 @@ __device__ __forceinline__ void mma_slab(
 // The bf16 product over a chunk: c as mma_slab says, over all slabs. With
 // kAsync (H a multiple of 8) the slabs come by cp.async through a ring of
 // three buffers, two slabs in flight and one barrier a slab; otherwise
-// through registers and two buffers.
-template <bool kAsync, int kPasses>
+// through registers and two buffers. kStream: the W_h rows lie in global
+// memory (see mma_slab).
+template <bool kAsync, int kPasses, bool kStream>
 __device__ __forceinline__ void product_bf16(
     float (&c)[2][kMaxPasses][4], unsigned char* stage,
     const __nv_bfloat16* ws, int WS, int n_units,
@@ -358,8 +391,10 @@ __device__ __forceinline__ void product_bf16(
   const __nv_bfloat16* b_base[kMaxPasses];
 #pragma unroll
   for (int p = 0; p < kMaxPasses; ++p) {
-    const int j = kPassUnits * p + lane % 8;  // past the units: row 0
-    b_base[p] = ws + (size_t)(j < n_units ? j : 0) * WS + 8 * ((lane / 8) % 2);
+    // past the units: row 0
+    const int j = kPassUnits * p + (kStream ? lane / 4 : lane % 8);
+    b_base[p] = ws + (size_t)(j < n_units ? j : 0) * WS +
+                (kStream ? 2 * (lane % 4) : 8 * ((lane / 8) % 2));
   }
   if constexpr (kAsync) {
     auto stage_turn = [&](int s) {  // as in product_f32
@@ -375,8 +410,8 @@ __device__ __forceinline__ void product_bf16(
       __syncthreads();  // as in product_f32
       stage_turn(s + kStages - 1);
       if (active)
-        mma_slab<kPasses>(c, stage + (s % kStages) * kStage, a_row, a_k,
-                          b_base, s * kK);
+        mma_slab<kPasses, kStream>(c, stage + (s % kStages) * kStage,
+                                   a_row, a_k, b_base, s * kK);
     }
     __syncthreads();  // every thread is done with the last slabs
   } else {
@@ -388,8 +423,8 @@ __device__ __forceinline__ void product_bf16(
       if (s + 1 < n_slabs)
         load_slab(next, dxw, dhn, rows_s, rows, s + 1, t, T, H, tid);
       if (active)
-        mma_slab<kPasses>(c, stage + (s % 2) * kStage, a_row, a_k, b_base,
-                          s * kK);
+        mma_slab<kPasses, kStream>(c, stage + (s % 2) * kStage, a_row, a_k,
+                                   b_base, s * kK);
       if (s + 1 < n_slabs)  // the other buffer's last reads ended at a barrier
         store_slab(stage + ((s + 1) % 2) * kStage, next, tid);
       __syncthreads();
@@ -397,7 +432,7 @@ __device__ __forceinline__ void product_bf16(
   }
 }
 
-template <typename E>
+template <typename E, bool kStream>
 __global__ void __launch_bounds__(kThreads, 1)
 gru_bwd_kernel(const E* __restrict__ gates,          // [B, T, 4H]
                const E* __restrict__ outs,           // [B, T, H]
@@ -412,14 +447,25 @@ gru_bwd_kernel(const E* __restrict__ gates,          // [B, T, 4H]
                float* __restrict__ db,               // [4H]
                E* __restrict__ dh0,                  // [B, H]
                float* __restrict__ carry,            // [B, H] f32
+               E* w_scratch,  // kStream: [grid][U][WS]
                int B, int T, int H, int U) {
   constexpr bool kLowp = std::is_same<E, __nv_bfloat16>::value;
   using L = Layout<E>;
   extern __shared__ __align__(16) unsigned char smem[];
   unsigned char* stage = smem;  // [kStages][L::kChunkRows][L::kRowBytes]
-  E* ws = reinterpret_cast<E*>(smem + kStages * stage_bytes<E>());
   const int WS = w_stride<E>(3 * H);
-  int* rows_s = reinterpret_cast<int*>(ws + (size_t)U * WS);  // chunk's rows
+  // the block's [U][WS] rows: after the staging ring, or its own part of
+  // the global scratch (written and read by this block only); then the
+  // chunk's batch rows
+  E* ws;
+  int* rows_s;
+  if constexpr (kStream) {
+    ws = w_scratch + blockIdx.x * slice_elems<E>(H, U);
+    rows_s = reinterpret_cast<int*>(smem + kStages * stage_bytes<E>());
+  } else {
+    ws = reinterpret_cast<E*>(smem + kStages * stage_bytes<E>());
+    rows_s = reinterpret_cast<int*>(ws + slice_elems<E>(H, U));
+  }
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int u0 = blockIdx.x * U;
   const int n_units = min(U, H - u0);  // > 0: the grid is ceil(H / U)
@@ -528,30 +574,37 @@ gru_bwd_kernel(const E* __restrict__ gates,          // [B, T, 4H]
         const int ju = 2 * (lane % 4);       // units ju, ju + 1 of a pass
         const int b_row[2] = {rg < rows ? rows_s[rg] : 0,
                               rg + 64 < rows ? rows_s[rg + 64] : 0};
-        float acc[kMaxPasses][2][2] = {};
         const bool two = rows > 64;
-        if (passes == 1 && !two)
-          product_f32<1, 1>(acc, stage, ws, WS, n_units, rg, ju, dxw,
-                            dhn_out, rows_s, rows, t, T, H, tid);
-        else if (passes == 1)
-          product_f32<2, 1>(acc, stage, ws, WS, n_units, rg, ju, dxw,
-                            dhn_out, rows_s, rows, t, T, H, tid);
-        else if (!two)
-          product_f32<1, 2>(acc, stage, ws, WS, n_units, rg, ju, dxw,
-                            dhn_out, rows_s, rows, t, T, H, tid);
-        else
-          product_f32<2, 2>(acc, stage, ws, WS, n_units, rg, ju, dxw,
-                            dhn_out, rows_s, rows, t, T, H, tid);
+        // kMaxPasses passes a group (one group in the resident variant):
+        // the group's units start at unit j0 of the block
+        for (int g0 = 0; g0 < passes; g0 += kMaxPasses) {
+          const int j0 = g0 * kPassUnits;
+          const E* wg = ws + (size_t)j0 * WS;
+          const int nu = n_units - j0;
+          float acc[kMaxPasses][2][2] = {};
+          if (passes - g0 == 1 && !two)
+            product_f32<1, 1>(acc, stage, wg, WS, nu, rg, ju, dxw, dhn_out,
+                              rows_s, rows, t, T, H, tid);
+          else if (passes - g0 == 1)
+            product_f32<2, 1>(acc, stage, wg, WS, nu, rg, ju, dxw, dhn_out,
+                              rows_s, rows, t, T, H, tid);
+          else if (!two)
+            product_f32<1, 2>(acc, stage, wg, WS, nu, rg, ju, dxw, dhn_out,
+                              rows_s, rows, t, T, H, tid);
+          else
+            product_f32<2, 2>(acc, stage, wg, WS, nu, rg, ju, dxw, dhn_out,
+                              rows_s, rows, t, T, H, tid);
 #pragma unroll
-        for (int p = 0; p < kMaxPasses; ++p)
+          for (int p = 0; p < kMaxPasses; ++p)
 #pragma unroll
-          for (int i = 0; i < 2; ++i)
+            for (int i = 0; i < 2; ++i)
 #pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              const int j = kPassUnits * p + ju + e;
-              if (rg + 64 * i < rows && j < n_units)
-                carry[(size_t)b_row[i] * H + u0 + j] += acc[p][i][e];
-            }
+              for (int e = 0; e < 2; ++e) {
+                const int j = kPassUnits * p + ju + e;
+                if (rg + 64 * i < rows && j < nu)
+                  carry[(size_t)b_row[i] * H + u0 + j0 + j] += acc[p][i][e];
+              }
+        }
       } else {
         // C fragment: c[mt][p][2 h + e] is row lane / 4 + 8 h of m-tile mt,
         // unit 2 (lane % 4) + e of pass p
@@ -563,33 +616,43 @@ gru_bwd_kernel(const E* __restrict__ gates,          // [B, T, 4H]
             const int r = warp * 32 + mt * 16 + lane / 4 + 8 * h;
             b_row[mt][h] = r < rows ? rows_s[r] : 0;
           }
-        float c[2][kMaxPasses][4] = {};
-        if (H % 8 == 0 && passes == 1)
-          product_bf16<true, 1>(c, stage, ws, WS, n_units, dxw, dhn_out,
-                                rows_s, rows, t, T, H, tid);
-        else if (H % 8 == 0)
-          product_bf16<true, 2>(c, stage, ws, WS, n_units, dxw, dhn_out,
-                                rows_s, rows, t, T, H, tid);
-        else if (passes == 1)
-          product_bf16<false, 1>(c, stage, ws, WS, n_units, dxw, dhn_out,
-                                 rows_s, rows, t, T, H, tid);
-        else
-          product_bf16<false, 2>(c, stage, ws, WS, n_units, dxw, dhn_out,
-                                 rows_s, rows, t, T, H, tid);
+        for (int g0 = 0; g0 < passes; g0 += kMaxPasses) {  // as in f32
+          const int j0 = g0 * kPassUnits;
+          const E* wg = ws + (size_t)j0 * WS;
+          const int nu = n_units - j0;
+          const bool one = passes - g0 == 1;
+          float c[2][kMaxPasses][4] = {};
+          if (H % 8 == 0 && one)
+            product_bf16<true, 1, kStream>(c, stage, wg, WS, nu, dxw,
+                                           dhn_out, rows_s, rows, t, T, H,
+                                           tid);
+          else if (H % 8 == 0)
+            product_bf16<true, 2, kStream>(c, stage, wg, WS, nu, dxw,
+                                           dhn_out, rows_s, rows, t, T, H,
+                                           tid);
+          else if (one)
+            product_bf16<false, 1, kStream>(c, stage, wg, WS, nu, dxw,
+                                            dhn_out, rows_s, rows, t, T, H,
+                                            tid);
+          else
+            product_bf16<false, 2, kStream>(c, stage, wg, WS, nu, dxw,
+                                            dhn_out, rows_s, rows, t, T, H,
+                                            tid);
 #pragma unroll
-        for (int mt = 0; mt < 2; ++mt)
+          for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-          for (int h = 0; h < 2; ++h)
+            for (int h = 0; h < 2; ++h)
 #pragma unroll
-            for (int p = 0; p < kMaxPasses; ++p)
+              for (int p = 0; p < kMaxPasses; ++p)
 #pragma unroll
-              for (int e = 0; e < 2; ++e) {
-                const int r = warp * 32 + mt * 16 + lane / 4 + 8 * h;
-                const int j = kPassUnits * p + 2 * (lane % 4) + e;
-                if (r < rows && j < n_units)
-                  carry[(size_t)b_row[mt][h] * H + u0 + j] +=
-                      c[mt][p][2 * h + e];
-              }
+                for (int e = 0; e < 2; ++e) {
+                  const int r = warp * 32 + mt * 16 + lane / 4 + 8 * h;
+                  const int j = kPassUnits * p + 2 * (lane % 4) + e;
+                  if (r < rows && j < nu)
+                    carry[(size_t)b_row[mt][h] * H + u0 + j0 + j] +=
+                        c[mt][p][2 * h + e];
+                }
+        }
       }
       // the next chunk's rows_s is written after the product's last
       // barrier, once every thread holds its rows in registers
@@ -621,17 +684,17 @@ gru_bwd_kernel(const E* __restrict__ gates,          // [B, T, 4H]
   }
 }
 
-template <typename E>
+template <typename E, bool kStream>
 int launch_gru_bwd(const void* gates, const void* outs, const void* h0,
                    const void* douts, const void* dfinal,
                    const int32_t* lengths, const int32_t* order,
                    const void* w_h, void* dxw, void* dhn, float* db,
-                   void* dh0, float* carry, int B, int T, int H,
-                   cudaStream_t stream) {
+                   void* dh0, float* carry, void* scratch, int B, int T,
+                   int H, cudaStream_t stream) {
   const int sms = gru::device_sms();
   if (sms == 0) return (int)cudaErrorInvalidDevice;
   int U = units_per_block(H, sms);
-  const size_t smem = smem_bytes<E>(H, U);
+  const size_t smem = smem_bytes<E>(H, U, kStream);
   if (smem == ~(size_t)0) return (int)cudaErrorInvalidValue;
   const int grid = (H + U - 1) / U;
   const E* gates_e = static_cast<const E*>(gates);
@@ -643,46 +706,82 @@ int launch_gru_bwd(const void* gates, const void* outs, const void* h0,
   E* dxw_e = static_cast<E*>(dxw);
   E* dhn_e = static_cast<E*>(dhn);
   E* dh0_e = static_cast<E*>(dh0);
+  E* scratch_e = static_cast<E*>(scratch);
   void* args[] = {(void*)&gates_e, (void*)&outs_e,  (void*)&h0_e,
                   (void*)&douts_e, (void*)&dfinal_e, (void*)&lengths,
                   (void*)&order,   (void*)&w_e,     (void*)&dxw_e,
                   (void*)&dhn_e,   (void*)&db,      (void*)&dh0_e,
-                  (void*)&carry,   (void*)&B,       (void*)&T,
-                  (void*)&H,       (void*)&U};
-  return gru::launch_cooperative(gru_bwd_kernel<E>, grid, smem, args,
-                                 stream);
+                  (void*)&carry,   (void*)&scratch_e, (void*)&B,
+                  (void*)&T,       (void*)&H,       (void*)&U};
+  return gru::launch_cooperative(gru_bwd_kernel<E, kStream>, grid, smem,
+                                 args, stream);
+}
+
+template <typename E>
+int dispatch_gru_bwd(const void* gates, const void* outs, const void* h0,
+                     const void* douts, const void* dfinal,
+                     const int32_t* lengths, const int32_t* order,
+                     const void* w_h, void* dxw, void* dhn, float* db,
+                     void* dh0, float* carry, void* scratch, int B, int T,
+                     int H, cudaStream_t s) {
+  if (scratch != nullptr)
+    return launch_gru_bwd<E, true>(gates, outs, h0, douts, dfinal, lengths,
+                                   order, w_h, dxw, dhn, db, dh0, carry,
+                                   scratch, B, T, H, s);
+  return launch_gru_bwd<E, false>(gates, outs, h0, douts, dfinal, lengths,
+                                  order, w_h, dxw, dhn, db, dh0, carry,
+                                  scratch, B, T, H, s);
+}
+
+// the streamed variant's global scratch: every block's W_h rows
+template <typename E>
+size_t scratch_bytes(int H) {
+  const int sms = gru::device_sms();
+  if (sms == 0) return 0;
+  const int U = units_per_block(H, sms);
+  return (size_t)((H + U - 1) / U) * slice_elems<E>(H, U) * sizeof(E);
 }
 
 }  // namespace
 
-// H must be a multiple of 4, at most cmhse_gru_bwd_max_hidden(bf16), and
-// every pointer 16-byte aligned (the wrapper checks all three). gates, outs,
-// h0, douts, dfinal, w_h, dxw, dhn and dh0 are f32, or bf16 when bf16 != 0;
-// db [4H] is f32 either way. order is the rows sorted by length, descending
-// (any order of equal lengths). carry is an f32 [B, H] scratch in bf16 and
-// null in f32 (dh0 carries). h0, douts and dfinal may each be null.
+// H must be a multiple of 4 and every pointer 16-byte aligned (the wrapper
+// checks both). gates, outs, h0, douts, dfinal, w_h, dxw, dhn and dh0 are
+// f32, or bf16 when bf16 != 0; db [4H] is f32 either way. order is the rows
+// sorted by length, descending (any order of equal lengths). carry is an
+// f32 [B, H] scratch in bf16 and null in f32 (dh0 carries). h0, douts and
+// dfinal may each be null. w_scratch null: the resident variant, H up to
+// cmhse_gru_bwd_max_hidden(bf16); otherwise the streamed one, H up to
+// kThreads x the SM count, w_scratch holding
+// cmhse_gru_bwd_scratch_bytes(H, bf16) bytes.
 extern "C" int cmhse_gru_bwd(const void* gates, const void* outs,
                              const void* h0, const void* douts,
                              const void* dfinal, const int32_t* lengths,
                              const int32_t* order, const void* w_h, void* dxw,
                              void* dhn, float* db, void* dh0, void* carry,
-                             int B, int T, int H, int bf16, void* stream) {
+                             void* w_scratch, int B, int T, int H, int bf16,
+                             void* stream) {
   if (B <= 0 || T <= 0 || H <= 0 || H % 4 != 0 || dh0 == nullptr ||
       (bf16 != 0) != (carry != nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (bf16)
-    return launch_gru_bwd<__nv_bfloat16>(
+    return dispatch_gru_bwd<__nv_bfloat16>(
         gates, outs, h0, douts, dfinal, lengths, order, w_h, dxw, dhn, db,
-        dh0, static_cast<float*>(carry), B, T, H, s);
-  return launch_gru_bwd<float>(gates, outs, h0, douts, dfinal, lengths,
-                               order, w_h, dxw, dhn, db, dh0,
-                               static_cast<float*>(dh0), B, T, H, s);
+        dh0, static_cast<float*>(carry), w_scratch, B, T, H, s);
+  return dispatch_gru_bwd<float>(gates, outs, h0, douts, dfinal, lengths,
+                                 order, w_h, dxw, dhn, db, dh0,
+                                 static_cast<float*>(dh0), w_scratch, B, T, H,
+                                 s);
 }
 
-// Largest H the kernel takes on the current device: the block's W_h rows
-// and the staging ring must fit in one block's shared memory.
+// Largest H the resident variant takes on the current device: the block's
+// W_h rows and the staging ring must fit in one block's shared memory.
 extern "C" int cmhse_gru_bwd_max_hidden(int bf16) {
-  return bf16 ? gru::max_hidden(smem_bytes<__nv_bfloat16>)
-              : gru::max_hidden(smem_bytes<float>);
+  return bf16 ? gru::max_hidden(resident_smem_bytes<__nv_bfloat16>)
+              : gru::max_hidden(resident_smem_bytes<float>);
+}
+
+// Bytes of the streamed variant's W_h scratch at H (0 on error).
+extern "C" size_t cmhse_gru_bwd_scratch_bytes(int H, int bf16) {
+  return bf16 ? scratch_bytes<__nv_bfloat16>(H) : scratch_bytes<float>(H);
 }

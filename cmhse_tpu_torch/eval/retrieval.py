@@ -1,10 +1,13 @@
-"""Retrieval evaluation, counterpart of ``cmhse_tpu/eval/retrieval.py``
-(single device; the sharded mesh path waits).
+"""Retrieval evaluation, counterpart of ``cmhse_tpu/eval/retrieval.py``.
 
 Encode a split, rank both directions on the device, report R@k / MedR /
 MeanR / rsum; :func:`evalrank` does it for a checkpoint directory, the
-reference's ``python evaluation.py`` entry. Galleries of at least ``STREAMING_GALLERY_MIN`` rows on the
-card rank through the ``rankcount`` kernel and never materialize ``[N, N]``.
+reference's ``python evaluation.py`` entry. Galleries of at least
+``STREAMING_GALLERY_MIN`` rows on the card rank through the ``rankcount``
+kernel and never materialize ``[N, N]``. With a mesh
+(:mod:`cmhse_tpu_torch.parallel`) each rank encodes its slice of every
+batch, the embeddings are all-gathered, and the ranks are counted sharded
+(:func:`~cmhse_tpu_torch.parallel.eval_sharded.sharded_retrieval_metrics`).
 """
 
 from __future__ import annotations
@@ -54,19 +57,68 @@ def streaming_bidirectional_metrics(
                                             return_ranks=return_ranks)
 
 
+def _gather_batches(x: torch.Tensor, mesh, rows: int) -> torch.Tensor:
+    """Every rank's encoded rows in the global batches' order: batch 0's
+    rows of rank 0, 1, ..., then batch 1's. The loader gives every rank a
+    contiguous slice of ``rows`` rows of every global batch."""
+    from cmhse_tpu_torch.parallel.mesh import all_gather_rows
+
+    g = all_gather_rows(x, mesh)
+    return g.reshape(mesh.data_size, -1, rows, *x.shape[1:]).transpose(
+        0, 1).reshape(-1, *x.shape[1:])
+
+
 def validate_metrics(
     model,
     batches,
     ks: tuple[int, ...] = (1, 5, 10, 50),
     streaming: bool | None = None,
     return_ranks: bool = False,
+    mesh=None,
+    mode: str = "query",
 ):
     """Encode a split on the model's device and compute bidirectional
     retrieval metrics. ``streaming``: force the rank-count kernel path
     (True) or the dense path (False); None = by gallery size on the card.
     Returns plain floats; with ``return_ranks`` also a dict of int numpy
     ``v2p_ranks`` / ``p2v_ranks`` compacted to valid rows in dataset order
-    (identical from the dense and streaming paths)."""
+    (identical from the dense, streaming and sharded paths).
+
+    ``mesh``: ``batches`` hold this rank's slice of every global batch (the
+    loader's ``process_index`` / ``process_count``); each rank encodes its
+    rows, the embeddings and validity are all-gathered into dataset order,
+    and the ranks are counted sharded in ``mode`` ("query" or "gallery")."""
+    if mesh is not None:
+        from cmhse_tpu_torch.parallel.eval_sharded import \
+            sharded_retrieval_metrics
+
+        # The JAX path pads each batch to whole rows a device (devices a
+        # process); a rank is one device, so no batch needs padding.
+        rows = []
+
+        def counted(it):
+            for b in it:
+                rows.append(b.valid.shape[0])
+                yield b
+
+        video_embs, para_embs, valid = encode_gallery_device(
+            model, counted(batches))
+        if len(set(rows)) != 1:
+            raise ValueError(f"sharded validation needs batches of one row "
+                             f"count on every rank, got {sorted(set(rows))}")
+        with torch.inference_mode():
+            video_embs, para_embs, valid = (
+                _gather_batches(x, mesh, rows[0])
+                for x in (video_embs, para_embs, valid))
+            metrics = sharded_retrieval_metrics(
+                video_embs, para_embs, mesh, ks=ks, mode=mode, valid=valid,
+                streaming=streaming, return_ranks=return_ranks)
+        return _host_metrics(metrics, valid, return_ranks)
+    if mode != "query":
+        # mode picks how the sharded count splits its work: without a mesh
+        # there is nothing to pick, so say so rather than ignore it
+        print(f"validate_metrics: mode={mode!r} is a sharded-eval knob and "
+              "has no effect without a mesh (pass --sharded)")
     video_embs, para_embs, valid = encode_gallery_device(model, batches)
     with torch.inference_mode():
         if should_stream(video_embs.shape[0], video_embs.device, streaming):
@@ -78,6 +130,11 @@ def validate_metrics(
             metrics = bidirectional_metrics(sims, ks=ks,
                                             return_ranks=return_ranks)
             valid = None  # ranks are already valid-rows-only
+    return _host_metrics(metrics, valid, return_ranks)
+
+
+def _host_metrics(metrics: dict, valid, return_ranks: bool):
+    """Plain floats, and the rank vectors compacted to valid rows."""
     ranks = {}
     for k in [k for k in metrics if k.endswith("_ranks")]:
         r = metrics.pop(k).cpu().numpy()
@@ -112,13 +169,17 @@ def evalrank(
     streaming: bool | None = None,
     dump_ranks: str | None = None,
     device: str | torch.device | None = None,
+    mesh=None,
+    mode: str = "query",
 ) -> dict[str, float]:
     """Load a checkpoint and evaluate a split on ``device`` (the card
     unless ``"cpu"`` is passed), printing the R@k table.
 
     ``dump_ranks``: also write one JSONL line per example, ``{"index",
     "key", "v2p_rank", "p2v_rank"}``, in the JAX package's format, so two
-    runs can be diffed line for line."""
+    runs can be diffed line for line. ``mesh`` / ``mode``: sharded
+    evaluation (see :func:`validate_metrics`); each rank loads its slice of
+    every batch, and rank 0 alone writes the dump."""
     import json
     import os
 
@@ -142,13 +203,20 @@ def evalrank(
     dataset = PrecompDataset(data_path, split, vocab,
                              feat_dim=cfg.data.feat_dim,
                              flat=not cfg.model.hierarchical)
-    batches = batches_from_dataset(dataset, cfg.data, shuffle=False)
+    # under a mesh each rank loads its slice of every batch; full batches
+    # on every rank would repeat each gallery row once a rank
+    slicing = ({} if mesh is None else
+               dict(process_index=mesh.data_index,
+                    process_count=mesh.data_size))
+    batches = batches_from_dataset(dataset, cfg.data, shuffle=False,
+                                   **slicing)
     out = validate_metrics(model, batches, ks=ks, streaming=streaming,
-                           return_ranks=dump_ranks is not None)
+                           return_ranks=dump_ranks is not None, mesh=mesh,
+                           mode=mode)
     metrics, ranks = out if dump_ranks is not None else (out, None)
     # the table first: a failed dump write must not lose the metrics
     print(format_table(metrics, ks))
-    if ranks is not None:
+    if ranks is not None and (mesh is None or mesh.rank == 0):
         v2p, p2v = ranks["v2p_ranks"], ranks["p2v_ranks"]
         with open(dump_ranks, "w") as f:
             for i in range(len(v2p)):

@@ -25,7 +25,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
-SOURCES = ("gru_fwd.cu", "gru_bwd.cu", "simhinge.cu", "rankcount.cu")
+SOURCES = ("gru_fwd.cu", "gru_fwd_streamed.cu", "gru_bwd.cu", "simhinge.cu",
+           "rankcount.cu")
 HEADERS = ("gru_common.cuh",)  # included by sources; part of the build hash
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -34,16 +35,18 @@ LIB_NAME = "libcmhse_kernels.so"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # xw, w_h, b_h, lengths, h0, outs, final, gates, carry, B, T, H, bf16,
-    # stream
-    "cmhse_gru_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+    # xw, w_h, b_h, lengths, h0, outs, final, gates, carry, w_scratch, B, T,
+    # H, bf16, stream
+    "cmhse_gru_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                       _P),
     "cmhse_gru_fwd_max_hidden": (_I,),
+    "cmhse_gru_fwd_scratch_bytes": (_I, _I),  # H, bf16
     # gates, outs, h0, douts, dfinal, lengths, order, w_h, dxw, dhn, db, dh0,
-    # carry, B, T, H, bf16, stream
-    "cmhse_gru_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                      _I, _I, _I, _P),
+    # carry, w_scratch, B, T, H, bf16, stream
+    "cmhse_gru_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                      _I, _I, _I, _I, _P),
     "cmhse_gru_bwd_max_hidden": (_I,),
+    "cmhse_gru_bwd_scratch_bytes": (_I, _I),
     # a, b, mask, row_diag, col_diag, keys, row_max, row_arg, col_max,
     # col_arg, M, N, D, margin, stream
     "cmhse_simhinge_pair": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
@@ -52,6 +55,8 @@ _SIGNATURES = {
     "cmhse_rankcount": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "cmhse_rankcount_smem_bytes": (_I,),
 }
+# functions of _SIGNATURES that return a size_t (the rest return an int)
+_SIZE_RESULTS = ("cmhse_gru_fwd_scratch_bytes", "cmhse_gru_bwd_scratch_bytes")
 
 # Kernel launches by (kernel, dtype, variant), for proof that a run went
 # through the kernels: each wrapper adds one to its own key where it
@@ -163,7 +168,8 @@ def library() -> ctypes.CDLL:
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
+        fn.restype = (ctypes.c_size_t if name in _SIZE_RESULTS
+                      else ctypes.c_int)
     lib.cmhse_error_string.argtypes = [ctypes.c_int]
     lib.cmhse_error_string.restype = ctypes.c_char_p
     return lib

@@ -30,6 +30,16 @@ step adds their share of the carried gradient's product for the live rows
 only (the rows ordered once a call by length, :func:`live_row_order`); the
 L2 reads of that operand bound it. See the sources for the full notes.
 
+Every H runs on the card. The kernels' unit is 4 hidden units, so the
+wrappers pad each gate block of an H that is not a multiple of 4 with zero
+units and slice the results back (:func:`pad_forward_operands`,
+:func:`pad_backward_operands`): exact, since a zero unit has r = z = 1/2,
+n = tanh(0) = 0 and stays 0, and its zero row of ``W_h`` feeds no other
+unit. Past the H at which a block's slice of ``W_h`` fits in shared memory
+(:func:`fwd_max_hidden`, :func:`bwd_max_hidden`) each kernel runs its
+streamed variant, which reads the slice from a global scratch every step
+instead; its launches count under a variant ending in ``+streamed``.
+
 Dispatch: a CPU tensor takes the plain versions; a CUDA tensor launches the
 kernels or raises. There is no fallback between the two, and a bf16 tensor
 never goes through the f32 instantiation.
@@ -174,6 +184,77 @@ def gru_backward_plain(
     return dxw.to(dt), dhn_all.to(dt), db, dh.to(dt)
 
 
+def padded_hidden(hdim: int) -> int:
+    """H rounded up to a multiple of 4, the unit the kernels take."""
+    return -(-hdim // 4) * 4
+
+
+def pad_units(x: torch.Tensor | None, hdim: int, hp: int,
+              blocks: int) -> torch.Tensor | None:
+    """``x`` with each of the ``blocks`` gate blocks of its last dim
+    zero-padded from ``hdim`` to ``hp`` units (None passes through)."""
+    if x is None or hp == hdim:
+        return x
+    lead = x.shape[:-1]
+    x = x.reshape(*lead, blocks, hdim)
+    return torch.nn.functional.pad(x, (0, hp - hdim)).reshape(
+        *lead, blocks * hp)
+
+
+def unpad_units(x: torch.Tensor, hdim: int, hp: int,
+                blocks: int) -> torch.Tensor:
+    """The inverse of :func:`pad_units`: each gate block cut back to its
+    first ``hdim`` units (a contiguous copy)."""
+    if hp == hdim:
+        return x
+    lead = x.shape[:-1]
+    return x.reshape(*lead, blocks, hp)[..., :hdim].reshape(
+        *lead, blocks * hdim).contiguous()
+
+
+def pad_w_h(w_h: torch.Tensor, hdim: int, hp: int) -> torch.Tensor:
+    """``[H, 3H]`` to ``[Hp, 3Hp]``: zero rows for the padded units' state
+    and zero columns in each gate block."""
+    if hp == hdim:
+        return w_h
+    return torch.nn.functional.pad(pad_units(w_h, hdim, hp, 3),
+                                   (0, 0, 0, hp - hdim))
+
+
+def pad_forward_operands(xw, w_h, b_h, h0, hp: int) -> tuple:
+    """``(xw, w_h, b_h, h0)`` of the forward padded to ``hp`` units."""
+    hdim = xw.shape[-1] // 3
+    return (pad_units(xw, hdim, hp, 3), pad_w_h(w_h, hdim, hp),
+            pad_units(b_h, hdim, hp, 3), pad_units(h0, hdim, hp, 1))
+
+
+def unpad_forward_results(result: tuple, hdim: int) -> tuple:
+    """``(outs, final[, gates])`` of a padded forward cut back to
+    ``hdim`` units."""
+    hp = result[0].shape[-1]
+    return tuple(unpad_units(x, hdim, hp, blocks)
+                 for x, blocks in zip(result, (1, 1, 4)))
+
+
+def pad_backward_operands(gates, outs, w_h, douts, dfinal, h0,
+                          hp: int) -> tuple:
+    """``(gates, outs, w_h, douts, dfinal, h0)`` of the backward padded
+    to ``hp`` units. The padded units' gates are zeros, not the forward's
+    r = z = 1/2: their gradient is zero whatever the gates hold."""
+    hdim = outs.shape[-1]
+    return (pad_units(gates, hdim, hp, 4), pad_units(outs, hdim, hp, 1),
+            pad_w_h(w_h, hdim, hp), pad_units(douts, hdim, hp, 1),
+            pad_units(dfinal, hdim, hp, 1), pad_units(h0, hdim, hp, 1))
+
+
+def unpad_backward_results(result: tuple, hdim: int) -> tuple:
+    """``(dxw, dhn, db, dh0)`` of a padded backward cut back to ``hdim``
+    units."""
+    hp = result[1].shape[-1]
+    return tuple(unpad_units(x, hdim, hp, blocks)
+                 for x, blocks in zip(result, (3, 1, 4, 1)))
+
+
 def _check(xw, w_h, b_h, lengths, h0) -> None:
     if xw.dim() != 3 or xw.shape[-1] % 3:
         raise ValueError(f"xw must be [B, T, 3H], got {tuple(xw.shape)}")
@@ -242,19 +323,46 @@ def live_row_order(lengths: torch.Tensor) -> torch.Tensor:
 
 
 def fwd_max_hidden(dtype: torch.dtype = torch.float32) -> int:
-    """Largest H the ``gru_fwd`` kernel takes in ``dtype`` on the current
-    CUDA device: each block's slice of W_h and its staging buffers must fit
-    in its shared memory. Builds the library."""
+    """Largest H of the resident ``gru_fwd`` variant in ``dtype`` on the
+    current CUDA device: each block's slice of W_h and its staging buffers
+    must fit in its shared memory. A larger H takes the streamed variant.
+    Builds the library."""
     return cuda_lib.library().cmhse_gru_fwd_max_hidden(
         int(dtype == torch.bfloat16))
 
 
 def bwd_max_hidden(dtype: torch.dtype = torch.float32) -> int:
-    """Largest H the ``gru_bwd`` kernel takes in ``dtype`` on the current
-    CUDA device: each block's rows of W_h and its staging buffers must fit
-    in its shared memory. Builds the library."""
+    """Largest H of the resident ``gru_bwd`` variant in ``dtype`` on the
+    current CUDA device: each block's rows of W_h and its staging buffers
+    must fit in its shared memory. A larger H takes the streamed variant.
+    Builds the library."""
     return cuda_lib.library().cmhse_gru_bwd_max_hidden(
         int(dtype == torch.bfloat16))
+
+
+def _w_scratch(kind: str, hdim: int, dt: torch.dtype,
+               dev: torch.device) -> torch.Tensor | None:
+    """The streamed variant's W_h scratch when ``hdim`` is past the
+    resident limit of ``kind`` ("fwd" or "bwd"), else None (the resident
+    variant). The current device must be ``dev``."""
+    bf16 = int(dt == torch.bfloat16)
+    lib = cuda_lib.library()
+    if kind == "fwd":
+        limit, size = (lib.cmhse_gru_fwd_max_hidden(bf16),
+                       lib.cmhse_gru_fwd_scratch_bytes)
+    else:
+        limit, size = (lib.cmhse_gru_bwd_max_hidden(bf16),
+                       lib.cmhse_gru_bwd_scratch_bytes)
+        # phase 1 of gru_bwd takes a unit a thread of one 256-thread block
+        # an SM, so this refusal is the card's, not the resident limit's
+        most = 256 * torch.cuda.get_device_properties(dev).multi_processor_count
+        if hdim > most:
+            raise ValueError(f"the gru_bwd kernel takes H up to {most} on "
+                             f"this card (256 units a block, one block an "
+                             f"SM), got {hdim}")
+    if hdim <= limit:
+        return None
+    return torch.empty(size(hdim, bf16), dtype=torch.uint8, device=dev)
 
 
 def gru_forward(
@@ -271,23 +379,27 @@ def gru_forward(
     On the CPU it is the plain version. On a CUDA device it launches
     ``gru_fwd`` in the variant the arguments ask for and the instantiation
     of ``xw``'s dtype (f32 or bf16), which takes contiguous
-    ``xw``/``w_h``/``h0`` in that dtype, an f32 ``b_h``, int32 ``lengths``
-    and H a multiple of 4 up to :func:`fwd_max_hidden`; anything else
-    raises. Each launch counts in
-    ``cuda_lib.launches`` under ("gru_fwd", dtype, variant), the variant
-    "encode", "with_h0", "save_gates" or "save_gates+with_h0".
+    ``xw``/``w_h``/``h0`` in that dtype, an f32 ``b_h`` and int32
+    ``lengths``; anything else raises. H not a multiple of 4 is padded
+    (module docstring); H past :func:`fwd_max_hidden` takes the streamed
+    variant. Each launch counts in ``cuda_lib.launches`` under ("gru_fwd",
+    dtype, variant), the variant "encode", "with_h0", "save_gates" or
+    "save_gates+with_h0", with "+streamed" appended past the resident
+    limit.
     """
     _check(xw, w_h, b_h, lengths, h0)
     if xw.device.type == "cpu":
         return gru_recurrence_plain(xw, w_h, b_h, lengths, h0, save_gates)
+    hdim = xw.shape[-1] // 3
+    if padded_hidden(hdim) != hdim:
+        padded = pad_forward_operands(xw, w_h, b_h, h0, padded_hidden(hdim))
+        return unpad_forward_results(
+            gru_forward(padded[0], padded[1], padded[2], lengths, padded[3],
+                        save_gates), hdim)
     dt = xw.dtype
     xw, w_h, b_h, h0 = _kernel_operands(
         "gru_fwd", dt, {"xw": xw, "w_h": w_h, "b_h": b_h, "h0": h0}, lengths)
-    b, t, h3 = xw.shape
-    hdim = h3 // 3
-    if hdim % 4:
-        raise ValueError(f"the gru_fwd kernel takes H a multiple of 4, got "
-                         f"{hdim}")
+    b, t, _ = xw.shape
     dev = xw.device
     outs = torch.empty(b, t, hdim, dtype=dt, device=dev)
     final = torch.empty(b, hdim, dtype=dt, device=dev)
@@ -304,10 +416,7 @@ def gru_forward(
         return result
     lib = cuda_lib.library()
     with torch.cuda.device(dev):
-        limit = fwd_max_hidden(dt)
-        if hdim > limit:
-            raise ValueError(f"the gru_fwd kernel takes H up to {limit} in "
-                             f"{_dtype_name(dt)} on this card, got {hdim}")
+        scratch = _w_scratch("fwd", hdim, dt, dev)
         # bf16: the f32 carry of each block's own units (the outputs are
         # rounded, so they cannot carry it)
         carry = (torch.empty(b, hdim, dtype=torch.float32, device=dev)
@@ -315,13 +424,16 @@ def gru_forward(
         err = lib.cmhse_gru_fwd(
             xw.data_ptr(), w_h.data_ptr(), b_h.data_ptr(), lengths.data_ptr(),
             _ptr(h0), outs.data_ptr(), final.data_ptr(), _ptr(gates),
-            _ptr(carry), b, t, hdim, int(dt == torch.bfloat16),
+            _ptr(carry), _ptr(scratch), b, t, hdim,
+            int(dt == torch.bfloat16),
             torch.cuda.current_stream(dev).cuda_stream)
     cuda_lib.check(err, "gru_fwd launch")
     flags = [f for f, on in (("save_gates", save_gates),
                              ("with_h0", h0 is not None)) if on]
+    variant = "+".join(flags) or "encode"
     cuda_lib.count_launch("gru_fwd", _dtype_name(dt),
-                          "+".join(flags) or "encode")
+                          variant + ("+streamed" if scratch is not None
+                                     else ""))
     return result
 
 
@@ -339,10 +451,12 @@ def gru_backward(
 
     On the CPU it is the plain version. On a CUDA device it launches the
     ``gru_bwd`` instantiation of the gates' dtype (f32 or bf16), which takes
-    contiguous tensors all in that dtype, int32 ``lengths`` and H a multiple
-    of 4 up to :func:`bwd_max_hidden`; anything else raises. One launch a
-    call, counted in ``cuda_lib.launches`` under ("gru_bwd", dtype,
-    "with_h0" or "zero_h0").
+    contiguous tensors all in that dtype and int32 ``lengths``; anything
+    else raises. H not a multiple of 4 is padded (module docstring); H past
+    :func:`bwd_max_hidden` takes the streamed variant, up to 256 units a
+    block on one block an SM. One launch a call, counted in
+    ``cuda_lib.launches`` under ("gru_bwd", dtype, "with_h0" or "zero_h0"),
+    with "+streamed" appended past the resident limit.
     """
     b, t, h4 = gates.shape
     hdim = h4 // 4
@@ -361,15 +475,18 @@ def gru_backward(
     if gates.device.type != "cuda":
         raise ValueError(f"gru_backward runs on cpu or cuda, not "
                          f"{gates.device.type}")
+    if padded_hidden(hdim) != hdim:
+        padded = pad_backward_operands(gates, outs, w_h, douts, dfinal, h0,
+                                       padded_hidden(hdim))
+        return unpad_backward_results(
+            gru_backward(padded[0], padded[1], lengths, padded[2],
+                         padded[3], padded[4], padded[5]), hdim)
     dt = gates.dtype
     douts = None if douts is None else douts.contiguous()
     dfinal = None if dfinal is None else dfinal.contiguous()
     gates, outs, w_h, douts, dfinal, h0 = _kernel_operands(
         "gru_bwd", dt, {"gates": gates, "outs": outs, "w_h": w_h,
                         "douts": douts, "dfinal": dfinal, "h0": h0}, lengths)
-    if hdim % 4:
-        raise ValueError(f"the gru_bwd kernel takes H a multiple of 4, got "
-                         f"{hdim}")
     dev = gates.device
     dxw = torch.empty(b, t, 3 * hdim, dtype=dt, device=dev)
     dhn = torch.empty(b, t, hdim, dtype=dt, device=dev)
@@ -383,10 +500,7 @@ def gru_backward(
         return dxw, dhn, db.zero_(), dh0
     lib = cuda_lib.library()
     with torch.cuda.device(dev):
-        limit = bwd_max_hidden(dt)
-        if hdim > limit:
-            raise ValueError(f"the gru_bwd kernel takes H up to {limit} in "
-                             f"{_dtype_name(dt)} on this card, got {hdim}")
+        scratch = _w_scratch("bwd", hdim, dt, dev)
         # bf16: the f32 carried gradient (dh0 is rounded, so it cannot
         # carry it; in f32 dh0 does)
         carry = (torch.empty(b, hdim, dtype=torch.float32, device=dev)
@@ -396,12 +510,13 @@ def gru_backward(
             gates.data_ptr(), outs.data_ptr(), _ptr(h0), _ptr(douts),
             _ptr(dfinal), lengths.data_ptr(), order.data_ptr(),
             w_h.data_ptr(), dxw.data_ptr(), dhn.data_ptr(), db.data_ptr(),
-            dh0.data_ptr(), _ptr(carry), b, t, hdim,
+            dh0.data_ptr(), _ptr(carry), _ptr(scratch), b, t, hdim,
             int(dt == torch.bfloat16),
             torch.cuda.current_stream(dev).cuda_stream)
     cuda_lib.check(err, "gru_bwd launch")
     cuda_lib.count_launch("gru_bwd", _dtype_name(dt),
-                          "zero_h0" if h0 is None else "with_h0")
+                          ("zero_h0" if h0 is None else "with_h0")
+                          + ("+streamed" if scratch is not None else ""))
     return dxw, dhn, db, dh0
 
 
@@ -419,13 +534,6 @@ class TrainableGRU(torch.autograd.Function):
     @staticmethod
     def forward(ctx, xw, w_h, b_h, lengths, h0):
         ctx.set_materialize_grads(False)
-        if xw.device.type == "cuda":
-            with torch.cuda.device(xw.device):
-                limit = bwd_max_hidden(xw.dtype)
-            if xw.shape[-1] // 3 > limit:
-                raise ValueError(f"the gru_bwd kernel takes H up to {limit} "
-                                 f"in {_dtype_name(xw.dtype)}, got "
-                                 f"{xw.shape[-1] // 3}")
         w_c = w_h.to(xw.dtype)
         h0_c = None if h0 is None else h0.to(xw.dtype)
         outs, final, gates = gru_forward(xw, w_c, b_h, lengths, h0_c,

@@ -17,9 +17,10 @@ map_location="cpu")``: a checkpoint written on the card restores on the
 CPU and the other way round.
 
 The JAX package's checkpoints are orbax trees; this module does not read
-them (orbax is not a dependency of the port). One process writes a run's
-directory: the multi-process guards of the JAX module wait for multi-GPU
-training.
+them (orbax is not a dependency of the port). In a run of several
+processes (``torchrun``) rank 0 alone writes the directory, as the JAX
+module's process 0 does; every save ends at a barrier, so the other ranks
+go on, and read the same files on a resume, only once the write is whole.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ from typing import Any
 import torch
 
 from cmhse_tpu_torch.config import ExperimentConfig
+from cmhse_tpu_torch.parallel.mesh import barrier, process_index
 
 MAX_TO_KEEP = 3
 
@@ -62,13 +64,15 @@ class CheckpointManager:
     def __init__(self, directory: str, cfg: ExperimentConfig | None = None):
         self.directory = _abs(directory)
         self.ckpt_dir = os.path.join(self.directory, "ckpt")
-        os.makedirs(self.ckpt_dir, exist_ok=True)
-        if cfg is not None:
-            path = os.path.join(self.directory, "config.json")
-            tmp = f"{path}.tmp{os.getpid()}"
-            with open(tmp, "w") as f:
-                f.write(cfg.to_json())
-            os.replace(tmp, path)
+        if process_index() == 0:
+            os.makedirs(self.ckpt_dir, exist_ok=True)
+            if cfg is not None:
+                path = os.path.join(self.directory, "config.json")
+                tmp = f"{path}.tmp{os.getpid()}"
+                with open(tmp, "w") as f:
+                    f.write(cfg.to_json())
+                os.replace(tmp, path)
+        barrier()
 
     # -- save ---------------------------------------------------------------
 
@@ -85,7 +89,11 @@ class CheckpointManager:
         consumed (mid-epoch snapshot position; 0 = epoch boundary). A save
         at a step that already has a checkpoint replaces it: a mid-epoch
         snapshot and the epoch-end save can land on one step, and the later
-        one carries the advanced epoch."""
+        one carries the advanced epoch. Rank 0 writes; every rank returns
+        after the write."""
+        if process_index() != 0:
+            barrier()
+            return
         sd = state.state_dict()
         payload = {
             "model": sd["model"],
@@ -103,6 +111,7 @@ class CheckpointManager:
             write_best_dir(self.directory, eval_payload(
                 sd["model"], step=payload["step"], epoch=epoch,
                 best_rsum=best_rsum))
+        barrier()
 
     # -- restore --------------------------------------------------------------
 

@@ -4,10 +4,14 @@ per-step logging, lr decay by ``lr_decay`` every ``lr_update`` epochs,
 validation by rsum with a best checkpoint, mid-epoch snapshots, resume,
 and a SIGTERM snapshot.
 
-One device (the card unless ``device="cpu"``); data- and multi-process
-training wait for the port's multi-GPU slice. Batches reach the card
-through :class:`~cmhse_tpu_torch.data.prefetch.Prefetcher`: pinned host
-buffers, copies on a side stream, two groups ahead of the step.
+One device a process (the card unless ``device="cpu"``). Under a mesh
+(``torchrun``, or ``use_mesh=True``) each rank loads and feeds its slice of
+every global batch, the step is the data-parallel one of
+:mod:`cmhse_tpu_torch.parallel.train_dp`, validation is sharded, and rank
+0 alone writes the checkpoints and ``log.jsonl``. Batches reach each
+rank's card through :class:`~cmhse_tpu_torch.data.prefetch.Prefetcher`:
+pinned host buffers, copies on a side stream, two groups ahead of the
+step.
 """
 
 from __future__ import annotations
@@ -26,6 +30,9 @@ from cmhse_tpu_torch.data.prefetch import Prefetcher
 from cmhse_tpu_torch.device import resolve_device
 from cmhse_tpu_torch.eval.retrieval import format_table, validate_metrics
 from cmhse_tpu_torch.models import CMHSE
+from cmhse_tpu_torch.parallel.mesh import (make_mesh, process_count,
+                                           process_index)
+from cmhse_tpu_torch.parallel.train_dp import place_state
 from cmhse_tpu_torch.train.checkpoint import CheckpointManager, _abs
 from cmhse_tpu_torch.train.state import (create_train_state,
                                          set_learning_rate, train_step,
@@ -87,15 +94,36 @@ def fit(
     val_dataset=None,
     vocab=None,
     device: str | torch.device | None = None,
+    use_mesh: bool | None = None,
 ) -> tuple:
     """Full training run; returns (state, best_rsum).
 
     ``vocab``: the :class:`Vocabulary` the dataset was tokenized with;
     required when ``cfg.data.word2vec_path`` is set (the reference
     initializes its embedding table from word2vec). ``device``: where the
-    run trains, the card unless ``"cpu"`` is passed.
+    run trains, the card unless ``"cpu"`` is passed. ``use_mesh``: train
+    over a mesh of ``cfg.train.mesh_shape`` / ``mesh_axes`` (one rank a
+    device; a world of 1 without a process group); None builds one when a
+    process group is up.
     """
     device = resolve_device(device)
+    mesh = None
+    if use_mesh or (use_mesh is None and torch.distributed.is_initialized()):
+        mesh = make_mesh(cfg.train.mesh_shape, cfg.train.mesh_axes,
+                         device=device)
+        device = mesh.device
+        dp = mesh.shape.get("data", 1)
+        if cfg.data.batch_size % dp:
+            # fail here with the fix spelled out, as the JAX loop does
+            raise ValueError(
+                f"batch_size ({cfg.data.batch_size}) must be divisible by "
+                f"the data-mesh size ({dp} devices); pass a multiple of "
+                f"{dp}, or shrink TrainConfig.mesh_shape"
+            )
+    elif process_count() > 1:
+        raise ValueError(
+            "fit(use_mesh=False) is single-process only: multi-process "
+            "batch placement and validation both need the global mesh")
     if vocab is not None and len(vocab) > cfg.data.vocab_size:
         # fail loud: an id past the table would index out of range (on the
         # card, a device-side assert deep inside the first step)
@@ -105,7 +133,9 @@ def fit(
             f"--vocab_size >= {len(vocab)} (the reference sizes the "
             f"embedding table from the built vocabulary)"
         )
-    logger = JsonlLogger(os.path.join(cfg.train.checkpoint_dir, "log.jsonl"))
+    # one writer of log.jsonl: the other ranks log nothing
+    logger = JsonlLogger(os.path.join(cfg.train.checkpoint_dir, "log.jsonl"),
+                         enabled=process_index() == 0)
     ckpt = CheckpointManager(cfg.train.checkpoint_dir, cfg)
     model = build_model(cfg, device)
     state = create_train_state(cfg, model)
@@ -140,6 +170,10 @@ def fit(
         print(f"resumed from {cfg.train.resume} at epoch {start_epoch}{pos}, "
               f"best_rsum {best_rsum:.2f}")
 
+    if mesh is not None:
+        # rank 0's parameters and Adam state on every rank, fresh or resumed
+        state = place_state(state, mesh)
+
     # steps_per_dispatch > 1: K updates a dispatch (train_steps); needs
     # identical batch shapes, so it requires the fixed-shape loader mode.
     # Log/val cadence rounds to dispatch boundaries.
@@ -171,7 +205,7 @@ def fit(
     try:
         return _fit_epochs(cfg, train_dataset, val_dataset, state, ckpt,
                            logger, start_epoch, best_rsum, start_groups, spd,
-                           preempt)
+                           preempt, mesh)
     finally:
         ckpt.close()
         if prev_sigterm is not None:
@@ -181,10 +215,15 @@ def fit(
 
 
 def _fit_epochs(cfg, train_dataset, val_dataset, state, ckpt, logger,
-                start_epoch, best_rsum, start_groups, spd, preempt):
+                start_epoch, best_rsum, start_groups, spd, preempt, mesh):
     device = state.model.device
     prefetcher = Prefetcher(device)
     global_step = state.step
+    # under a mesh each rank loads and feeds its slice of every batch
+    slicing = ({} if mesh is None else
+               dict(process_index=mesh.data_index,
+                    process_count=mesh.data_size))
+    mesh_kw = {} if mesh is None else {"mesh": mesh}
     for epoch in range(start_epoch, cfg.train.num_epochs):
         lr = adjust_learning_rate(cfg, epoch)
         state = set_learning_rate(state, lr)
@@ -197,6 +236,7 @@ def _fit_epochs(cfg, train_dataset, val_dataset, state, ckpt, logger,
             seed=cfg.data.shuffle_seed + epoch,
             fixed_shape=cfg.data.fixed_shape,
             group_by_length=cfg.data.group_by_length,
+            **slicing,
         )
         group_tuples = _batched(batch_iter, spd)
         groups_done = 0
@@ -221,9 +261,15 @@ def _fit_epochs(cfg, train_dataset, val_dataset, state, ckpt, logger,
         for (n_steps, group_pairs, _), batch in prefetcher(
                 groups, batch_of=lambda g: g[2]):
             if spd > 1:
-                state, metrics = train_steps(state, batch, cfg.loss)
+                refused = state.graph_refused
+                state, metrics = train_steps(state, batch, cfg.loss,
+                                             **mesh_kw)
+                if state.graph_refused is not None and refused is None:
+                    logger.log("graph_refused", epoch=epoch,
+                               reason=state.graph_refused)
             else:
-                state, metrics = train_step(state, batch, cfg.loss)
+                state, metrics = train_step(state, batch, cfg.loss,
+                                            **mesh_kw)
             n_pairs += group_pairs
             groups_done += 1
             prev_step, global_step = global_step, global_step + n_steps
@@ -248,7 +294,7 @@ def _fit_epochs(cfg, train_dataset, val_dataset, state, ckpt, logger,
             ):
                 best_rsum = _validate_and_save(
                     cfg, state, val_dataset, ckpt, logger, epoch, best_rsum,
-                    groups_done=groups_done,
+                    groups_done=groups_done, mesh=mesh,
                 )
                 last_val_step = global_step
 
@@ -290,6 +336,7 @@ def _fit_epochs(cfg, train_dataset, val_dataset, state, ckpt, logger,
         if val_dataset is not None and global_step != last_val_step:
             best_rsum = _validate_and_save(
                 cfg, state, val_dataset, ckpt, logger, epoch + 1, best_rsum,
+                mesh=mesh,
             )
         else:
             ckpt.save(state, epoch=epoch + 1, best_rsum=float(best_rsum))
@@ -299,9 +346,15 @@ def _fit_epochs(cfg, train_dataset, val_dataset, state, ckpt, logger,
 
 
 def _validate_and_save(cfg, state, val_dataset, ckpt, logger, epoch,
-                       best_rsum, groups_done=0):
-    batches = batches_from_dataset(val_dataset, cfg.data, shuffle=False)
-    metrics = validate_metrics(state.model, batches, ks=(1, 5, 10, 50))
+                       best_rsum, groups_done=0, mesh=None):
+    # under a mesh each rank encodes its slice of every batch
+    slicing = ({} if mesh is None else
+               dict(process_index=mesh.data_index,
+                    process_count=mesh.data_size))
+    batches = batches_from_dataset(val_dataset, cfg.data, shuffle=False,
+                                   **slicing)
+    metrics = validate_metrics(state.model, batches, ks=(1, 5, 10, 50),
+                               mesh=mesh)
     print(format_table(metrics))
     logger.log("validate", epoch=epoch, step=int(state.step), **metrics)
     rsum = float(metrics["rsum"])

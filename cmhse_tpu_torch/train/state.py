@@ -12,6 +12,12 @@ On the card Adam is built with ``capturable=True`` and a tensor learning
 rate, so that a captured step reads its rate and its step count from the
 device: :func:`set_learning_rate` then writes into that tensor and never
 needs a new capture.
+
+With a ``mesh`` (:mod:`cmhse_tpu_torch.parallel`) the step is the
+data-parallel one: each rank feeds its rows of the global batch, and the
+loss is the JAX package's global one (see
+:mod:`cmhse_tpu_torch.parallel.train_dp`); every rank ends the step with
+the same parameters.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ import torch
 from cmhse_tpu_torch.config import ExperimentConfig, LossConfig
 from cmhse_tpu_torch.data.batch import Batch
 from cmhse_tpu_torch.models.cmhse import CMHSE
+from cmhse_tpu_torch.parallel import train_dp
 from cmhse_tpu_torch.train.objective import total_loss
 
 
@@ -39,6 +46,9 @@ class TrainState:
     # batch's shapes, and how many times one was replayed
     graphs: dict = field(default_factory=dict, repr=False)
     graph_replays: int = 0
+    # why the card refused to capture a step under a mesh (train_steps
+    # then runs its steps one a dispatch); None while captures succeed
+    graph_refused: str | None = None
 
     def state_dict(self) -> dict:
         """The model's and Adam's ``state_dict`` and the step count."""
@@ -125,22 +135,27 @@ def clip_by_global_norm_(grads: list[torch.Tensor], max_norm: float,
         g.copy_(torch.where(keep, g, (g / norm) * max_norm))
 
 
-def _update(state: TrainState, batch: Batch, loss_cfg: LossConfig
-            ) -> dict[str, torch.Tensor]:
+def _update(state: TrainState, batch: Batch, loss_cfg: LossConfig,
+            mesh=None) -> dict[str, torch.Tensor]:
     """One optimisation step on a batch on the model's device, leaving
     ``state.step`` alone (shared body of :func:`train_step` and
-    :func:`train_steps`, and what a graph captures)."""
+    :func:`train_steps`, and what a graph captures). With ``mesh``, the
+    batch is this rank's rows and the loss the global batch's."""
     model = state.model
     params = list(model.parameters())
     for p in params:
         p.grad = None
     outputs = model(batch)
+    if mesh is not None:
+        outputs, batch = train_dp.gather_global(outputs, batch, mesh)
     loss, metrics = total_loss(outputs, batch, loss_cfg)
     loss.backward()
     for p in params:
         if p.grad is None:
             p.grad = torch.zeros_like(p)
     grads = [p.grad for p in params]
+    if mesh is not None:
+        train_dp.all_reduce_gradients(grads, mesh)
     with torch.no_grad():
         norm = global_norm(grads)
     clip_by_global_norm_(grads, state.grad_clip, norm)
@@ -150,14 +165,16 @@ def _update(state: TrainState, batch: Batch, loss_cfg: LossConfig
     return metrics
 
 
-def train_step(state: TrainState, batch: Batch, loss_cfg: LossConfig
-               ) -> tuple[TrainState, dict[str, torch.Tensor]]:
+def train_step(state: TrainState, batch: Batch, loss_cfg: LossConfig,
+               mesh=None) -> tuple[TrainState, dict[str, torch.Tensor]]:
     """One optimisation step; returns (state, metrics). Metrics are 0-d
     tensors on the model's device: the loss terms of :func:`total_loss`
     and ``grad_norm``, the global norm before clipping. A parameter that
     gets no gradient is given zeros, so Adam updates it as optax does. A
-    batch already on the model's device is not copied."""
-    metrics = _update(state, batch.to(state.model.device), loss_cfg)
+    batch already on the model's device is not copied. ``mesh``: the
+    data-parallel step over this rank's rows of the global batch (the
+    state placed by ``parallel.place_state``)."""
+    metrics = _update(state, batch.to(state.model.device), loss_cfg, mesh)
     state.step += 1
     return state, metrics
 
@@ -167,16 +184,23 @@ def _unstack(stacked: Batch, i: int) -> Batch:
                     for f in dataclasses.fields(Batch)})
 
 
-def _steps(state: TrainState, stacked: Batch, loss_cfg: LossConfig
-           ) -> dict[str, torch.Tensor]:
+def _steps(state: TrainState, stacked: Batch, loss_cfg: LossConfig,
+           mesh=None) -> dict[str, torch.Tensor]:
     """The K updates of ``stacked`` in order, metrics stacked ``[K]``."""
-    out = [_update(state, _unstack(stacked, i), loss_cfg)
+    out = [_update(state, _unstack(stacked, i), loss_cfg, mesh)
            for i in range(stacked.frames.shape[0])]
     return {k: torch.stack([m[k] for m in out]) for k in out[0]}
 
 
-def train_steps(state: TrainState, stacked: Batch, loss_cfg: LossConfig
-                ) -> tuple[TrainState, dict[str, torch.Tensor]]:
+def _capture_refused(e: RuntimeError) -> bool:
+    """Whether ``e`` is CUDA's or NCCL's refusal of a stream capture (an
+    operation the capture does not allow), rather than a failure of the
+    step itself, such as a kernel's launch or a collective."""
+    return "captur" in str(e).lower()
+
+
+def train_steps(state: TrainState, stacked: Batch, loss_cfg: LossConfig,
+                mesh=None) -> tuple[TrainState, dict[str, torch.Tensor]]:
     """K optimisation steps over a stacked :class:`Batch` whose fields
     carry a leading ``[K, ...]`` axis: exactly the math and order of K
     :func:`train_step` calls. Metrics come back with a leading ``[K]``
@@ -189,30 +213,44 @@ def train_steps(state: TrainState, stacked: Batch, loss_cfg: LossConfig
     stream), and is then captured; each later one is copied into the
     graph's input and replayed. Replays launch no kernel from the host, so
     they add nothing to ``cuda_lib.launches``; ``state.graph_replays``
-    counts them."""
+    counts them.
+
+    With ``mesh`` the graph holds the step's NCCL collectives too. If the
+    card refuses that capture, the reason is kept in
+    ``state.graph_refused``, printed once, and this and every later call
+    run their steps one a dispatch."""
     device = state.model.device
     stacked = stacked.to(device)
     k = stacked.frames.shape[0]
-    if device.type != "cuda":
-        metrics = _steps(state, stacked, loss_cfg)
+    if device.type != "cuda" or state.graph_refused is not None:
+        metrics = _steps(state, stacked, loss_cfg, mesh)
         state.step += k
         return state, metrics
     key = tuple((f.name, tuple(getattr(stacked, f.name).shape),
                  getattr(stacked, f.name).dtype)
-                for f in dataclasses.fields(Batch)) + (loss_cfg,)
+                for f in dataclasses.fields(Batch)) + (loss_cfg, mesh)
     entry = state.graphs.get(key)
     if entry is None:
         stream = torch.cuda.Stream(device)
         stream.wait_stream(torch.cuda.current_stream(device))
         with torch.cuda.stream(stream):
-            metrics = _steps(state, stacked, loss_cfg)
+            metrics = _steps(state, stacked, loss_cfg, mesh)
         torch.cuda.current_stream(device).wait_stream(stream)
         static = Batch(**{f.name: torch.empty_like(getattr(stacked, f.name))
                           for f in dataclasses.fields(Batch)})
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, stream=stream):
-            static_metrics = _steps(state, static, loss_cfg)
-        state.graphs[key] = (graph, static, static_metrics)
+        try:
+            with torch.cuda.graph(graph, stream=stream):
+                static_metrics = _steps(state, static, loss_cfg, mesh)
+        except RuntimeError as e:
+            if mesh is None or not _capture_refused(e):
+                raise
+            state.graph_refused = f"{type(e).__name__}: {e}"
+            print("train_steps: the card refused to capture the step with "
+                  f"its collectives ({state.graph_refused}); running one "
+                  "step a dispatch under the mesh")
+        else:
+            state.graphs[key] = (graph, static, static_metrics)
         state.step += k
         return state, metrics
     graph, static, static_metrics = entry

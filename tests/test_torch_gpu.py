@@ -83,9 +83,12 @@ def test_gru_fwd_rejects_what_it_does_not_take(cuda):
                                         lengths)
     assert type(outs.grad_fn).__name__ == "TrainableGRUBackward"
     assert cuda_lib.launches == {("gru_fwd", "float32", "save_gates"): 1}
+    # H not a multiple of 4 is padded, not refused
     xw6, w_h6, b_h6, lengths6 = [a.to(cuda) for a in _gru_inputs(4, 3, 6, 0)]
-    with pytest.raises(ValueError):  # H not a multiple of 4
-        gru_kernel.gru_recurrence(xw6, w_h6, b_h6, lengths6)
+    got = gru_kernel.gru_recurrence(xw6, w_h6, b_h6, lengths6)
+    want = gru_kernel.gru_recurrence_plain(xw6, w_h6, b_h6, lengths6)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=0)
 
 
 def test_gru_fwd_takes_an_offset_view(cuda):
@@ -368,14 +371,21 @@ def test_fused_loss_on_card_matches_cpu(cuda):
 
 def test_kernels_refuse_what_they_do_not_take(cuda):
     """On a CUDA tensor the GRU Function, the fused loss and the decoder
-    (at T < 16 too) raise rather than fall back to a plain version."""
-    xw, w_h, b_h, lengths = [a.to(cuda) for a in _gru_inputs(4, 3, 6, 0)]
-    with pytest.raises(ValueError):  # H not a multiple of 4
-        gru_kernel.gru_recurrence(xw, w_h.requires_grad_(), b_h, lengths)
-    big = gru_kernel.bwd_max_hidden() + 4
-    xw, w_h, b_h, lengths = [a.to(cuda) for a in _gru_inputs(2, 2, big, 0)]
-    with pytest.raises(ValueError):  # past gru_bwd's shared memory
-        gru_kernel.gru_recurrence(xw, w_h.requires_grad_(), b_h, lengths)
+    (at T < 16 too) raise on what they cannot take rather than fall back
+    to a plain version; an H not a multiple of 4, or past the resident
+    W_h limit, is no longer such a case: it runs the kernels."""
+    for h in (6, gru_kernel.bwd_max_hidden() + 4):
+        xw, w_h, b_h, lengths = [a.to(cuda)
+                                 for a in _gru_inputs(2, 2, h, 0)]
+        cuda_lib.reset_launches()
+        outs, final = gru_kernel.gru_recurrence(xw, w_h.requires_grad_(),
+                                                b_h, lengths)
+        (outs.sum() + final.sum()).backward()
+        assert cuda_lib.launch_count("gru_fwd") == 1
+        assert cuda_lib.launch_count("gru_bwd") == 1
+        assert torch.isfinite(w_h.grad).all()
+    with pytest.raises(TypeError):  # f64: no cast behind the caller
+        gru_kernel.gru_recurrence(xw.double(), w_h.double(), b_h, lengths)
     a = torch.randn(8, 4096, device=cuda)
     with pytest.raises(TypeError):  # f64 rows: no cast behind the caller
         simhinge_kernel.simhinge_pair(a.double(), a.double(),
@@ -387,9 +397,14 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
     want = simhinge_kernel.fused_contrastive_loss_from_masks(a.cpu(), a.cpu())
     torch.testing.assert_close(loss.cpu(), want, atol=1e-4, rtol=1e-5)
     dec = ReconstructionDecoder(6, 6).to(cuda)  # H = 6, T = 4 < 16
-    with pytest.raises(ValueError):
-        dec(torch.randn(3, 6, device=cuda), torch.randn(3, 4, 6, device=cuda),
-            torch.full((3,), 4, dtype=torch.int32, device=cuda))
+    args = (torch.randn(3, 6), torch.randn(3, 4, 6),
+            torch.full((3,), 4, dtype=torch.int32))
+    cuda_lib.reset_launches()
+    with torch.no_grad():
+        got = dec(*[x.to(cuda) for x in args])
+        want = dec.to("cpu")(*args)
+    assert cuda_lib.launch_count("gru_fwd") == 1  # the kernel, padded
+    torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=1e-5)
 
 
 def test_train_step_on_card_matches_cpu(cuda):
@@ -559,13 +574,20 @@ def test_gru_fwd_cooperative_edges(cuda, dtype, variant, shape):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_gru_fwd_refuses_past_max_hidden(cuda, dtype):
+    """Past the resident W_h limit gru_fwd no longer refuses: it launches
+    its streamed variant, once, and agrees with the plain version."""
     dt = getattr(torch, dtype)
     h = gru_kernel.fwd_max_hidden(dt) + 4
     xw, w_h, b_h, lengths = [a.to(cuda) for a in _gru_inputs(2, 2, h, 0)]
+    xw, w_h = xw.to(dt), w_h.to(dt)
     cuda_lib.reset_launches()
-    with pytest.raises(ValueError):
-        gru_kernel.gru_forward(xw.to(dt), w_h.to(dt), b_h, lengths)
-    assert not cuda_lib.launches
+    got = gru_kernel.gru_forward(xw, w_h, b_h, lengths)
+    torch.cuda.synchronize()
+    assert cuda_lib.launches == {("gru_fwd", dtype, "encode+streamed"): 1}
+    want = gru_kernel.gru_recurrence_plain(xw, w_h, b_h, lengths)
+    atol = 1e-5 if dt == torch.float32 else BF16_ATOL
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=atol, rtol=0)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -655,24 +677,29 @@ def test_gru_bwd_cooperative_edges(cuda, dtype, seeded, cotangents, shape):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_gru_bwd_refuses_past_max_hidden(cuda, dtype):
-    """Past the slice bound gru_backward raises, and the trainable GRU
-    raises before its forward launches."""
+    """Past the resident W_h limit gru_backward takes its streamed variant;
+    what it still refuses is an H past 256 units a block on one block an
+    SM (its gate pass takes a unit a thread), before any launch."""
     dt = getattr(torch, dtype)
-    h = gru_kernel.bwd_max_hidden(dt) + 4
     b, t = 2, 2
+    lengths = torch.full((b,), t, dtype=torch.int32, device=cuda)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    h = 256 * sms + 4
+    gates = torch.zeros(b, t, 4 * h, dtype=dt, device=cuda)
+    outs = torch.zeros(b, t, h, dtype=dt, device=cuda)
+    w_h = torch.empty(h, 3 * h, dtype=dt, device=cuda)  # never read
+    cuda_lib.reset_launches()
+    with pytest.raises(ValueError, match="256 units a block"):
+        gru_kernel.gru_backward(gates, outs, lengths, w_h)
+    assert not cuda_lib.launches
+    del w_h
+    h = gru_kernel.bwd_max_hidden(dt) + 4
     gates = torch.zeros(b, t, 4 * h, dtype=dt, device=cuda)
     outs = torch.zeros(b, t, h, dtype=dt, device=cuda)
     w_h = torch.zeros(h, 3 * h, dtype=dt, device=cuda)
-    lengths = torch.full((b,), t, dtype=torch.int32, device=cuda)
-    cuda_lib.reset_launches()
-    with pytest.raises(ValueError):
-        gru_kernel.gru_backward(gates, outs, lengths, w_h)
-    xw = torch.zeros(b, t, 3 * h, dtype=dt, device=cuda)
-    b_h = torch.zeros(3 * h, device=cuda)
-    with pytest.raises(ValueError):
-        gru_kernel.gru_recurrence(xw, w_h.float().requires_grad_(), b_h,
-                                  lengths)
-    assert not cuda_lib.launches
+    got = gru_kernel.gru_backward(gates, outs, lengths, w_h)
+    assert cuda_lib.launches == {("gru_bwd", dtype, "zero_h0+streamed"): 1}
+    assert all(not g.any() for g in got)  # zero cotangents, zero gradients
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -1261,3 +1288,260 @@ def test_cli_evaluate_streaming_on_card_matches_cpu(cuda, tmp_path):
             if a[d] != b[d]:
                 gap = np.abs(np.delete(row, i) - row[i]).min()
                 assert gap <= 1e-5, (i, d, a[d], b[d], gap)
+
+
+# ---- every H on the card: padding and the streamed variants ----------------
+# H = 30 (padded to 32), 4 past each resident W_h limit of the type, and
+# 2,048 / 4,096 (streamed: the W_h slices in global memory). Held to the
+# bands above: f32 1e-5 abs (forward) and 1e-4 of the largest entry
+# (backward), bf16 1e-2 abs and relative L2 2e-2.
+
+def _any_h(dtype, which):
+    dt = getattr(torch, dtype)
+    if which == "fwd_max+4":
+        return gru_kernel.fwd_max_hidden(dt) + 4
+    if which == "bwd_max+4":
+        return gru_kernel.bwd_max_hidden(dt) + 4
+    return int(which)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("which", ["30", "fwd_max+4", "bwd_max+4", "2048",
+                                   "4096"])
+@pytest.mark.parametrize("variant", ["encode", "save_gates_h0"])
+def test_gru_fwd_any_hidden_matches_plain(cuda, dtype, which, variant):
+    dt = getattr(torch, dtype)
+    h = _any_h(dtype, which)
+    b, t = 9, 5
+    xw, w_h, b_h, lengths = [a.to(cuda) for a in _gru_inputs(
+        b, t, h, seed=h, zero_rows=(0,))]
+    xw, w_h = xw.to(dt), w_h.to(dt)
+    save = variant != "encode"
+    h0 = (torch.randn(b, h, device=cuda) * 0.5).to(dt) if save else None
+    want = gru_kernel.gru_recurrence_plain(xw, w_h, b_h, lengths, h0,
+                                           save_gates=save)
+    cuda_lib.reset_launches()
+    got = gru_kernel.gru_forward(xw, w_h, b_h, lengths, h0, save_gates=save)
+    torch.cuda.synchronize()
+    streamed = h > gru_kernel.fwd_max_hidden(dt)
+    name = {"save_gates_h0": "save_gates+with_h0"}.get(variant, variant)
+    assert cuda_lib.launches == {
+        ("gru_fwd", dtype, name + ("+streamed" if streamed else "")): 1}
+    assert [g.shape[-1] for g in got] == [h, h] + ([4 * h] if save else [])
+    atol = 1e-5 if dt == torch.float32 else BF16_ATOL
+    torch.testing.assert_close(got[0], want[0], atol=atol, rtol=0)
+    torch.testing.assert_close(got[1], want[1], atol=atol, rtol=0)
+    if save:
+        live = (torch.arange(t, device=cuda)[None, :] < lengths[:, None])
+        torch.testing.assert_close(got[2][live], want[2][live], atol=atol,
+                                   rtol=0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("which", ["30", "fwd_max+4", "bwd_max+4", "2048",
+                                   "4096"])
+@pytest.mark.parametrize("seeded", [False, True])
+def test_gru_bwd_any_hidden_matches_plain(cuda, dtype, which, seeded):
+    dt = getattr(torch, dtype)
+    h = _any_h(dtype, which)
+    b, t = 9, 5
+    xw, w_h, b_h, lengths = [a.to(cuda) for a in _gru_inputs(
+        b, t, h, seed=h + 1, zero_rows=(0,))]
+    xw, w_h = xw.to(dt), w_h.to(dt)
+    gen = torch.Generator(device=cuda).manual_seed(h)
+    h0 = ((torch.randn(b, h, device=cuda, generator=gen) * 0.5).to(dt)
+          if seeded else None)
+    outs, _, gates = gru_kernel.gru_recurrence_plain(xw, w_h, b_h, lengths,
+                                                     h0, save_gates=True)
+    douts = torch.randn(b, t, h, device=cuda, generator=gen).to(dt)
+    dfinal = torch.randn(b, h, device=cuda, generator=gen).to(dt)
+    want = gru_kernel.gru_backward_plain(gates, outs, lengths, w_h, douts,
+                                         dfinal, h0)
+    cuda_lib.reset_launches()
+    got = gru_kernel.gru_backward(gates, outs, lengths, w_h, douts, dfinal,
+                                  h0)
+    torch.cuda.synchronize()
+    streamed = h > gru_kernel.bwd_max_hidden(dt)
+    variant = ("with_h0" if seeded else "zero_h0") + (
+        "+streamed" if streamed else "")
+    assert cuda_lib.launches == {("gru_bwd", dtype, variant): 1}
+    assert [g.shape[-1] for g in got] == [3 * h, h, 4 * h, h]
+    for name, g, w in zip(("dxw", "dhn", "db", "dh0"), got, want):
+        assert torch.isfinite(g.float()).all(), name
+        err = (_rel_err(g.float(), w.float()) if dt == torch.float32
+               else _rel_l2(g, w))
+        assert err <= (1e-4 if dt == torch.float32 else BF16_GRAD_RL2), (
+            name, err)
+    assert not got[0][0].any() and not got[1][0].any()  # the length-0 row
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gru_streamed_equals_resident_bitwise(cuda, dtype):
+    """At an H both variants take, the streamed kernels run the resident
+    ones' arithmetic in its order: the same bits."""
+    dt = getattr(torch, dtype)
+    b, t, h = 37, 6, 1100
+    xw, w_h, b_h, lengths = [a.to(cuda) for a in _gru_inputs(b, t, h, 13)]
+    xw, w_h = xw.to(dt), w_h.to(dt)
+    resident = gru_kernel.gru_forward(xw, w_h, b_h, lengths, save_gates=True)
+    douts = torch.randn(b, t, h, device=cuda).to(dt)
+    r_bwd = gru_kernel.gru_backward(resident[2], resident[0], lengths, w_h,
+                                    douts)
+    limits = (gru_kernel.fwd_max_hidden, gru_kernel.bwd_max_hidden)
+    try:  # the wrappers read the limits through the library
+        lib = cuda_lib.library()
+        saved = {n: getattr(lib, n) for n in ("cmhse_gru_fwd_max_hidden",
+                                              "cmhse_gru_bwd_max_hidden")}
+        for n in saved:
+            setattr(lib, n, lambda bf16: 4)
+        cuda_lib.reset_launches()
+        streamed = gru_kernel.gru_forward(xw, w_h, b_h, lengths,
+                                          save_gates=True)
+        s_bwd = gru_kernel.gru_backward(streamed[2], streamed[0], lengths,
+                                        w_h, douts)
+        assert cuda_lib.launch_count("gru_fwd", dtype,
+                                     "save_gates+streamed") == 1
+        assert cuda_lib.launch_count("gru_bwd", dtype,
+                                     "zero_h0+streamed") == 1
+    finally:
+        for n, fn in saved.items():
+            setattr(lib, n, fn)
+    assert limits[0](dt) >= h and limits[1](dt) >= h
+    live = (torch.arange(t, device=cuda)[None, :] < lengths[:, None])
+    assert torch.equal(resident[0], streamed[0])
+    assert torch.equal(resident[1], streamed[1])
+    assert torch.equal(resident[2][live], streamed[2][live])
+    for a, b in zip(r_bwd, s_bwd):
+        assert torch.equal(a, b)
+
+
+def test_trainable_gru_at_h30_on_card_matches_cpu(cuda):
+    """TrainableGRU forward and backward at H = 30 (padded to 32 on the
+    card) against the CPU's plain path, seeded and not."""
+    rng = np.random.RandomState(30)
+    b, t, d, h = 11, 6, 9, 30
+    x = rng.randn(b, t, d).astype(np.float32)
+    lengths = rng.randint(0, t + 1, b).astype(np.int32)
+    lengths[2] = 0
+    params = [(rng.randn(*s) * 0.2).astype(np.float32)
+              for s in ((d, 3 * h), (h, 3 * h), (3 * h,), (3 * h,), (b, h))]
+    co = rng.randn(b, t, h).astype(np.float32)
+    for seeded in (False, True):
+        grads, outs_by = {}, {}
+        for dev in ("cpu", cuda):
+            w_i, w_h, b_i, b_h, h0 = [torch.from_numpy(p).to(dev)
+                                      .requires_grad_() for p in params]
+            xw = torch.from_numpy(x).to(dev) @ w_i + b_i
+            outs, final = gru_kernel.gru_recurrence(
+                xw, w_h, b_h, torch.from_numpy(lengths).to(dev),
+                h0 if seeded else None)
+            ((outs * torch.from_numpy(co).to(dev)).sum()
+             + (final ** 2).sum()).backward()
+            outs_by[str(dev)] = outs.detach().cpu()
+            grads[str(dev)] = [p.grad.cpu() for p in (w_i, w_h, b_i, b_h)]
+            if seeded:
+                grads[str(dev)].append(h0.grad.cpu())
+        torch.testing.assert_close(outs_by["cuda"], outs_by["cpu"],
+                                   atol=1e-5, rtol=0)
+        for g, w in zip(grads["cuda"], grads["cpu"]):
+            assert _rel_err(g, w) <= 1e-4
+
+
+def test_full_config_step_at_rnn_hidden_30_on_card(cuda):
+    """One cmhse_full train step with rnn_hidden = 30 (the JAX CLI trains
+    any H) on the card against the CPU: loss, grad_norm and every
+    gradient, in the bands of test_train_step_on_card_matches_cpu."""
+    from cmhse_tpu_torch.config import get_preset
+
+    exp = get_preset("cmhse_full")
+    mc = dataclasses.replace(exp.model, rnn_hidden=30, embed_size=32,
+                             word_dim=16, feat_dim=20)
+    exp = dataclasses.replace(exp, model=mc)
+    rng = np.random.RandomState(2)
+    batch = Batch(frames=rng.randn(6, 3, 7, 20).astype(np.float32),
+                  frame_len=rng.randint(0, 8, (6, 3)).astype(np.int32),
+                  clip_len=rng.randint(1, 4, 6).astype(np.int32),
+                  words=rng.randint(0, 64, (6, 3, 5)).astype(np.int32),
+                  word_len=rng.randint(0, 6, (6, 3)).astype(np.int32),
+                  sent_len=rng.randint(1, 4, 6).astype(np.int32),
+                  video_ids=np.arange(6, dtype=np.int32),
+                  valid=np.array([1, 1, 1, 1, 1, 0], bool))
+    grads, metrics = {}, {}
+    for dev in ("cpu", cuda):
+        model = CMHSE(mc, 64, device=dev,
+                      generator=torch.Generator().manual_seed(3))
+        cuda_lib.reset_launches()
+        state, m = train_step(create_train_state(exp, model), batch,
+                              exp.loss)
+        if dev != "cpu":
+            assert cuda_lib.launch_count("gru_fwd") == 6
+            assert cuda_lib.launch_count("gru_bwd") == 6
+        metrics[str(dev)] = {k: float(v) for k, v in m.items()}
+        grads[str(dev)] = {k: p.grad.cpu()
+                           for k, p in model.named_parameters()}
+    for k, g in grads["cuda"].items():
+        assert _rel_err(g, grads["cpu"][k]) <= 1e-4, k
+    for k, v in metrics["cuda"].items():
+        assert abs(v - metrics["cpu"][k]) <= 1e-4 * abs(metrics["cpu"][k]), k
+
+
+def test_nccl_world_1_dp_step_equals_train_step_bitwise(cuda, tmp_path):
+    """The data-parallel step on one NCCL rank (its gather, the global
+    loss, the flat all-reduce and the division by one) against the plain
+    step from the same weights on the same batches: every parameter, Adam
+    moment and metric equal bit for bit; and K = 2 steps a dispatch
+    captured with their collectives replay the eager steps' bits."""
+    import torch.distributed as dist
+
+    from cmhse_tpu_torch.parallel import make_mesh, place_state
+    from cmhse_tpu_torch.train import train_steps
+
+    cfg = ModelConfig(embed_size=32, word_dim=16, feat_dim=20, rnn_hidden=32,
+                      hierarchical=True, attention_pool=True,
+                      reconstruction=True)
+    exp = ExperimentConfig(model=cfg)
+    rng = np.random.RandomState(9)
+    batches = [Batch(frames=rng.randn(6, 3, 7, 20).astype(np.float32),
+                     frame_len=rng.randint(0, 8, (6, 3)).astype(np.int32),
+                     clip_len=rng.randint(1, 4, 6).astype(np.int32),
+                     words=rng.randint(0, 64, (6, 3, 5)).astype(np.int32),
+                     word_len=rng.randint(0, 6, (6, 3)).astype(np.int32),
+                     sent_len=rng.randint(1, 4, 6).astype(np.int32),
+                     video_ids=np.arange(6, dtype=np.int32),
+                     valid=np.ones(6, bool)) for _ in range(2)]
+
+    def state():
+        return create_train_state(exp, CMHSE(
+            cfg, 64, device=cuda, generator=torch.Generator().manual_seed(4)))
+
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        mesh = make_mesh(device=cuda)
+        plain, dp = state(), place_state(state(), mesh)
+        for b in batches:
+            plain, m1 = train_step(plain, b, exp.loss)
+            dp, m2 = train_step(dp, b, exp.loss, mesh=mesh)
+            for k in m1:
+                assert torch.equal(m1[k], m2[k]), k
+        for (name, a), b in zip(plain.model.state_dict().items(),
+                                dp.model.state_dict().values()):
+            assert torch.equal(a, b), name
+        for p, q in zip(plain.model.parameters(), dp.model.parameters()):
+            for key in ("exp_avg", "exp_avg_sq"):
+                assert torch.equal(plain.optimizer.state[p][key],
+                                   dp.optimizer.state[q][key])
+        stacked = Batch(**{f.name: np.stack([getattr(b, f.name)
+                                             for b in batches])
+                           for f in dataclasses.fields(Batch)})
+        graph, eager = place_state(state(), mesh), place_state(state(), mesh)
+        for _ in range(2):
+            graph, _ = train_steps(graph, stacked, exp.loss, mesh=mesh)
+            for b in batches:
+                eager, _ = train_step(eager, b, exp.loss, mesh=mesh)
+        assert graph.graph_refused is None and graph.graph_replays == 1
+        for (name, a), b in zip(graph.model.state_dict().items(),
+                                eager.model.state_dict().values()):
+            assert torch.equal(a, b), name
+    finally:
+        dist.destroy_process_group()

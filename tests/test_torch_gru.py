@@ -116,3 +116,34 @@ def test_init_is_seeded_and_symmetric():
     for (name, p), q in zip(a.named_parameters(), b.parameters()):
         assert torch.equal(p, q), name
         assert p.abs().max() <= 0.25 and p.min() < 0 < p.max()
+
+
+@pytest.mark.parametrize("seeded,save_gates", [(False, False), (True, True)])
+def test_padding_to_a_multiple_of_4_is_exact(seeded, save_gates):
+    """The CUDA wrapper's padding of H = 30 to 32 (``pad_forward_operands``
+    / ``unpad_forward_results``), run through the plain recurrence: equal
+    to the unpadded call within 1e-6, and to JAX's scan GRU at H = 30."""
+    b, t, d, h = 9, 6, 7, 30
+    args = _setup(b, t, d, h, seed=8, zero_rows=(2,))
+    x, lengths, w_i, w_h, b_i, b_h = map(torch.from_numpy, args)
+    h0 = (torch.from_numpy(np.random.RandomState(9).randn(b, h)
+                           .astype(np.float32)) if seeded else None)
+    xw = x @ w_i + b_i
+    hp = gru_kernel.padded_hidden(h)
+    assert hp == 32
+    padded = gru_kernel.pad_forward_operands(xw, w_h, b_h, h0, hp)
+    assert padded[0].shape[-1] == 3 * hp and padded[1].shape == (hp, 3 * hp)
+    got = gru_kernel.unpad_forward_results(
+        gru_kernel.gru_recurrence_plain(padded[0], padded[1], padded[2],
+                                        lengths, padded[3], save_gates), h)
+    want = gru_kernel.gru_recurrence_plain(xw, w_h, b_h, lengths, h0,
+                                           save_gates)
+    assert len(got) == len(want)
+    for a, w in zip(got, want):
+        assert a.shape == w.shape and a.is_contiguous()
+        np.testing.assert_allclose(a.numpy(), w.numpy(), rtol=0, atol=1e-6)
+    if not seeded:
+        s_outs, s_final = jax_gru_sequence(*map(jnp.asarray, args))
+        np.testing.assert_allclose(got[0].numpy(), np.asarray(s_outs), **TOL)
+        np.testing.assert_allclose(got[1].numpy(), np.asarray(s_final),
+                                   **TOL)

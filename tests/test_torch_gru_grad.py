@@ -243,3 +243,52 @@ def test_live_row_order_puts_the_live_rows_first(lengths):
         assert sorted(order[:len(live)].tolist()) == live
     for a, b in zip(order.tolist(), order.tolist()[1:]):
         assert (lengths[a], -a) > (lengths[b], -b)
+
+
+@pytest.mark.parametrize("seeded", [False, True])
+def test_padding_to_a_multiple_of_4_is_exact(seeded):
+    """The CUDA wrapper's padding of the backward at H = 30 to 32
+    (``pad_backward_operands`` / ``unpad_backward_results``) through the
+    plain BPTT: equal to the unpadded call within 1e-6 (the padded units'
+    zero gates give them zero gradient), and to the JAX package's Pallas
+    backward at H = 30 within the file's band."""
+    b, t, d, h = 9, 6, 5, 30
+    args, h0, co, cf = _setup(b, t, d, h, zero_rows=(4,), seed=3)
+    jh0 = jnp.asarray(h0) if seeded else None
+    jargs = [jnp.asarray(a) for a in args]
+    _, _, j_gates, j_raw = pallas_gru_sequence(*jargs, save_gates=True,
+                                               h0=jh0)
+    j_dxw, j_dhn, j_db, _, j_dh0 = _gru_bwd_pallas(
+        j_gates, j_raw, jnp.asarray(co), jnp.asarray(cf), jargs[1],
+        jargs[3], h0=jh0)
+
+    x, lengths, w_i, w_h, b_i, b_h = map(torch.from_numpy, args)
+    th0 = torch.from_numpy(h0) if seeded else None
+    xw = gru_input_projection(x, w_i, b_i)
+    outs, _, gates = gru_kernel.gru_recurrence_plain(
+        xw, w_h, b_h, lengths, th0, save_gates=True)
+    douts, dfinal = torch.from_numpy(co), torch.from_numpy(cf)
+    hp = gru_kernel.padded_hidden(h)
+    padded = gru_kernel.pad_backward_operands(gates, outs, w_h, douts,
+                                              dfinal, th0, hp)
+    assert padded[0].shape[-1] == 4 * hp
+    got = gru_kernel.unpad_backward_results(
+        gru_kernel.gru_backward_plain(padded[0], padded[1], lengths,
+                                      padded[2], padded[3], padded[4],
+                                      padded[5]), h)
+    want = gru_kernel.gru_backward_plain(gates, outs, lengths, w_h, douts,
+                                         dfinal, th0)
+    # within 1e-6 of each entry's size: the bias sums reduce over a wider
+    # [B, T, 4 x 32] block, so their f32 sums may run in another order
+    for a, w in zip(got, want):
+        assert a.shape == w.shape
+        np.testing.assert_allclose(a.numpy(), w.numpy(), rtol=1e-6,
+                                   atol=1e-6)
+    dxw, dhn, db, dh0 = got
+    np.testing.assert_allclose(
+        dxw.numpy(), np.swapaxes(np.asarray(j_dxw), 0, 1)[:b], **TOL)
+    np.testing.assert_allclose(
+        dhn.numpy(), np.swapaxes(np.asarray(j_dhn), 0, 1)[:b], **TOL)
+    np.testing.assert_allclose(db.numpy(), np.asarray(j_db), **TOL)
+    if seeded:
+        np.testing.assert_allclose(dh0.numpy(), np.asarray(j_dh0)[:b], **TOL)

@@ -62,6 +62,12 @@ CHAIN_MODULES = [
 SERVE_MODULES = ["cmhse_tpu_torch.client", "cmhse_tpu_torch.cli.serve_daemon",
                  "cmhse_tpu_torch.eval.serve", "cmhse_tpu_torch.ops.topk"]
 
+# multi-GPU: the mesh, data-parallel placement, sharded evaluation
+PARALLEL_MODULES = ["cmhse_tpu_torch.parallel",
+                    "cmhse_tpu_torch.parallel.mesh",
+                    "cmhse_tpu_torch.parallel.train_dp",
+                    "cmhse_tpu_torch.parallel.eval_sharded"]
+
 ALONE = """
 import importlib, sys
 importlib.import_module(sys.argv[1])
@@ -72,11 +78,13 @@ print(sorted(m for m in sys.modules
 
 
 @pytest.mark.parametrize("module",
-                         LOOP_MODULES + CHAIN_MODULES + SERVE_MODULES)
+                         LOOP_MODULES + CHAIN_MODULES + SERVE_MODULES
+                         + PARALLEL_MODULES)
 def test_training_loop_modules_import_alone_without_jax(module):
-    """Each module of the training loop, the command-line chain and the
-    serving stack, imported first and alone, loads nothing of JAX or the JAX package (nor
-    h5py, which only an h5 dataset file needs)."""
+    """Each module of the training loop, the command-line chain, the
+    serving stack and the multi-GPU package, imported first and alone,
+    loads nothing of JAX or the JAX package (nor h5py, which only an h5
+    dataset file needs)."""
     env = dict(os.environ, PYTHONPATH=ROOT)
     out = subprocess.run([sys.executable, "-c", ALONE, module], cwd=ROOT,
                          env=env, capture_output=True, text=True, timeout=120)

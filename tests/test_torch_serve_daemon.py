@@ -226,26 +226,38 @@ def test_max_connections_and_line_limit(run):
         assert of.readline() == b""  # hung up after the error line
     assert holder.stats()["valid_rows"] == 8  # never evicted
     holder.close()
-    deadline = time.monotonic() + WAIT
-    while True:  # the daemon frees the slot once it reads the EOF
-        s = socket.create_connection(addr, timeout=WAIT)
-        f = s.makefile("rwb")
-        f.write(json.dumps({"op": "stats"}).encode() + b"\n")
-        f.flush()
-        if "error" not in json.loads(f.readline()):
-            break
-        f.close()
-        s.close()
-        assert time.monotonic() < deadline
-        time.sleep(0.1)
+
+    def free_slot():
+        """A connection once the daemon has freed the one slot: it does so
+        when the last client's thread has ended, a moment after the hang-up
+        that client saw."""
+        deadline = time.monotonic() + WAIT
+        while True:
+            s = socket.create_connection(addr, timeout=WAIT)
+            f = s.makefile("rwb")
+            f.write(json.dumps({"op": "stats"}).encode() + b"\n")
+            f.flush()
+            if "error" not in json.loads(f.readline()):
+                return s, f
+            f.close()
+            s.close()
+            assert time.monotonic() < deadline
+            time.sleep(0.1)
+
+    s, f = free_slot()
     with s, f:  # an oversized line: one error reply, then a hang-up
         f.write(b"x" * (port_daemon.MAX_LINE_BYTES + 10) + b"\n")
         f.flush()
         reply = json.loads(f.readline())
         assert f.readline() == b""
     assert "exceeds" in reply["error"]
-    with PortClient(tcp=addr, timeout=WAIT) as c:
-        _stop(c, t)
+    s, f = free_slot()
+    with s, f:
+        f.write(json.dumps({"op": "shutdown"}).encode() + b"\n")
+        f.flush()
+        assert json.loads(f.readline()).get("ok")
+    t.join(timeout=WAIT)
+    assert not t.is_alive()
 
 
 def test_batch_window_concurrent_clients(run, tmp_path):
