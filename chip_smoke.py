@@ -104,9 +104,22 @@ Phases (any failure raises and the script exits non-zero):
      quiet run (a faulthandler watchdog turns a hang into a failure); 9f.
      one DP step at rnn_hidden 2,048 (f32, bf16: the streamed K1/K2) and
      30 (padded);
-  10. one JSON line listing each kernel and bf16 variant with its path, its
+  10. the Retriever's mesh at the same width: a local mesh of 4 shards on
+     cuda:0 (one process, the shard and merge code of one shard a card),
+     exact and int8 over 100,000 unit rows (+24 invalid), Q=1024, k=10,
+     against one device's exact top-k after a build, an add of 4,096 rows
+     (the shards rebuilt), a 1% remove (masks, not rebuilds) and a
+     compaction: differing slots near ties (exact) or pool misses or near
+     ties (int8, capture >= 0.99); build, add, query ms and the merge's
+     share; then ``serve_daemon.build_context(sharded=True)`` on phase 7's
+     run, a text and a video_key request against a direct Retriever on
+     the same mesh;
+  11. ``python -m cmhse_tpu_torch.cli.bench`` in a subprocess: its one
+     JSON line (printed), the value and every metric finite, K1-K4
+     launched;
+  12. one JSON line listing each kernel and bf16 variant with its path, its
      launches there, its error against its plain version, times and bound;
-  11. last line: ``{"ok": true, "device": {...}}``.
+  13. last line: ``{"ok": true, "device": {...}}``.
 
 With no CUDA device it exits with code 1 and prints no result.
 """
@@ -3366,6 +3379,246 @@ def phase_nccl_busy(torch, np, rng_seed: int, mesh) -> None:
                              "quiet run")
 
 
+# phase 10: the Retriever's mesh; phase 11: the bench entry
+SHARDED_SHARDS = 4  # shards of one local mesh, all on cuda:0
+SHARDED_ROWS = 100_000  # unit rows, plus SHARDED_PAD invalid tail rows
+SHARDED_PAD = 24
+SHARDED_QUERIES = 1024
+SHARDED_APPEND = 4096
+BENCH_TIMEOUT_S = 300
+
+
+def sharded_pool(torch, q, r, k: int):
+    """The int8 candidate pools of a sharded Retriever, as global rows:
+    ``int8_pool`` of each shard's form, offset by the shard's first row."""
+    rows = r._prepared_shard_rows
+    return torch.cat([int8_pool(torch, q, p, k) + shard * rows for
+                      (shard, _), p in zip(r.mesh.local_shards(),
+                                           r._prepared)], dim=1)
+
+
+def phase_sharded(torch, np, rng, cli: dict, dmn: dict) -> dict:
+    """10: the Retriever's mesh at full width (D = 1024) on a local mesh
+    of SHARDED_SHARDS shards, all on cuda:0 (the shard and merge code is
+    that of one shard a card): exact and int8 over SHARDED_ROWS spliced
+    unit rows (+ SHARDED_PAD invalid), against one device's exact top-k
+    after a build, an add (the shards rebuilt), a 1% remove and a
+    compaction: every differing (query, rank) slot a near tie (exact) or
+    a pool miss or near tie (int8), capture >= CAPTURE_FLOOR; build, add
+    and query times and the merge's share. Then
+    ``serve_daemon.build_context(sharded=True)`` on phase 7's run (a local
+    mesh of every visible card): a text and a video_key request against a
+    direct Retriever on the same mesh, the launch counts set to 0 just
+    before the context and read after the requests. Returns them."""
+    from cmhse_tpu_torch.cli import serve_daemon, sharded_mesh
+    from cmhse_tpu_torch.data import PrecompDataset, batches_from_dataset
+    from cmhse_tpu_torch.eval.encode import encode_gallery_device
+    from cmhse_tpu_torch.eval.serve import (Retriever, text_query_batch,
+                                            video_query_batch)
+    from cmhse_tpu_torch.ops import cuda_lib
+    from cmhse_tpu_torch.ops.similarity import l2norm
+    from cmhse_tpu_torch.ops.topk import (quantized_sim_topk,
+                                          streaming_sim_topk)
+    from cmhse_tpu_torch.parallel import (eval_sharded, make_mesh,
+                                          sharded_sim_topk_prepared)
+
+    dev = torch.device("cuda", 0)
+    mesh = make_mesh(devices=[dev] * SHARDED_SHARDS)
+    gen = card_generator(torch, rng)
+    n, d, k = SHARDED_ROWS, 1024, 10
+    rows = n + SHARDED_PAD
+    g = l2norm(torch.randn(rows, d, device=dev, generator=gen))
+    valid = torch.arange(rows, device=dev) < n
+    q = l2norm(torch.randn(SHARDED_QUERIES, d, device=dev, generator=gen))
+    encoded = (g, g, valid, np.arange(rows))
+    single = {"exact": Retriever(None), "int8": Retriever(None,
+                                                          quantize=True)}
+    sharded = {"exact": Retriever(None, mesh=mesh),
+               "int8": Retriever(None, mesh=mesh, quantize=True)}
+    for r in single.values():
+        r.build_gallery(encoded=encoded)
+    for name, r in sharded.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r.build_gallery(encoded=encoded)
+        torch.cuda.synchronize()
+        log(f"  {name}: build_gallery over {SHARDED_SHARDS} shards "
+            f"{time.perf_counter() - t0:.3f} s; {r._prepared_shard_rows:,} "
+            f"rows a shard, chunks a shard "
+            f"{tuple(r._prepared[0].chunks.shape)}")
+
+    def check(stage: str) -> None:
+        with torch.inference_mode():
+            want = [torch.as_tensor(x, device=dev)
+                    for x in single["exact"]._search(q, k)]
+            for name, r in sharded.items():
+                got = [torch.as_tensor(x, device=dev)
+                       for x in r._search(q, k)]
+                pool = (None if name == "exact"
+                        else sharded_pool(torch, q, r, k))
+                check_slots(f"10 {stage}: {name} over {SHARDED_SHARDS} "
+                            f"shards vs one device's exact top-{k}",
+                            classify_slots(torch, *want, *got, pool))
+
+    check(f"{n:,} rows")
+    with torch.inference_mode():
+        se, s8 = sharded["exact"], sharded["int8"]
+        srows = se._prepared_shard_rows
+        ms = {
+            "one device, exact": cuda_ms(lambda: streaming_sim_topk(
+                q, single["exact"]._prepared, k), reps=5),
+            "sharded, exact": cuda_ms(lambda: sharded_sim_topk_prepared(
+                q, se._prepared, k, mesh, srows), reps=5),
+            "one device, int8": cuda_ms(lambda: quantized_sim_topk(
+                q, single["int8"]._prepared, k), reps=5),
+            "sharded, int8": cuda_ms(lambda: sharded_sim_topk_prepared(
+                q, s8._prepared, k, mesh, srows, quantized=True), reps=5),
+        }
+        parts = [(sc, ix + shard * srows) for (shard, _), (sc, ix) in zip(
+            mesh.local_shards(), (streaming_sim_topk(q, p, k)
+                                  for p in se._prepared))]
+        merge_ms = cuda_ms(lambda: eval_sharded._merge_shard_candidates(
+            parts, mesh, k))
+    log(f"  top-{k}, Q={SHARDED_QUERIES}, {n:,} rows (ms): "
+        + ", ".join(f"{name} {t:.3f}" for name, t in ms.items())
+        + f"; the merge of {SHARDED_SHARDS} x {k} candidates {merge_ms:.4f}"
+        f" ms, {100 * merge_ms / ms['sharded, exact']:.2f}% of the sharded "
+        "exact call")
+    del parts
+    with torch.inference_mode():
+        for name, fn in (
+                ("sharded exact", lambda: sharded_sim_topk_prepared(
+                    q, se._prepared, k, mesh, srows)),
+                ("sharded int8", lambda: sharded_sim_topk_prepared(
+                    q, s8._prepared, k, mesh, srows, quantized=True))):
+            wall, busy, kernels = profile_kernels(torch, fn)
+            log(f"  where one {name} call's device time goes "
+                f"(torch.profiler): wall {wall:.3f} ms, device busy "
+                f"{busy:.3f} ms")
+            for kname, kms, calls in kernels:
+                log(f"    {kms:.3f} ms ({100 * kms / busy:.1f}%) in {calls} "
+                    f"call(s): {kname[:100]}")
+
+    new = l2norm(torch.randn(SHARDED_APPEND, d, device=dev, generator=gen))
+    added = (new, new, torch.ones(SHARDED_APPEND, dtype=torch.bool,
+                                  device=dev),
+             np.arange(rows, rows + SHARDED_APPEND))
+    for name, r in list(single.items()) + list(sharded.items()):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r.add_to_gallery(encoded=added)
+        torch.cuda.synchronize()
+        if r.mesh is not None:
+            log(f"  {name}: add {SHARDED_APPEND:,} rows, the shards "
+                f"rebuilt: {time.perf_counter() - t0:.3f} s")
+    check(f"+{SHARDED_APPEND:,} rows")
+    drop = rng.choice(n, n // 100, replace=False).tolist()
+    for r in list(single.values()) + list(sharded.values()):
+        chunks = (None if r.mesh is None
+                  else [p.chunks for p in r._prepared])
+        if r.remove_from_gallery(drop) != len(drop):
+            raise AssertionError("10: remove")
+        if chunks is not None and any(
+                p.chunks is not c for p, c in zip(r._prepared, chunks)):
+            raise AssertionError("10: a remove rebuilt a shard")
+    check(f"-{len(drop):,} rows (1%)")
+    for r in list(single.values()) + list(sharded.values()):
+        r.compact()
+    check(f"compacted to {se.n_valid:,} rows")
+    del single, sharded, se, s8, g, valid, q, encoded, new, added
+    torch.cuda.empty_cache()
+
+    # the daemon's context, on the mesh --sharded makes here
+    run, data = cli["run"], cli["data"]
+    model, cfg, vocab = dmn["model"], dmn["cfg"], dmn["vocab"]
+    text, vkey = dmn["texts"][0], cli["val_keys"][0]
+    local = sharded_mesh("gpu")
+    ds = PrecompDataset(data, "val", vocab, feat_dim=cfg.data.feat_dim)
+    enc = encode_gallery_device(
+        model, batches_from_dataset(ds, cfg.data, shuffle=False),
+        return_ids=True)
+    direct_v, direct_t = (Retriever(model, mesh=local),
+                          Retriever(model, mesh=local))
+    direct_v.build_gallery(encoded=enc, side="video")
+    direct_t.build_gallery(encoded=enc, side="text")
+    ws, wi = direct_v.retrieve(*text_query_batch(
+        vocab, [text], cfg.data.max_sentences, cfg.data.max_words), k=10)
+    vs, vi = direct_t.retrieve_video(*video_query_batch(ds, cfg.data,
+                                                        [vkey]), k=10)
+    cuda_lib.reset_launches()
+    t0 = time.perf_counter()
+    ctx = serve_daemon.build_context(run, data, "val", sharded=True)
+    got_t = serve_daemon._handle_request({"query": text, "k": 10}, ctx)
+    got_v = serve_daemon._handle_request({"video_key": vkey, "k": 10}, ctx)
+    counts = launch_counts()
+    log(f"  build_context(sharded=True): a local mesh of "
+        f"{ctx['retriever'].mesh.data_size} shard(s) over the visible "
+        f"cards; context and two requests {time.perf_counter() - t0:.2f} s;"
+        f" launches {counts}")
+    key_rows = {key: i for i, key in enumerate(ds.keys)}
+    ids = enc[3]
+    for what, got, want_s, want_i in (("text", got_t, ws, wi),
+                                      ("video_key", got_v, vs, vi)):
+        if "error" in got:
+            raise AssertionError(f"10: the sharded daemon's {what} "
+                                 f"request: {got}")
+        same_hits(torch, f"10 sharded daemon {what} request vs a direct "
+                  "Retriever on the same mesh", [got["results"]],
+                  [[ds.keys[ids[j]] for j in row] for row in want_i],
+                  want_s, key_rows)
+    need_launches("10 the sharded daemon", counts, ("gru_fwd",))
+    return counts
+
+
+BENCH_METRICS = ("sim_matrix_qps_10k_gallery", "train_pairs_per_sec",
+                 "model_gflops_per_pair", "achieved_tflops_per_sec", "mfu")
+BENCH_GROUPS = {
+    "rank_qps_100k": ("stream_f32", "stream_bf16mult", "dense_bf16mult",
+                      "dense_f32"),
+    "topk_qps_100k": ("stream", "stream_prepared", "dense"),
+    "topk_standalone_qps_100k": ("stream_prepared",),
+    "topk_standalone_ms_100k": ("stream_prepared",),
+}
+
+
+def phase_bench(torch) -> dict:
+    """11: ``python -m cmhse_tpu_torch.cli.bench`` in a subprocess (a
+    process of its own, counts from 0): its one JSON line must parse, with
+    the value and every metric finite; its kernel launches (the line's
+    ``launches``) must hold K1-K4. Returns them."""
+    import math
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "cmhse_tpu_torch.cli.bench"],
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=BENCH_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    lines = out.stdout.strip().splitlines()
+    if out.returncode != 0 or len(lines) != 1:
+        raise AssertionError(f"cli.bench: rc {out.returncode}, stdout "
+                             f"{out.stdout[-2000:]!r}, stderr "
+                             f"{out.stderr[-4000:]}")
+    log(f"  cli.bench: {wall:.1f} s in its own process; its line:")
+    log("  " + lines[0])
+    res = json.loads(lines[0])
+    ex = res["extras"]
+    values = [("value", res["value"]), ("vs_baseline", res["vs_baseline"])]
+    values += [(key, ex[key]) for key in BENCH_METRICS]
+    for group, names in BENCH_GROUPS.items():
+        values += [(f"{group}.{name}", (ex[group] or {}).get(name))
+                   for name in names]
+    bad = [key for key, v in values
+           if not isinstance(v, (int, float)) or not math.isfinite(v)]
+    if bad or ex["platform"] != "gpu":
+        raise AssertionError(f"cli.bench: not finite {bad}, platform "
+                             f"{ex['platform']}")
+    launches = ex["launches"]
+    need_launches("11 cli.bench", launches,
+                  ("gru_fwd", "gru_bwd", "simhinge", "rankcount"))
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3553,12 +3806,19 @@ def main() -> int:
         phase(f"phase 8c: a daemon context with {SPLICE_ROWS:,} spliced rows, "
               "--quantized")
         dcounts.update(phase_splice(torch, np, cli_out, dmn))
+        phase("phase 9: one NCCL rank (world size 1): DP steps, their graph, "
+              "sharded validation and top-k, K1/K2 beside an all-reduce, "
+              "every H")
+        ncounts = phase_nccl(torch, np, args.seed, args.videos)
+        phase(f"phase 10: the Retriever's mesh, {SHARDED_SHARDS} shards on "
+              f"cuda:0, {SHARDED_ROWS:,} rows; the daemon's --sharded "
+              "context on phase 7's run")
+        scounts = phase_sharded(torch, np, rng, cli_out, dmn)
         del dmn
     finally:
         shutil.rmtree(cli_root, ignore_errors=True)
-    phase("phase 9: one NCCL rank (world size 1): DP steps, their graph, "
-          "sharded validation and top-k, K1/K2 beside an all-reduce, every H")
-    ncounts = phase_nccl(torch, np, args.seed, args.videos)
+    phase("phase 11: python -m cmhse_tpu_torch.cli.bench")
+    bcounts_bench = phase_bench(torch)
 
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith(("jax.", "cmhse_tpu.")))
@@ -3593,19 +3853,23 @@ def main() -> int:
     entries = [
         entry("gru_fwd", "gru_fwd.cu", k1,
               gru_rows + fwd_rows + [any_h[("gru_fwd", "float32", PAD_H)]],
-              "serve+train+fit+cli+daemon+nccl",
+              "serve+train+fit+cli+daemon+nccl+sharded+bench",
               total(counts, "gru_fwd float32")
               + total(tcounts, "gru_fwd float32")
               + total(fcounts, "gru_fwd float32")
               + total(ccounts, "gru_fwd float32")
               + total(dcounts, "gru_fwd float32")
-              + resident("gru_fwd float32"),
+              + resident("gru_fwd float32")
+              + total(scounts, "gru_fwd float32")
+              + total(bcounts_bench, "gru_fwd float32"),
               launches_by_path={"serve": total(counts, "gru_fwd"),
                                 "train": total(tcounts, "gru_fwd"),
                                 "fit": total(fcounts, "gru_fwd"),
                                 "cli": total(ccounts, "gru_fwd"),
                                 "daemon": total(dcounts, "gru_fwd"),
-                                "nccl": resident("gru_fwd")},
+                                "nccl": resident("gru_fwd"),
+                                "sharded": total(scounts, "gru_fwd"),
+                                "bench": total(bcounts_bench, "gru_fwd")},
               launches_train_by_variant={
                   k: n for k, n in tcounts.items() if k.startswith("gru_fwd")},
               launches_fit_by_variant={k: n for k, n in fcounts.items()
@@ -3614,37 +3878,43 @@ def main() -> int:
                                        if k.startswith("gru_fwd")}),
         entry("gru_bwd", "gru_bwd.cu", k2,
               bwd_rows + [any_h[("gru_bwd", "float32", PAD_H)]],
-              "train+fit+cli+nccl",
+              "train+fit+cli+nccl+bench",
               total(tcounts, "gru_bwd float32")
               + total(fcounts, "gru_bwd float32")
               + total(ccounts, "gru_bwd float32")
-              + resident("gru_bwd float32"),
+              + resident("gru_bwd float32")
+              + total(bcounts_bench, "gru_bwd float32"),
               launches_by_path={"train": total(tcounts, "gru_bwd"),
                                 "fit": total(fcounts, "gru_bwd"),
                                 "cli": total(ccounts, "gru_bwd"),
-                                "nccl": resident("gru_bwd")}),
+                                "nccl": resident("gru_bwd"),
+                                "bench": total(bcounts_bench, "gru_bwd")}),
         entry("simhinge", "simhinge.cu", "cmhse_tpu/ops/pallas_sim.py:58",
-              sh_rows, "train+fit+cli+nccl",
+              sh_rows, "train+fit+cli+nccl+bench",
               total(tcounts, "simhinge") + total(bcounts, "simhinge")
               + total(fcounts, "simhinge") + total(ccounts, "simhinge")
-              + total(ncounts, "simhinge"),
+              + total(ncounts, "simhinge")
+              + total(bcounts_bench, "simhinge"),
               launches_by_path={"train": total(tcounts, "simhinge"),
                                 "train bf16": total(bcounts, "simhinge"),
                                 "fit": total(fcounts, "simhinge"),
                                 "cli": total(ccounts, "simhinge"),
-                                "nccl": total(ncounts, "simhinge")},
+                                "nccl": total(ncounts, "simhinge"),
+                                "bench": total(bcounts_bench, "simhinge")},
               ms_from="CUDA-graph replay of one call (graph_ms)",
               call_ms=sh_rows[0]["call_ms"]),
         entry("rankcount", "rankcount.cu", k4, rc_rows,
-              "serve+train+cli+nccl",
+              "serve+train+cli+nccl+bench",
               total(counts, "rankcount float32")
               + total(tcounts, "rankcount float32")
               + total(ccounts, "rankcount float32")
-              + total(ncounts, "rankcount float32"),
+              + total(ncounts, "rankcount float32")
+              + total(bcounts_bench, "rankcount float32"),
               launches_by_path={"serve": total(counts, "rankcount"),
                                 "train": total(tcounts, "rankcount"),
                                 "cli": total(ccounts, "rankcount"),
-                                "nccl": total(ncounts, "rankcount")}),
+                                "nccl": total(ncounts, "rankcount"),
+                                "bench": total(bcounts_bench, "rankcount")}),
         entry("gru_fwd bf16", "gru_fwd.cu", k1, bf16_rows["encode"],
               "serve bf16", total(bf16_counts, "gru_fwd bfloat16 encode")),
         entry("gru_fwd bf16 save_gates", "gru_fwd.cu", k1,
@@ -3684,6 +3954,10 @@ def main() -> int:
         if "nccl" in e.get("launches_by_path", {}) and \
                 e["launches_by_path"]["nccl"] <= 0:
             raise AssertionError(f"phase 9 (NCCL) launched no {e['name']}")
+        for path, where in (("sharded", "phase 10 (the sharded daemon)"),
+                            ("bench", "phase 11 (cli.bench)")):
+            if e.get("launches_by_path", {}).get(path, 1) <= 0:
+                raise AssertionError(f"{where} launched no {e['name']}")
     phase("done")
     log(f"  total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}), flush=True)

@@ -1,8 +1,9 @@
 """``python -m cmhse_tpu_torch.cli.retrieve``, counterpart of
 ``cmhse-retrieve``: top-k retrieval against a split encoded once on the
 card, text->video (``--query``, ``--interactive``) and video->paragraph
-(``--query_video``), over :class:`cmhse_tpu_torch.eval.serve.Retriever`;
-or, with ``--connect ADDR``, the same queries sent to a running
+(``--query_video``), over :class:`cmhse_tpu_torch.eval.serve.Retriever`
+(``--sharded``: the gallery sharded over every local device, in this one
+process); or, with ``--connect ADDR``, the same queries sent to a running
 ``cmhse_tpu_torch.cli.serve_daemon`` (no model, no card)."""
 
 from __future__ import annotations
@@ -10,12 +11,10 @@ from __future__ import annotations
 import argparse
 import sys
 
-from cmhse_tpu_torch.cli import add_platform_flag, device_for
+from cmhse_tpu_torch.cli import add_platform_flag, device_for, sharded_mesh
 
 # no XLA compile to cache
 JAX_ONLY_FLAGS = ("--compile_cache",)
-# flags of the JAX command that wait for a later slice (ROADMAP A)
-LATER_FLAGS = {"--sharded": "A.7b the Retriever's mesh"}
 
 
 def _print_hits(label: str, hits) -> None:
@@ -37,7 +36,8 @@ def _connect_main(args, p, argv) -> int:
                          for a in (argv if argv is not None else sys.argv))
     daemon_side = [name for name, v in (
         ("--data_path", args.data_path), ("--split", args.split != "val"),
-        ("--quantized", args.quantized), ("--rescore_m", args.rescore_m),
+        ("--sharded", args.sharded), ("--quantized", args.quantized),
+        ("--rescore_m", args.rescore_m),
         ("--vocab_path", args.vocab_path),
         ("--platform", platform_given)) if v]
     if daemon_side:
@@ -92,6 +92,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="after any --query, read further text queries from "
                         "stdin (one a line) against the same gallery")
     p.add_argument("-k", type=int, default=5)
+    p.add_argument("--sharded", action="store_true",
+                   help="shard the gallery over every local device in this "
+                        "one process (each visible card; CPU shards with "
+                        "--platform cpu); not under torchrun")
     p.add_argument("--quantized", action="store_true",
                    help="two-stage int8 top-k for galleries held prepared "
                         "(at least 32,768 rows); exact rescoring of the int8 "
@@ -116,6 +120,7 @@ def main(argv=None) -> int:
     if args.checkpoint is None:
         p.error("pass a checkpoint dir (or --connect ADDR)")
     device = device_for(args.platform)
+    mesh = sharded_mesh(args.platform) if args.sharded else None
 
     from cmhse_tpu_torch.data import (PrecompDataset, Vocabulary,
                                       batches_from_dataset, find_vocab)
@@ -151,7 +156,7 @@ def main(argv=None) -> int:
                             for j, s in zip(idx, scores)])
 
     if args.query or args.interactive:
-        retriever = Retriever(model, quantize=args.quantized,
+        retriever = Retriever(model, mesh=mesh, quantize=args.quantized,
                               rescore_m=args.rescore_m)
         retriever.build_gallery(side="video", encoded=encoded)
         smax, wmax = cfg.data.max_sentences, cfg.data.max_words
@@ -171,7 +176,7 @@ def main(argv=None) -> int:
                 print_hits(f"query: {text!r}", scores[0], idx[0])
 
     if args.query_video:
-        retriever_t = Retriever(model, quantize=args.quantized,
+        retriever_t = Retriever(model, mesh=mesh, quantize=args.quantized,
                                 rescore_m=args.rescore_m)
         retriever_t.build_gallery(side="text", encoded=encoded)
         scores, idx = retriever_t.retrieve_video(*query_video, k=args.k)

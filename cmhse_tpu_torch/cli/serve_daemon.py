@@ -38,6 +38,11 @@ second, ingest lock. Every thread launches its kernels on the same
 (default) CUDA stream: the GRU kernel is one cooperative grid, and two of
 them must never need the card's SMs at once.
 
+``--sharded`` shards both directions' galleries over every local device
+(each visible card, or CPU shards with ``--platform cpu``), from this one
+process as the JAX daemon does: a shard's top-k runs on its card and the
+candidates merge on the first. Not under ``torchrun``.
+
 Trust: no authentication by default. Serve on a unix socket (file
 permissions are the access control) or a loopback or firewalled address;
 anyone who reaches the port can query, change the gallery and stop the
@@ -60,12 +65,10 @@ import threading
 import time
 from collections import deque
 
-from cmhse_tpu_torch.cli import add_platform_flag, device_for
+from cmhse_tpu_torch.cli import add_platform_flag, device_for, sharded_mesh
 
 # XLA's compile cache has no counterpart here
 JAX_ONLY_FLAGS = ("--compile_cache",)
-# flags of the JAX command that wait for a later slice (ROADMAP A)
-LATER_FLAGS = {"--sharded": "A.7b the Retriever's mesh"}
 
 # largest accepted request line: thousands of batched query sentences fit;
 # a runaway (or hostile, on TCP) line cannot balloon the daemon's memory
@@ -805,7 +808,8 @@ def _load_or_encode_gallery(model, dataset, cfg, cache_path: str | None,
 
 
 def build_context(checkpoint: str, data_path: str | None, split: str,
-                  vocab_path: str | None = None, quantized: bool = False,
+                  vocab_path: str | None = None, sharded: bool = False,
+                  quantized: bool = False,
                   rescore_m: int | None = None,
                   gallery_cache: str | None = None,
                   auth_token: str | None = None,
@@ -817,6 +821,9 @@ def build_context(checkpoint: str, data_path: str | None, split: str,
     assemble the request-handling context; the text side for video_key
     queries is built at its first use.
 
+    ``sharded``: both directions' Retrievers shard their galleries over a
+    local mesh of every device of ``device``'s kind (``cli.sharded_mesh``),
+    in this one process, as the JAX daemon meshes every local device.
     ``auth_token`` / ``allow_any_path``: the trust model (module
     docstring). ``compact_threshold``: compact both galleries when a remove
     leaves more than this fraction of rows invalid (None disables)."""
@@ -824,6 +831,11 @@ def build_context(checkpoint: str, data_path: str | None, split: str,
     from cmhse_tpu_torch.eval.serve import Retriever
     from cmhse_tpu_torch.train.checkpoint import restore_for_eval
 
+    from cmhse_tpu_torch.device import resolve_device
+
+    # the mesh first: a refused --sharded fails before any loading
+    mesh = (sharded_mesh("cpu" if resolve_device(device).type == "cpu"
+                         else "gpu") if sharded else None)
     model, cfg = restore_for_eval(checkpoint, device=device)
     data_path = data_path or cfg.data.data_path
     vocab = Vocabulary.load(find_vocab(data_path, vocab_path))
@@ -835,13 +847,15 @@ def build_context(checkpoint: str, data_path: str | None, split: str,
     # embeddings past every compaction)
     encoded = _load_or_encode_gallery(model, dataset, cfg, gallery_cache,
                                       checkpoint)
-    retriever = Retriever(model, quantize=quantized, rescore_m=rescore_m)
+    retriever = Retriever(model, mesh=mesh, quantize=quantized,
+                          rescore_m=rescore_m)
     retriever.build_gallery(side="video", encoded=encoded)
     _, p_emb, enc_valid, enc_ids = encoded
     del encoded
 
     def build_text_side():
-        r = Retriever(model, quantize=quantized, rescore_m=rescore_m)
+        r = Retriever(model, mesh=mesh, quantize=quantized,
+                      rescore_m=rescore_m)
         r.build_gallery(side="text",
                         encoded=(None, p_emb, enc_valid, enc_ids))
         return r
@@ -894,6 +908,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "or set --auth_token")
     p.add_argument("--data_path", default=None)
     p.add_argument("--split", default="val", help="gallery split")
+    p.add_argument("--sharded", action="store_true",
+                   help="shard both galleries over every local device in "
+                        "this one process (each visible card; CPU shards "
+                        "with --platform cpu); not under torchrun")
     p.add_argument("--quantized", action="store_true",
                    help="two-stage int8 top-k (million-row galleries)")
     p.add_argument("--rescore_m", type=int, default=None,
@@ -955,6 +973,7 @@ def main(argv=None) -> int:
     try:
         ctx = build_context(args.checkpoint, args.data_path, args.split,
                             vocab_path=args.vocab_path,
+                            sharded=args.sharded,
                             quantized=args.quantized,
                             rescore_m=args.rescore_m,
                             gallery_cache=args.gallery_cache,

@@ -92,6 +92,7 @@ def validate_metrics(
         from cmhse_tpu_torch.parallel.eval_sharded import \
             sharded_retrieval_metrics
 
+        mesh.check_process_mesh("validate_metrics(mesh=)")
         # The JAX path pads each batch to whole rows a device (devices a
         # process); a rank is one device, so no batch needs padding.
         rows = []

@@ -1,5 +1,7 @@
-"""Query-against-gallery serving, counterpart of ``cmhse_tpu/eval/serve.py``
-(single device; the mesh waits for multi-GPU).
+"""Query-against-gallery serving, counterpart of ``cmhse_tpu/eval/serve.py``:
+on one device, or sharded over a mesh (``Retriever(mesh=)``; a local mesh
+of :mod:`cmhse_tpu_torch.parallel.mesh` holds every shard in this process,
+one a device, as the JAX daemon's one process drives every local device).
 
 Encode a gallery once with :meth:`Retriever.build_gallery`, then answer
 text->video (:meth:`Retriever.retrieve`) or video->text
@@ -131,6 +133,15 @@ def _unpack(encoded) -> tuple:
     return v, p, valid, (encoded[3] if len(encoded) > 3 else None)
 
 
+def _mask_slots(prep: PreparedGallery, slots: torch.Tensor
+                ) -> PreparedGallery:
+    """``prep`` with its flattened slots ``slots`` marked invalid: a new
+    mask, the same chunks."""
+    pv = prep.valid
+    return prep._replace(valid=pv.reshape(-1).index_fill(
+        0, slots, False).reshape(pv.shape))
+
+
 class CompactionPlan(NamedTuple):
     """Every compacted serving form, built by
     :meth:`Retriever.plan_compaction` while queries go on, swapped in by
@@ -140,7 +151,9 @@ class CompactionPlan(NamedTuple):
     old_to_new: np.ndarray      # int32 [n_old], -1 = dropped
     gallery: torch.Tensor       # [n_new, D] compacted embeddings
     gallery_valid: torch.Tensor  # bool [n_new] (all True at plan time)
-    prepared: PreparedGallery | None
+    # PreparedGallery, a list of them (one a shard, mesh), or None
+    prepared: PreparedGallery | list | None
+    shard_rows: int | None      # per-shard row count (mesh path)
     keys: list | None           # row-aligned keys of the new gallery
 
 
@@ -156,15 +169,25 @@ class Retriever:
     block would pass ``DENSE_TOPK_MAX_BYTES``, else dense. Streaming goes
     over the prepared form; a smaller gallery is chunked at its first
     streaming request and the chunks kept until the gallery changes. Both
-    exact paths return the same rows in the same tie order."""
+    exact paths return the same rows in the same tie order.
 
-    def __init__(self, model: CMHSE, quantize: bool = False,
+    With a ``mesh`` the gallery is sharded over its ``data`` axis: a
+    prepared gallery is held as one form a shard, each on its shard's
+    device (``prepare_sharded_topk_gallery``), and a request runs
+    ``sharded_sim_topk_prepared`` (int8 per shard when the Retriever
+    quantizes), or ``sharded_sim_topk`` below the size rule. The answers
+    equal the single device's."""
+
+    def __init__(self, model: CMHSE, mesh=None, quantize: bool = False,
                  rescore_m: int | None = None):
-        """``quantize``: the two-stage int8 top-k for prepared galleries
-        (formally approximate: a true top-k row could miss the int8 pool;
-        see ``ops/topk.py``). ``rescore_m``: the int8 pool's depth, the
-        recall dial (default ``max(64, 4k)``)."""
+        """``mesh``: a :class:`~cmhse_tpu_torch.parallel.mesh.Mesh` to shard
+        the gallery over (a local mesh in a serving process). ``quantize``:
+        the two-stage int8 top-k for prepared galleries (formally
+        approximate: a true top-k row could miss the int8 pool; see
+        ``ops/topk.py``). ``rescore_m``: the int8 pool's depth, the recall
+        dial (default ``max(64, 4k)``)."""
         self.model = model
+        self.mesh = mesh
         self.quantize = quantize
         self.rescore_m = rescore_m
         self.gallery: torch.Tensor | None = None
@@ -176,7 +199,10 @@ class Retriever:
         self.gallery_keys: list | None = None
         self.n_valid: int = 0
         self.side: str = "video"
-        self._prepared: PreparedGallery | None = None
+        # one form, or under a mesh a list of them (one a shard this
+        # process holds, shard_rows rows each)
+        self._prepared: PreparedGallery | list | None = None
+        self._prepared_shard_rows: int | None = None
         # the chunks of a gallery below the size rule, made at its first
         # streaming request; every mutator drops them
         self._streamed: PreparedGallery | None = None
@@ -207,21 +233,30 @@ class Retriever:
         self.gallery_valid = valid.to(self.gallery.device).bool()
         self._valid_host = self.gallery_valid.cpu().numpy().copy()
         self.n_valid = int(self._valid_host.sum())
-        self._prepared = self._build_prepared(self.gallery,
-                                              self.gallery_valid)
+        self._prepared, self._prepared_shard_rows = self._build_prepared(
+            self.gallery, self.gallery_valid)
         self.gallery_keys = _row_aligned_keys(
             keys, ids, self._valid_host, int(self.gallery.shape[0]))
         self._key_rows = _build_key_rows(self.gallery_keys)
         self._streamed = None
 
-    def _build_prepared(self, gallery: torch.Tensor,
-                        valid: torch.Tensor) -> PreparedGallery | None:
-        """The prepared form of a (gallery, valid) pair where the size rule
-        asks for one, else None; shared by :meth:`build_gallery` and
+    def _build_prepared(self, gallery: torch.Tensor, valid: torch.Tensor
+                        ) -> tuple[PreparedGallery | list | None, int | None]:
+        """``(prepared, shard_rows)`` of a (gallery, valid) pair where the
+        size rule asks for a prepared form, else ``(None, None)``: one form,
+        or under a mesh the per-shard forms and their row count. Shared by
+        :meth:`build_gallery`, :meth:`add_to_gallery` and
         :meth:`plan_compaction` (which must not touch serving state)."""
         if not should_prepare_topk(int(gallery.shape[0])):
-            return None
-        return prepare_topk_gallery(gallery, valid, quantize=self.quantize)
+            return None, None
+        if self.mesh is None:
+            return prepare_topk_gallery(gallery, valid,
+                                        quantize=self.quantize), None
+        from cmhse_tpu_torch.parallel.eval_sharded import \
+            prepare_sharded_topk_gallery
+
+        return prepare_sharded_topk_gallery(gallery, self.mesh, valid=valid,
+                                            quantize=self.quantize)
 
     def add_to_gallery(self, batches=None, keys: list | None = None,
                        encoded=None) -> None:
@@ -229,7 +264,9 @@ class Retriever:
         from all of them at once (indices, keys, scores). The prepared form
         is extended (:func:`append_to_prepared`: the tail chunk and the new
         rows only) until its chunk count passes twice the count a fresh
-        prepare would pick; then it is rebuilt once. ``encoded``: as in
+        prepare would pick; then it is rebuilt once. Under a mesh the
+        per-shard forms are rebuilt on every add: the shards hold equal
+        rows, and an append would unbalance them. ``encoded``: as in
         :meth:`build_gallery`, so one encode feeds both directions."""
         if self.gallery is None:
             return self.build_gallery(batches, keys=keys, side=self.side,
@@ -246,7 +283,9 @@ class Retriever:
         n_old = int(self.gallery.shape[0])
         n_new_total = n_old + int(new_emb.shape[0])
         self._streamed = None
-        if self._prepared is not None:
+        if self.mesh is not None:
+            self._prepared = None  # the shards are rebuilt below
+        elif self._prepared is not None:
             if (self._prepared.chunks.shape[0]
                     > 2 * adaptive_n_chunks(n_new_total)):
                 self._prepared = None  # drifted: rebuilt below
@@ -257,8 +296,8 @@ class Retriever:
         self.gallery = torch.cat([self.gallery, new_emb])
         self.gallery_valid = torch.cat([self.gallery_valid, new_valid])
         if self._prepared is None:
-            self._prepared = self._build_prepared(self.gallery,
-                                                  self.gallery_valid)
+            self._prepared, self._prepared_shard_rows = self._build_prepared(
+                self.gallery, self.gallery_valid)
         new_valid_np = new_valid.cpu().numpy()
         self._valid_host = np.concatenate([self._valid_host, new_valid_np])
         self.n_valid += int(new_valid_np.sum())
@@ -292,20 +331,34 @@ class Retriever:
 
     def _tombstone_rows(self, rows: list) -> None:
         """Mark valid gallery rows invalid in the mask, its host copy and the
-        prepared form (whose slot ``s < n`` is gallery row ``s``): the core
-        of :meth:`remove_from_gallery` and of the raced-tombstone replay in
-        :meth:`apply_compaction`. New tensors replace the old."""
+        prepared forms: the core of :meth:`remove_from_gallery` and of the
+        raced-tombstone replay in :meth:`apply_compaction`. New masks
+        replace the old; the chunks are not rebuilt."""
         idx = torch.as_tensor(rows, dtype=torch.long,
                               device=self.gallery_valid.device)
         self.gallery_valid = self.gallery_valid.index_fill(0, idx, False)
         self._valid_host[rows] = False  # the host copy is ours to write
         self.n_valid -= len(rows)
         self._streamed = None
-        if self._prepared is not None:
-            pv = self._prepared.valid
-            self._prepared = self._prepared._replace(
-                valid=pv.reshape(-1).index_fill(0, idx, False).reshape(
-                    pv.shape))
+        if self._prepared is None:
+            return
+        if self.mesh is None:
+            # one form: its slot s < n is gallery row s
+            self._prepared = _mask_slots(self._prepared, idx)
+            return
+        # per-shard forms: global row r lives in shard r // shard_rows at
+        # local slot r % shard_rows (slots past shard_rows are the shard's
+        # own padding)
+        srows = self._prepared_shard_rows
+        by_shard = np.asarray(rows, np.int64)
+        shard_of, slot = by_shard // srows, by_shard % srows
+        prepared = list(self._prepared)
+        for i, (shard, _) in enumerate(self.mesh.local_shards()):
+            mine = slot[shard_of == shard]
+            if mine.size:
+                prepared[i] = _mask_slots(prepared[i], torch.as_tensor(
+                    mine, device=prepared[i].valid.device))
+        self._prepared = prepared
 
     @property
     def invalid_fraction(self) -> float:
@@ -349,11 +402,11 @@ class Retriever:
         gallery_valid = torch.ones(kept.size, dtype=torch.bool, device=dev)
         keys = (None if self.gallery_keys is None
                 else [self.gallery_keys[i] for i in kept])
+        prepared, shard_rows = self._build_prepared(gallery, gallery_valid)
         return CompactionPlan(
             valid_snapshot=valid_np, old_to_new=old_to_new, gallery=gallery,
-            gallery_valid=gallery_valid,
-            prepared=self._build_prepared(gallery, gallery_valid),
-            keys=keys)
+            gallery_valid=gallery_valid, prepared=prepared,
+            shard_rows=shard_rows, keys=keys)
 
     def apply_compaction(self, plan: CompactionPlan) -> np.ndarray:
         """Swap a :meth:`plan_compaction` result into serving state (pointer
@@ -377,6 +430,7 @@ class Retriever:
         self.gallery_keys = plan.keys
         self._key_rows = _build_key_rows(self.gallery_keys)
         self._prepared = plan.prepared
+        self._prepared_shard_rows = plan.shard_rows
         self._streamed = None
         if raced.any():
             new_rows = plan.old_to_new[np.flatnonzero(raced)]
@@ -430,10 +484,22 @@ class Retriever:
                 ) -> tuple[np.ndarray, np.ndarray]:
         n = int(self.gallery.shape[0])
         prep = self._prepared
-        if prep is not None and prep.int8_chunks is not None:
-            # a request's k above rescore_m widens the pool, as in JAX
-            rescore_m = (None if self.rescore_m is None
-                         else max(self.rescore_m, k))
+        # a request's k above rescore_m widens the pool, as in JAX
+        rescore_m = (None if self.rescore_m is None
+                     else max(self.rescore_m, k))
+        if self.mesh is not None:
+            from cmhse_tpu_torch.parallel.eval_sharded import (
+                sharded_sim_topk, sharded_sim_topk_prepared)
+
+            if prep is not None:
+                scores, idx = sharded_sim_topk_prepared(
+                    q, prep, k, self.mesh,
+                    shard_rows=self._prepared_shard_rows,
+                    quantized=self.quantize, rescore_m=rescore_m)
+            else:
+                scores, idx = sharded_sim_topk(q, self.gallery, k, self.mesh,
+                                               valid=self.gallery_valid)
+        elif prep is not None and prep.int8_chunks is not None:
             scores, idx = quantized_sim_topk(q, prep, k, rescore_m=rescore_m)
         elif should_stream_topk(int(q.shape[0]), n):
             if prep is None:

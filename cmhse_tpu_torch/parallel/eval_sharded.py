@@ -22,14 +22,24 @@ returns the same answer. Each rank counts with the ``rankcount`` kernel
 (K4) when streaming, with a dense block otherwise; ``streaming`` is
 decided on the full padded gallery, as the JAX package decides it.
 
-The top-k functions take each rank's local top-k over its gallery shard
-(the exact streaming scan, or the int8 two stages on a per-shard
-:class:`~cmhse_tpu_torch.ops.topk.PreparedGallery`), offset the indices by
-``rank * shard_rows``, all-gather k candidates a rank, and take the final
-top-k with ties to the lowest global index.
+The top-k functions run on either form of the mesh
+(:mod:`cmhse_tpu_torch.parallel.mesh`): over the shards this process holds
+(``mesh.local_shards()``: its own under a process group, every shard of a
+local mesh), each shard's local top-k (the exact streaming scan, or the
+int8 two stages on a per-shard
+:class:`~cmhse_tpu_torch.ops.topk.PreparedGallery`) runs on the shard's
+device, the query copied there; the indices are offset by ``shard *
+shard_rows``, the k candidates of every shard are gathered (an all-gather,
+or copies to ``devices[0]``), and the final top-k takes ties to the lowest
+global index. A shard's work is enqueued under ``torch.cuda.device`` of
+its card, and nothing in the shard loop waits on the device, so the cards
+of a local mesh run their shards at once. The rank counts keep one card a
+process and refuse a local mesh of several devices.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -39,7 +49,8 @@ from cmhse_tpu_torch.ops.topk import (PreparedGallery, _pad_rows,
                                       prepare_topk_gallery,
                                       quantized_sim_topk, should_stream_topk,
                                       streaming_sim_topk, topk_lowest_index)
-from cmhse_tpu_torch.parallel.mesh import Mesh, all_gather_rows, all_reduce_sum
+from cmhse_tpu_torch.parallel.mesh import (Mesh, all_gather_rows,
+                                           all_reduce_sum, gather_shards)
 
 
 def _padded_valid_mask(npad: int, n: int, valid, device) -> torch.Tensor:
@@ -56,6 +67,13 @@ def _shard(mesh: Mesh, axis: str, npad: int) -> tuple[int, int]:
     mesh.check_axis(axis)
     rows = npad // mesh.data_size
     return mesh.data_index * rows, rows
+
+
+def _on(dev: torch.device):
+    """The context that makes ``dev`` the current card (allocations,
+    streams and cuBLAS handles go to it); nothing for the CPU."""
+    return (torch.cuda.device(dev) if dev.type == "cuda"
+            else contextlib.nullcontext())
 
 
 def sharded_ranks(
@@ -78,6 +96,7 @@ def sharded_ranks(
     gallery size on the card)."""
     if mode not in ("query", "gallery"):
         raise ValueError(f"unknown mode {mode!r}")
+    mesh.check_process_mesh("sharded_ranks")
     dev = v_emb.device
     ndev = mesh.data_size
     n = v_emb.shape[0]
@@ -160,17 +179,16 @@ def sharded_retrieval_metrics(
         return_ranks=return_ranks)
 
 
-def _merge_shard_candidates(scores: torch.Tensor, index: torch.Tensor,
-                            mesh: Mesh, k: int):
-    """All-gather each rank's ``[Q, kk]`` candidates, rank-major along the
-    candidates, and take the global top-k, ties to the lowest index."""
-    all_s = all_gather_rows(scores.contiguous(), mesh)
-    all_i = all_gather_rows(index.contiguous(), mesh)
-    q = scores.shape[0]
-    all_s = all_s.reshape(-1, q, scores.shape[1]).permute(1, 0, 2).reshape(
-        q, -1)
-    all_i = all_i.reshape(-1, q, index.shape[1]).permute(1, 0, 2).reshape(
-        q, -1)
+def _merge_shard_candidates(parts: list, mesh: Mesh, k: int):
+    """Gather each shard's ``[Q, kk]`` candidates (``parts``: one
+    ``(scores, global indices)`` pair a shard this process holds),
+    shard-major along the candidates, and take the global top-k on
+    ``mesh.devices[0]``, ties to the lowest index."""
+    all_s = gather_shards([s.contiguous() for s, _ in parts], mesh)
+    all_i = gather_shards([i.contiguous() for _, i in parts], mesh)
+    q, kk = parts[0][0].shape
+    all_s = all_s.reshape(-1, q, kk).permute(1, 0, 2).reshape(q, -1)
+    all_i = all_i.reshape(-1, q, kk).permute(1, 0, 2).reshape(q, -1)
     return topk_lowest_index(all_s, k, index=all_i)
 
 
@@ -184,26 +202,36 @@ def sharded_sim_topk(
     streaming: bool | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Top-k gallery rows for each query against the gallery sharded over
-    the mesh: each rank's top-k over its shard (the streaming scan, or one
-    dense block), all-gathered and merged. Returns (scores ``[Q, k]`` f32,
-    global indices ``[Q, k]`` int64), the same on every rank. ``k``: the
-    caller clamps it to the valid row count. ``streaming`` None: the
-    serving rule on the padded gallery (its dense block's bytes)."""
+    the mesh: each shard's top-k over its rows on its device (the streaming
+    scan, or one dense block), gathered and merged. Returns (scores
+    ``[Q, k]`` f32, global indices ``[Q, k]`` int64) on ``devices[0]``, the
+    same on every rank. ``k``: the caller clamps it to the valid row count.
+    ``streaming`` None: the serving rule on the padded gallery (its dense
+    block's bytes)."""
+    mesh.check_axis(axis)
     n = gallery.shape[0]
     npad = n + (-n) % mesh.data_size
-    lo, rows = _shard(mesh, axis, npad)
+    rows = npad // mesh.data_size
     stream = (should_stream_topk(queries.shape[0], npad) if streaming is None
               else streaming)
-    g_loc = _pad_rows(gallery, npad - n)[lo:lo + rows]
-    v_loc = _padded_valid_mask(npad, n, valid, gallery.device)[lo:lo + rows]
+    g_pad = _pad_rows(gallery, npad - n)
+    v_pad = _padded_valid_mask(npad, n, valid, gallery.device)
     kk = min(k, rows)
-    if stream:
-        scores, idx = streaming_sim_topk(queries, g_loc, kk, valid=v_loc)
-    else:
-        sims = queries.float() @ g_loc.float().T
-        sims = torch.where(v_loc[None, :], sims, float("-inf"))
-        scores, idx = topk_lowest_index(sims, kk)
-    return _merge_shard_candidates(scores, idx + lo, mesh, k)
+    parts = []
+    for shard, dev in mesh.local_shards():
+        lo = shard * rows
+        with _on(dev):
+            q = queries.to(dev)
+            g_loc = g_pad[lo:lo + rows].to(dev)
+            v_loc = v_pad[lo:lo + rows].to(dev)
+            if stream:
+                scores, idx = streaming_sim_topk(q, g_loc, kk, valid=v_loc)
+            else:
+                sims = q.float() @ g_loc.float().T
+                sims = torch.where(v_loc[None, :], sims, float("-inf"))
+                scores, idx = topk_lowest_index(sims, kk)
+            parts.append((scores, idx + lo))
+    return _merge_shard_candidates(parts, mesh, k)
 
 
 def prepare_sharded_topk_gallery(
@@ -212,22 +240,32 @@ def prepare_sharded_topk_gallery(
     axis: str = "data",
     valid: torch.Tensor | None = None,
     quantize: bool = False,
-) -> tuple[PreparedGallery, int]:
-    """This rank's shard of the gallery, padded and equalize-chunked once
-    (and int8-quantized with ``quantize``): ``(prepared, shard_rows)``.
-    The JAX function returns every device's shard under a leading device
-    axis; here each rank holds its own, which is what it serves from."""
+) -> tuple[list[PreparedGallery], int]:
+    """The shards this process holds of the gallery, each padded and
+    equalize-chunked once on its own device (and int8-quantized with
+    ``quantize``): ``(prepared, shard_rows)``, ``prepared[i]`` the shard of
+    ``mesh.local_shards()[i]``. The JAX function returns every device's
+    shard under a leading device axis; here a rank holds its own, and a
+    local mesh every shard, which is what each serves from."""
+    mesh.check_axis(axis)
     n = gallery.shape[0]
     npad = n + (-n) % mesh.data_size
-    lo, rows = _shard(mesh, axis, npad)
-    g_loc = _pad_rows(gallery, npad - n)[lo:lo + rows]
-    v_loc = _padded_valid_mask(npad, n, valid, gallery.device)[lo:lo + rows]
-    return prepare_topk_gallery(g_loc, v_loc, quantize=quantize), rows
+    rows = npad // mesh.data_size
+    g_pad = _pad_rows(gallery, npad - n)
+    v_pad = _padded_valid_mask(npad, n, valid, gallery.device)
+    prepared = []
+    for shard, dev in mesh.local_shards():
+        lo = shard * rows
+        with _on(dev):
+            prepared.append(prepare_topk_gallery(
+                g_pad[lo:lo + rows].to(dev), v_pad[lo:lo + rows].to(dev),
+                quantize=quantize))
+    return prepared, rows
 
 
 def sharded_sim_topk_prepared(
     queries: torch.Tensor,
-    prepared: PreparedGallery,
+    prepared: list[PreparedGallery],
     k: int,
     mesh: Mesh,
     shard_rows: int,
@@ -235,21 +273,29 @@ def sharded_sim_topk_prepared(
     quantized: bool = False,
     rescore_m: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Top-k against the per-rank shards of
+    """Top-k against the per-shard forms of
     :func:`prepare_sharded_topk_gallery`: the exact streaming scan, or with
-    ``quantized`` the int8 two stages, on this rank's shard; then the
+    ``quantized`` the int8 two stages, on each shard's device; then the
     candidates' merge of :func:`sharded_sim_topk`. Padding rows are masked
     and cannot surface (the caller clamps ``k`` to the valid rows)."""
     mesh.check_axis(axis)
-    capacity = prepared.chunks.shape[0] * prepared.chunks.shape[1]
+    shards = mesh.local_shards()
+    if len(prepared) != len(shards):
+        raise ValueError(f"{len(prepared)} prepared shards for the "
+                         f"{len(shards)} this process holds")
+    if quantized and any(p.int8_chunks is None for p in prepared):
+        raise ValueError("quantized=True needs prepare_sharded_topk_"
+                         "gallery(..., quantize=True)")
+    capacity = prepared[0].chunks.shape[0] * prepared[0].chunks.shape[1]
     kk = min(k, capacity)
-    if quantized:
-        if prepared.int8_chunks is None:
-            raise ValueError("quantized=True needs prepare_sharded_topk_"
-                             "gallery(..., quantize=True)")
-        scores, idx = quantized_sim_topk(queries, prepared, kk,
-                                         rescore_m=rescore_m)
-    else:
-        scores, idx = streaming_sim_topk(queries, prepared, kk)
-    return _merge_shard_candidates(scores, idx + mesh.data_index * shard_rows,
-                                   mesh, k)
+    parts = []
+    for (shard, dev), prep in zip(shards, prepared):
+        with _on(dev):
+            q = queries.to(dev)
+            if quantized:
+                scores, idx = quantized_sim_topk(q, prep, kk,
+                                                 rescore_m=rescore_m)
+            else:
+                scores, idx = streaming_sim_topk(q, prep, kk)
+            parts.append((scores, idx + shard * shard_rows))
+    return _merge_shard_candidates(parts, mesh, k)

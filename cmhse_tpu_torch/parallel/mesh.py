@@ -2,19 +2,35 @@
 ``cmhse_tpu/parallel/mesh.py``.
 
 The JAX package runs one process over every local device and lets XLA
-insert the collectives. The port runs one process a card (``torchrun
---nproc_per_node=N``), so a rank is a device, and the collectives are
-``torch.distributed`` calls the port makes itself: NCCL between cards,
-gloo between CPU processes (the tests).
+insert the collectives. The port's mesh has two forms:
+
+* **one process a card** (``torchrun --nproc_per_node=N``): a rank is a
+  device, and the collectives are ``torch.distributed`` calls the port
+  makes itself, NCCL between cards and gloo between CPU processes (the
+  tests). Training (``train_dp``) and sharded evaluation
+  (``sharded_ranks``, ``validate_metrics(mesh=)``) run on this form only.
+* **local**: one process holds a list of devices, shard *i* on
+  ``devices[i]``, with no process group (:func:`make_mesh` with
+  ``devices=``, :func:`local_devices` for every visible card). This is the
+  JAX daemon's design: ``make_mesh((-1,), ("data",))`` over
+  ``jax.devices()`` in one process, with its threads and locks. The
+  Retriever's mesh (``Retriever(mesh=)``, ``--sharded`` serving) runs on
+  it: each shard's top-k runs on its own device, and the candidates are
+  copied to ``devices[0]`` and merged there (:func:`gather_shards`). On
+  the one-process-a-card form a sharded daemon would need rank 0 to own
+  the socket and broadcast every query, add, remove and compaction to the
+  other ranks in lockstep, and keep the compaction's off-lock snapshot
+  consistent across them: a protocol the JAX package does not have.
 
 :func:`make_mesh` returns a small :class:`Mesh`, not torch's
 ``DeviceMesh``. The port needs three things of a mesh: the group of ranks
 along its ``data`` axis (the ones whose rows make one global batch), this
-rank's place in it, and the device. A ``DeviceMesh`` would build a group
-for every axis, its constructor's arguments differ between the torch of
-the card's machine (2.11) and of this image (2.13), and it needs a process
-group even for one card. A :class:`Mesh` of one rank with no process group
-is a plain single-device run: its collectives are the identity.
+rank's place in it, and the device (or, locally, the devices). A
+``DeviceMesh`` would build a group for every axis, its constructor's
+arguments differ between the torch of the card's machine (2.11) and of
+this image (2.13), and it needs a process group even for one card. A
+:class:`Mesh` of one rank with no process group is a plain single-device
+run: its collectives are the identity.
 
 Every collective here is issued synchronously (no ``async_op``): under
 NCCL the caller's stream waits on the collective's before its next kernel.
@@ -40,6 +56,9 @@ _all_gather_single = (getattr(dist, "all_gather_single", None)
                       or dist.all_gather_into_tensor)
 
 _TORCHRUN_VARS = ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
+# the CPU shards of a local mesh when the caller names no count: the host
+# device count of the JAX package's CPU tests (tests/conftest.py)
+CPU_SHARDS = 8
 
 
 def process_index() -> int:
@@ -103,13 +122,20 @@ class Mesh:
 
     ``group`` is the process group of this rank's ``data`` axis (the whole
     world when the mesh has no other axis), None for a run of one process
-    without a process group."""
+    without a process group. ``devices``: the devices this process holds,
+    one a shard (default ``(device,)``); more than one makes a local mesh
+    (module docstring), whose ``device`` is ``devices[0]``."""
 
     shape: dict[str, int]
     device: torch.device
     rank: int = 0
     world: int = 1
     group: Any = field(default=None, repr=False)
+    devices: tuple[torch.device, ...] = ()
+
+    def __post_init__(self):
+        if not self.devices:
+            self.devices = (self.device,)
 
     @property
     def axis_names(self) -> tuple[str, ...]:
@@ -130,16 +156,56 @@ class Mesh:
     def data_index(self) -> int:
         return self.coord("data") if "data" in self.shape else 0
 
+    @property
+    def is_local(self) -> bool:
+        """One process holding several shards (module docstring)."""
+        return len(self.devices) > 1
+
+    def local_shards(self) -> list[tuple[int, torch.device]]:
+        """The ``(shard index, device)`` pairs this process holds: its own
+        ``data`` index under a process group, every shard on a local
+        mesh."""
+        if self.is_local:
+            return list(enumerate(self.devices))
+        return [(self.data_index, self.device)]
+
     def check_axis(self, axis: str) -> None:
         """The port shards over the ``data`` axis only."""
         if axis != "data" and self.shape.get(axis, 1) > 1:
             raise ValueError(f"the port's mesh shards over its 'data' axis "
                              f"only, not {axis!r}")
 
+    def check_process_mesh(self, what: str) -> None:
+        """Refuse a local mesh of several devices where the port keeps one
+        card a process: training and sharded evaluation."""
+        if self.is_local:
+            raise ValueError(
+                f"{what} runs one card a process (torchrun); a local mesh "
+                f"of {len(self.devices)} devices serves only the "
+                "Retriever's sharded top-k")
+
+
+def local_devices(platform: str | None = None,
+                  n: int | None = None) -> list[torch.device]:
+    """Every device this process can hold a shard on, the counterpart of
+    ``jax.devices()``: each visible card ``cuda:0 .. cuda:n-1`` (raising
+    where there is none, ``resolve_device``'s rule), or, when the caller
+    asks for the CPU (``platform="cpu"``), ``n`` CPU entries (default
+    :data:`CPU_SHARDS`, the JAX tests' host device count). ``n`` for the
+    cards takes the first ``n``."""
+    if platform == "cpu":
+        return [torch.device("cpu")] * (CPU_SHARDS if n is None else n)
+    resolve_device(None)
+    count = torch.cuda.device_count()
+    if n is not None and not 0 < n <= count:
+        raise ValueError(f"{n} cards asked for, {count} visible")
+    return [torch.device("cuda", i) for i in range(n or count)]
+
 
 def make_mesh(shape: tuple[int, ...] = (-1,),
               axis_names: tuple[str, ...] = ("data",),
-              device: str | torch.device | None = None) -> Mesh:
+              device: str | torch.device | None = None,
+              devices=None) -> Mesh:
     """A named mesh over every rank of the run, ``-1`` taking the ranks the
     fixed axes leave: JAX's shape rules and errors (one ``-1``, a world
     that divides by the fixed axes, no more ranks asked than there are).
@@ -147,13 +213,30 @@ def make_mesh(shape: tuple[int, ...] = (-1,),
 
     Without a process group the mesh is this one process (a world of 1).
     ``device``: this rank's device (:func:`local_device`); the CPU takes a
-    gloo group, the card an NCCL one."""
+    gloo group, the card an NCCL one.
+
+    ``devices``: a local mesh instead (module docstring): this one process
+    holds ``len(devices)`` shards, shard i on ``devices[i]`` (a device may
+    repeat), under the same shape rules with ``len(devices)`` in place of
+    the world; it shards over ``data`` only. Refused under a process group
+    of more than one rank, whose ranks would each claim every shard."""
     shape = tuple(int(s) for s in shape)
     axis_names = tuple(axis_names)
     if len(shape) != len(axis_names):
         raise ValueError(f"mesh shape {shape} and axis names {axis_names} "
                          f"differ in length")
-    world, rank = process_count(), process_index()
+    if devices is not None:
+        devices = tuple(torch.device(d) for d in devices)
+        if not devices:
+            raise ValueError("a local mesh needs at least one device")
+        if process_count() > 1:
+            raise ValueError(
+                f"a local mesh of {len(devices)} devices under a process "
+                f"group of {process_count()} ranks: run one process over "
+                "the local devices, or one card a rank without devices=")
+        world, rank = len(devices), 0
+    else:
+        world, rank = process_count(), process_index()
     if shape.count(-1) > 1:
         raise ValueError(f"at most one -1 allowed in mesh shape, got {shape}")
     if -1 in shape:
@@ -171,14 +254,19 @@ def make_mesh(shape: tuple[int, ...] = (-1,),
         raise ValueError(f"mesh {shape} holds {n} of the run's {world} "
                          "ranks; every rank runs the program, so the mesh "
                          "must hold them all")
+    named = dict(zip(axis_names, shape))
+    if devices is not None:
+        if named.get("data", 1) != world:
+            raise ValueError(f"a local mesh shards over 'data' only; mesh "
+                             f"{named} leaves devices idle on another axis")
+        return Mesh(shape=named, device=devices[0], devices=devices)
     dev = local_device(device)
     if dist.is_initialized():
         backend = dist.get_backend()
         if (backend == "nccl") != (dev.type == "cuda"):
             raise ValueError(f"a {backend} process group cannot drive a "
                              f"{dev.type} mesh")
-    mesh = Mesh(shape=dict(zip(axis_names, shape)), device=dev, rank=rank,
-                world=world)
+    mesh = Mesh(shape=named, device=dev, rank=rank, world=world)
     if dist.is_initialized():
         mesh.group = _data_group(mesh)
     return mesh
@@ -219,6 +307,18 @@ def all_gather_rows(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     # synchronous: the caller's stream waits on it (module docstring)
     _all_gather_single(out, src.contiguous(), group=mesh.group)
     return out.bool() if x.dtype == torch.bool else out
+
+
+def gather_shards(parts: list[torch.Tensor], mesh: Mesh) -> torch.Tensor:
+    """The per-shard tensors this process holds (``parts[i]`` of
+    ``mesh.local_shards()[i]``), every shard's rows in shard order, on
+    ``mesh.devices[0]``: :func:`all_gather_rows` under a process group,
+    copies and one ``cat`` on a local mesh."""
+    if mesh.is_local:
+        dev = mesh.devices[0]
+        return torch.cat([p.to(dev) for p in parts])
+    (part,) = parts
+    return all_gather_rows(part, mesh)
 
 
 def all_reduce_sum(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:

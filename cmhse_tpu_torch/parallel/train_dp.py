@@ -47,6 +47,7 @@ def place_state(state, mesh: Mesh):
     too). Fresh weights from one seed need not agree across ranks, nor
     across torch builds, and a resume reads the same files but is made
     equal here all the same. Returns ``state``."""
+    mesh.check_process_mesh("place_state")
     if mesh.group is None:
         return state
     tensors = list(state.model.parameters()) + list(state.model.buffers())
@@ -78,6 +79,7 @@ def local_rows(batch: Batch, mesh: Mesh) -> Batch:
     """This rank's rows of a global batch: the contiguous slice the loader
     gives it with ``process_index=mesh.data_index``,
     ``process_count=mesh.data_size``."""
+    mesh.check_process_mesh("local_rows")
     rows = batch.frames.shape[0]
     if rows % mesh.data_size:
         raise ValueError(f"a batch of {rows} rows does not split over a "
@@ -91,6 +93,7 @@ def local_rows(batch: Batch, mesh: Mesh) -> Batch:
 def place_batch(batch: Batch, mesh: Mesh, non_blocking: bool = False
                 ) -> Batch:
     """This rank's rows (the loader already sliced them) on its device."""
+    mesh.check_process_mesh("place_batch")
     return batch.to(mesh.device, non_blocking=non_blocking)
 
 
@@ -129,6 +132,7 @@ def gather_global(outputs, batch: Batch, mesh: Mesh):
     the model's outputs and the batch's ``video_ids`` and ``valid``,
     gathered over the data axis. Returns ``(outputs, batch)``; the batch
     holds only those two fields."""
+    mesh.check_process_mesh("the data-parallel step")
     outputs = dataclasses.replace(outputs, **{
         f.name: gather_rows(getattr(outputs, f.name), mesh)
         for f in dataclasses.fields(outputs)})
@@ -141,6 +145,7 @@ def gather_global(outputs, batch: Batch, mesh: Mesh):
 def all_reduce_gradients(grads: list[torch.Tensor], mesh: Mesh) -> None:
     """Sum the gradients over the data axis as one flat buffer, in
     place."""
+    mesh.check_process_mesh("all_reduce_gradients")
     if mesh.group is None or not grads:
         return
     flat = torch.cat([g.reshape(-1) for g in grads])

@@ -30,7 +30,21 @@ check bodies on card 0 alone and holds every rank to them:
 (c) K1 and K2 while all-reduces across the ranks are in flight: equal to a
     quiet run;
 (d) ``fit`` over the ranks: rank 0 alone writes, and every rank ends with
-    the same parameters and best rsum.
+    the same parameters and best rsum;
+(e) ``Retriever(mesh=)``, a shard a rank, over the gallery the model
+    encodes from the batches: below the size rule and held prepared, after
+    a build, a remove and a compaction, one card's scores within
+    RETRIEVER_ATOL (indices may differ only between rows so tied), and
+    the int8 form capturing at least CAPTURE_FLOOR of one card's exact
+    top-k.
+
+Then, in this one process, (f) the local mesh the sharded daemon serves
+from: a ``Retriever`` over the N cards (shard i on card i) against one on
+card 0 alone, exact and int8, over the TOPK_ROWS exact-arithmetic rows and
+TOPK_QUERIES queries: after a build, an add of APPEND_ROWS rows (the shards
+rebuilt), a remove of 1% and a compaction, the exact top-k equal to card
+0's, the int8 one capturing at least CAPTURE_FLOOR of it; the median ms of
+a request on each.
 
 Every join has a timeout and every rank a ``faulthandler`` watchdog that
 ends a hang with its stacks. Prints the cards' names and power limits,
@@ -61,6 +75,8 @@ TOPK_ROWS = 100_000
 TOPK_QUERIES = 1024
 BUSY_MIB = 256
 CAPTURE_FLOOR = 0.99
+RETRIEVER_ATOL = 1e-5  # f32 sums over other splits: a near tie's band
+APPEND_ROWS = 4096
 DP_TOL = dict(rtol=2e-4, atol=2e-5)
 LR = 2e-4  # Adam's first steps at 1e-3 turn near-zero gradients into
 # sign-sized moves, which the band above would not hold
@@ -169,13 +185,15 @@ def check(torch, np, inputs: dict, results: list, device) -> list[dict]:
     alone; one summary a rank. Raises on the first failed check."""
     from cmhse_tpu_torch.config import ExperimentConfig
     from cmhse_tpu_torch.parallel import make_mesh
-    from torch_dist_worker import _sharded_eval, _steps, eval_differences
+    from torch_dist_worker import (_retriever, _sharded_eval, _steps,
+                                   eval_differences)
 
     cfg = ExperimentConfig.from_json(inputs["cfg"])
     one = make_mesh(device=device)
     params, losses, single_ms = _steps(cfg, inputs["init"],
                                        inputs["batches"], one)
     want_eval = _sharded_eval(inputs, one)
+    want_retriever = _retriever(inputs, device)
     r0 = results[0]
     summaries = []
     for rank, r in enumerate(results):
@@ -222,11 +240,101 @@ def check(torch, np, inputs: dict, results: list, device) -> list[dict]:
             raise AssertionError(f"rank {rank}'s fit differs from rank 0's")
         out["fit"] = {"writes": len(fit["writes"]),
                       "best_rsum": fit["best_rsum"]}
+        out["retriever"] = retriever_check(np, rank, r["retriever"],
+                                           want_retriever)
         summaries.append(out)
     summaries.append({"one_device": {"losses": losses, "ms": single_ms,
                                      "ms_median": float(np.median(
                                          single_ms))}})
     return summaries
+
+
+def capture(np, exact_i, got_i) -> float:
+    """Share of the exact top-k's (query, row) pairs that ``got_i`` holds."""
+    exact_i, got_i = np.asarray(exact_i), np.asarray(got_i)
+    return float((got_i[:, :, None] == exact_i[:, None, :]).any(2).mean())
+
+
+def retriever_check(np, rank: int, got: dict, want: dict) -> dict:
+    """(e): a rank's ``_retriever`` results against one card's."""
+    if set(got) != set(want):
+        raise AssertionError(f"rank {rank}: retriever results "
+                             f"{sorted(set(got) ^ set(want))}")
+    out = {}
+    for key, (ws, wi) in want.items():
+        gs, gi = got[key]
+        if key.startswith("int8"):
+            continue
+        err = float(np.abs(gs - ws).max())
+        if not err <= RETRIEVER_ATOL:
+            raise AssertionError(f"rank {rank} retriever {key}: scores off "
+                                 f"by {err}")
+        out[key] = int((gi != wi).sum())
+    out["int8_capture"] = capture(np, want["prepared/build"][1],
+                                  got["int8/build"][1])
+    if out["int8_capture"] < CAPTURE_FLOOR:
+        raise AssertionError(f"rank {rank}: int8 retriever {out}")
+    return out
+
+
+def local_mesh_check(torch, np, inputs: dict, devices: list) -> dict:
+    """(f): the sharded Retriever over a local mesh of ``devices`` against
+    one on ``devices[0]`` alone, exact and int8."""
+    from cmhse_tpu_torch.eval.serve import Retriever
+    from cmhse_tpu_torch.parallel import make_mesh
+
+    dev = devices[0]
+    mesh = make_mesh(devices=devices)
+    g, q = inputs["g"].to(dev), inputs["q"].to(dev)
+    k = inputs["k"]
+    n = g.shape[0]
+    encoded = (g, g, inputs["gvalid"].to(dev), np.arange(n))
+    extra = g[:APPEND_ROWS].flip(1).contiguous()  # exact rows too
+    m = extra.shape[0]
+    added = (extra, extra, torch.ones(m, dtype=torch.bool, device=dev),
+             np.arange(n, n + m))
+    drop = np.random.RandomState(7).choice(n, n // 100, replace=False)
+    pairs = {quantize: (Retriever(None, quantize=quantize),
+                        Retriever(None, mesh=mesh, quantize=quantize))
+             for quantize in (False, True)}
+
+    def timed(r):
+        ms = []
+        for _ in range(5):
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            r._search(q, k)  # ends in a copy to the host
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(ms))
+
+    out = {"shards": len(devices)}
+    for stage in ("build", "add", "remove", "compact"):
+        for single, sharded in pairs.values():
+            for r in (single, sharded):
+                if stage == "build":
+                    r.build_gallery(encoded=encoded)
+                elif stage == "add":
+                    r.add_to_gallery(encoded=added)
+                elif stage == "remove":
+                    r.remove_from_gallery(drop.tolist())
+                else:
+                    r.compact()
+        (e1, es), (_, q8) = pairs[False], pairs[True]
+        _, want_i = e1._search(q, k)
+        got_s, got_i = es._search(q, k)
+        if not np.array_equal(got_i, want_i):
+            raise AssertionError(f"(f) {stage}: the sharded exact top-k "
+                                 "differs from one card's")
+        c = capture(np, want_i, q8._search(q, k)[1])
+        if c < CAPTURE_FLOOR:
+            raise AssertionError(f"(f) {stage}: int8 capture {c}")
+        out[stage] = {"int8_capture": c, "shard_rows":
+                      es._prepared_shard_rows}
+    out["ms"] = {name: timed(r) for name, r in (
+        ("exact one card", pairs[False][0]), ("exact sharded", pairs[False][1]),
+        ("int8 one card", pairs[True][0]), ("int8 sharded", pairs[True][1]))}
+    return out
 
 
 def main() -> int:
@@ -280,6 +388,13 @@ def main() -> int:
                                   weights_only=False) for r in range(world)]
             for line in check(torch, np, inputs, results, device):
                 print(json.dumps(line), flush=True)
+            from cmhse_tpu_torch.parallel import local_devices
+
+            t1 = time.perf_counter()
+            local = local_mesh_check(torch, np, inputs, local_devices(
+                "cpu" if args.cpu else "gpu", n=world))
+            local["seconds"] = time.perf_counter() - t1
+            print(json.dumps({"local_mesh": local}), flush=True)
             ok = True
     finally:
         shutil.rmtree(workdir, ignore_errors=True)

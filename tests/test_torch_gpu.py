@@ -210,6 +210,56 @@ def test_int8_topk_on_card_matches_cpu(cuda, q_rows, d):
         assert torch.equal(got.cpu(), want)
 
 
+@pytest.mark.parametrize("quantize", [False, True])
+def test_retriever_local_mesh_on_card_matches_one_device(cuda, quantize):
+    """``Retriever(mesh=)`` over a local mesh of 4 shards on cuda:0, held
+    prepared (40,000 rows, past the size rule), against the single-device
+    Retriever after a build, an add (the shards rebuilt), a remove and a
+    compaction. The rows lie on a 1/64 grid at D = 64, so every product is
+    exact in f32 whatever the split: the exact top-k equal, ties included;
+    the int8 one captures at least 0.99 of it."""
+    from cmhse_tpu_torch.eval.serve import Retriever
+    from cmhse_tpu_torch.parallel import make_mesh
+
+    rng = np.random.RandomState(12)
+
+    def rows(n):
+        return torch.from_numpy((np.round(rng.randn(n, 64) * 8) / 64.0)
+                                .astype(np.float32)).to(cuda)
+
+    n, extra = 40_000, 3_000
+    g, q = rows(n), rows(24)
+    valid = torch.from_numpy(rng.rand(n) > 0.05).to(cuda)
+    mesh = make_mesh(devices=[torch.device("cuda", 0)] * 4)
+    one = Retriever(None)
+    sharded = Retriever(None, mesh=mesh, quantize=quantize)
+    new = rows(extra)
+    drop = rng.choice(n, 400, replace=False).tolist()
+    for stage in ("build", "add", "remove", "compact"):
+        for r in (one, sharded):
+            if stage == "build":
+                r.build_gallery(encoded=(g, g, valid, np.arange(n)))
+            elif stage == "add":
+                r.add_to_gallery(encoded=(new, new, torch.ones(
+                    extra, dtype=torch.bool, device=cuda),
+                    np.arange(n, n + extra)))
+            elif stage == "remove":
+                assert r.remove_from_gallery(drop) == int(
+                    valid[drop].sum())
+            else:
+                r.compact()
+        assert len(sharded._prepared) == 4
+        assert all(p.chunks.device.type == "cuda" for p in sharded._prepared)
+        want_s, want_i = one._search(q, 10)
+        got_s, got_i = sharded._search(q, 10)
+        if quantize:
+            capture = (got_i[:, :, None] == want_i[:, None, :]).any(2).mean()
+            assert capture >= 0.99, (stage, capture)
+        else:
+            np.testing.assert_array_equal(got_i, want_i, err_msg=stage)
+            np.testing.assert_array_equal(got_s, want_s, err_msg=stage)
+
+
 # (B, T, H): rows not a multiple of 32; H = 1100 (a second pass of units);
 # steps at which every row is past its length
 VARIANT_SHAPES = [(8, 6, 16), (37, 9, 64), (9, 3, 1100), (24, 12, 256)]

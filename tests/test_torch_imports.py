@@ -68,6 +68,9 @@ PARALLEL_MODULES = ["cmhse_tpu_torch.parallel",
                     "cmhse_tpu_torch.parallel.train_dp",
                     "cmhse_tpu_torch.parallel.eval_sharded"]
 
+# the port's bench entry
+BENCH_MODULES = ["cmhse_tpu_torch.cli.bench"]
+
 ALONE = """
 import importlib, sys
 importlib.import_module(sys.argv[1])
@@ -79,10 +82,11 @@ print(sorted(m for m in sys.modules
 
 @pytest.mark.parametrize("module",
                          LOOP_MODULES + CHAIN_MODULES + SERVE_MODULES
-                         + PARALLEL_MODULES)
+                         + PARALLEL_MODULES + BENCH_MODULES)
 def test_training_loop_modules_import_alone_without_jax(module):
     """Each module of the training loop, the command-line chain, the
-    serving stack and the multi-GPU package, imported first and alone,
+    serving stack, the multi-GPU package and the bench entry, imported
+    first and alone,
     loads nothing of JAX or the JAX package (nor h5py, which only an h5
     dataset file needs)."""
     env = dict(os.environ, PYTHONPATH=ROOT)

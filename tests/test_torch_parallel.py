@@ -393,7 +393,7 @@ def test_sharded_prepared_topk_equals_jax(group, jax_mesh, quantize):
     prep, rows = prepare_sharded_topk_gallery(
         torch.from_numpy(g), mesh, valid=torch.from_numpy(valid),
         quantize=quantize)
-    assert rows == n
+    assert rows == n and len(prep) == 1  # this rank's one shard
     gs, gi = sharded_sim_topk_prepared(torch.from_numpy(q), prep, k, mesh,
                                        shard_rows=rows, quantized=quantize)
     np.testing.assert_array_equal(gi.numpy(), np.asarray(wi))
@@ -406,6 +406,7 @@ def test_sharded_prepared_requires_quantized_prep(group):
                          .astype(np.float32))
     mesh = make_mesh(device="cpu")
     prep, rows = prepare_sharded_topk_gallery(g, mesh)
+    assert mesh.local_shards() == [(0, mesh.device)] and len(prep) == 1
     with pytest.raises(ValueError, match="quantize=True"):
         sharded_sim_topk_prepared(torch.ones(2, 8), prep, 3, mesh,
                                   shard_rows=rows, quantized=True)

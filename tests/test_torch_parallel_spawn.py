@@ -10,6 +10,9 @@ since starting the processes is most of the cost:
 * the idle ``model`` axis, mesh (1, 2), against one rank;
 * sharded ranks, metrics and top-k (exact and int8 prepared) in both
   modes, dense and streaming, equal to one rank's exactly, ties included;
+* ``Retriever(mesh=)``, a shard a rank, below the size rule and held
+  prepared (exact and int8), after a build, a remove and a compaction:
+  the single process's indices, and its scores within rtol 1e-5;
 * ``fit`` over 2 ranks against 1 (``tests/test_multihost.py``'s
   two-process fit): losses within rtol 1e-5, rsum within 1e-6, one
   ``log.jsonl`` without duplicate records, rank 0 alone writing the
@@ -217,6 +220,14 @@ def test_sharded_eval_over_2_ranks_equals_one_rank(spawned):
         assert torch_dist_worker.eval_differences(r["eval"], want) == []
     masked = want["ranks_masked/query/False"]
     assert int(masked[7]) == int(spawned["inputs"]["valid"].sum())
+
+
+def test_retriever_mesh_over_2_ranks_equals_one_process(spawned):
+    want = torch_dist_worker._retriever(spawned["inputs"],
+                                        torch.device("cpu"))
+    for r in spawned["results"]:
+        assert torch_dist_worker.retriever_differences(
+            r["retriever"], want) == []
 
 
 def _read_log(run_dir):

@@ -7,7 +7,9 @@ port's daemon over a unix socket and TCP through both packages' clients
 (auth, max_connections, MAX_LINE_BYTES, the batch window, shutdown); the
 streaming-scale case (40,000 spliced rows, exact and int8) against the JAX
 daemon; ``main`` with ``--gallery_cache``; ``cli.retrieve --quantized`` and
-``--connect``. Every socket has a timeout and every thread is joined with
+``--connect``; ``build_context(sharded=True)`` (the port's local mesh of 8
+CPU shards against JAX's 8-device CPU mesh), ``main --sharded`` and
+``cli.retrieve --sharded`` against the JAX command. Every socket has a timeout and every thread is joined with
 one."""
 
 import collections
@@ -24,7 +26,8 @@ import numpy as np
 import pytest
 import torch
 
-from test_serve_daemon import _fixture_run
+from reference_layout import write_reference_dataset
+from test_serve_daemon import FEAT, VAL_KEYS, _fixture_run
 
 from cmhse_tpu.cli import serve_daemon as jax_daemon
 from cmhse_tpu.client import ServeClient as JaxClient
@@ -151,6 +154,74 @@ def test_request_script_matches_jax(run, tmp_path):
     _same_reply(jax_daemon._compact_online(jctx),
                 port_daemon._compact_online(pctx), "_compact_online")
     assert port_daemon._compact_online(pctx)["compacted"] == 0
+
+
+def _hit_keys(text: str) -> list:
+    """The keys of a retrieve command's printed hits, in order."""
+    return [line.split()[1] for line in text.splitlines()
+            if line.startswith("  ") and "score=" in line]
+
+
+def test_sharded_context_matches_jax(run, tmp_path, capsys):
+    """tests/test_serve_daemon.py::test_handler_sharded_context for both
+    daemons: a query, a remove before the text side's lazy build (which
+    must not bring it back), a video_key query, a live add from another
+    directory and queries that reach the added items both ways; the same
+    keys, scores within 1e-5. Then ``main --sharded`` over a socket, and
+    ``cli.retrieve --sharded`` against the JAX command's hits."""
+    jctx, pctx = _contexts(run, sharded=True, allow_any_path=True)
+    mesh = pctx["retriever"].mesh
+    assert mesh.is_local and mesh.data_size == 8
+    assert jctx["retriever"].mesh is not None
+
+    def both(req):
+        want = jax_daemon._handle_request(req, jctx)
+        got = port_daemon._handle_request(req, pctx)
+        _same_reply(want, got, req)
+        return got
+
+    r = both({"query": "a man runs", "k": 3})
+    assert len(r["results"]) == 3
+    assert {h["key"] for h in r["results"]} <= set(VAL_KEYS)
+    gone = r["results"][0]["key"]
+    assert both({"op": "remove", "keys": [gone]})["removed"] == 1
+    assert pctx["retriever_text"] is None
+    v2p = both({"video_key": VAL_KEYS[1], "k": 7})
+    assert gone not in {h["key"] for h in v2p["results"]}
+    assert pctx["retriever_text"].mesh is mesh
+    live = tmp_path / "live"
+    write_reference_dataset(str(live), feat_dim=FEAT, seed=11,
+                            splits=[("live", 3)])
+    assert both({"op": "add", "split": "live",
+                 "data_path": str(live)})["added"] == 3
+    hits = both({"query": "a man runs", "k": 10})["results"]
+    assert any(h["key"].startswith("v_live") for h in hits)
+    assert len(both({"video_key": "v_live000", "k": 3})["results"]) == 3
+    both({"op": "compact"})
+    both({"query": ["a man runs", "a dog jumps in the park"], "k": 5})
+
+    root, ckpt, port = run
+    sock = str(tmp_path / "sh.sock")
+    t, c, out = _start_main([port, "--socket", sock, "--data_path", root,
+                             "--platform", "cpu", "--sharded"], sock)
+    with c:
+        want = jax_daemon._handle_request(
+            {"query": "a man runs", "k": 3},
+            jax_daemon.build_context(ckpt, root, "val"))
+        assert [h["key"] for h in c.query("a man runs", k=3)] == \
+            [h["key"] for h in want["results"]]
+        _stop(c, t)
+    assert out["rc"] == 0
+
+    from cmhse_tpu.cli import retrieve as jax_retrieve
+
+    tail = ["--data_path", root, "--query", "a man runs", "--query_video",
+            "v_val002", "-k", "4", "--platform", "cpu", "--sharded"]
+    capsys.readouterr()
+    assert jax_retrieve.main([ckpt] + tail) in (0, None)
+    want = _hit_keys(capsys.readouterr().out)
+    assert port_retrieve.main([port] + tail) == 0
+    assert _hit_keys(capsys.readouterr().out) == want and len(want) == 8
 
 
 def _serve(ctx, **kw):

@@ -81,6 +81,57 @@ def _sharded_eval(inp, mesh):
     return _to_cpu(out)
 
 
+def _retriever(inp, device, mesh=None):
+    """``Retriever(mesh=)`` (``mesh`` None: ``device`` alone) over the gallery
+    the model encodes from the parent's batches: below the size rule, and
+    held prepared exact and int8 (the rule forced), each answering the
+    first batch's text queries after the build, a remove of the first
+    query's top row and a compaction: ``{form/stage: (scores, idx)}``."""
+    from cmhse_tpu_torch.config import ExperimentConfig
+    from cmhse_tpu_torch.data import Batch
+    from cmhse_tpu_torch.eval import serve
+    from cmhse_tpu_torch.eval.encode import encode_gallery_device
+    from cmhse_tpu_torch.models import CMHSE
+
+    cfg = ExperimentConfig.from_json(inp["cfg"])
+    model = CMHSE(cfg.model, cfg.data.vocab_size, device=device)
+    model.load_state_dict(inp["init"])
+    batches = [Batch(**b) for b in inp["batches"]]
+    encoded = encode_gallery_device(model, batches, return_ids=True)
+    b0 = batches[0]
+    queries = (b0.words, b0.word_len, b0.sent_len)
+    rule = serve.should_prepare_topk
+    out = {}
+    try:
+        for form, prepared, quantize in (("sharded", False, False),
+                                         ("prepared", True, False),
+                                         ("int8", True, True)):
+            serve.should_prepare_topk = lambda n, p=prepared: p
+            r = serve.Retriever(model, mesh=mesh, quantize=quantize)
+            r.build_gallery(encoded=encoded)
+            out[f"{form}/build"] = r.retrieve(*queries, k=inp["k"])
+            r.remove_from_gallery([r.gallery_keys[int(
+                out[f"{form}/build"][1][0, 0])]])
+            out[f"{form}/remove"] = r.retrieve(*queries, k=inp["k"])
+            r.compact()
+            out[f"{form}/compact"] = r.retrieve(*queries, k=inp["k"])
+    finally:
+        serve.should_prepare_topk = rule
+    return out
+
+
+def retriever_differences(got: dict, want: dict) -> list[str]:
+    """The keys of two ``_retriever`` results that differ: indices
+    exactly, scores within rtol 1e-5 / atol 1e-6."""
+    import numpy as np
+
+    if set(got) != set(want):
+        return sorted(set(got) ^ set(want))
+    return [key for key, (ws, wi) in want.items()
+            if not (np.array_equal(got[key][1], wi)
+                    and np.allclose(got[key][0], ws, rtol=1e-5, atol=1e-6))]
+
+
 def _to_cpu(x):
     if isinstance(x, dict):
         return {k: _to_cpu(v) for k, v in x.items()}
@@ -213,6 +264,7 @@ def run(rank: int, world: int, workdir: str, backend: str = "gloo",
         mesh = make_mesh((-1,), ("data",), device=device)
         out["dp"] = _steps(cfg, inp["init"], inp["batches"], mesh)
         out["eval"] = _sharded_eval(inp, mesh)
+        out["retriever"] = _retriever(inp, device, mesh)
         out["busy"] = _busy(inp, mesh)
         idle = make_mesh((1, world), ("data", "model"), device=device)
         out["idle"] = _steps(cfg, inp["init"], inp["batches"], idle)
