@@ -17,8 +17,9 @@ Phases (any failure raises and the script exits non-zero):
      2d. the same three ``gru_fwd`` variants and ``gru_bwd`` (with and
      without h0) in bf16 at the same shapes, against their plain versions
      in bf16, with cuDNN's GRU in bf16 as the yardstick; 2e. both kernels
-     at H = 2,048 (past every resident W_h limit: the streamed variants),
-     f32 and bf16, and at H = 30 (padded to 32), at video_low's lengths;
+     (``gru_fwd`` in its encode and ``save_gates`` variants) at H = 2,048
+     (past every resident W_h limit: the streamed variants), f32 and bf16,
+     and at H = 30 (padded to 32), at video_low's lengths;
   3. the ``rankcount`` kernel against its plain version (counts exact) at
      Q=1024, N=100,000, D=1024 and at the main path's shape, with times;
      3b. the streaming top-k (plain torch ops) against the dense one at
@@ -2950,10 +2951,12 @@ NCCL_WATCHDOG_S = 300  # a hang in phase 9 ends the script with stacks
 
 
 def phase_gru_any_h(torch, rng, lengths_np, t: int, d: int) -> dict:
-    """2e: K1 and K2 at H = STREAM_H (past every resident W_h limit: the
-    streamed variants), f32 and bf16, and at H = PAD_H (padded), f32, at
-    video_low's lengths, each against its plain version, with times,
-    bounds and cuDNN's GRU. Returns rows by (kernel, dtype, H)."""
+    """2e: K1 (encode and save_gates) and K2 at H = STREAM_H (past every
+    resident W_h limit: the streamed variants), f32 and bf16, and at
+    H = PAD_H (padded), f32, at video_low's lengths, each against its plain
+    version, with times, bounds and cuDNN's GRU (its training forward
+    beside save_gates). Returns rows by (kernel, dtype, H), the kernel
+    "gru_fwd", "gru_fwd save_gates" or "gru_bwd"."""
     from cmhse_tpu_torch.models.gru import gru_input_projection
     from cmhse_tpu_torch.ops import cuda_lib
     from cmhse_tpu_torch.ops import gru_kernel as gk
@@ -2962,12 +2965,14 @@ def phase_gru_any_h(torch, rng, lengths_np, t: int, d: int) -> dict:
     rows = {}
     b = lengths_np.shape[0]
     lengths = torch.from_numpy(lengths_np).to(dev)
+    live_mask = torch.arange(t, device=dev)[None, :] < lengths[:, None]
     live = int(lengths_np.clip(0, t).sum())
     label = f"video_low {b}x{t} D={d}"
     for h, name in ((STREAM_H, "float32"), (STREAM_H, "bfloat16"),
                     (PAD_H, "float32")):
         dt = getattr(torch, name)
         bf16 = dt == torch.bfloat16
+        tol = BF16_ATOL if bf16 else GRU_ATOL
         streamed = h > gk.fwd_max_hidden(dt)
         x, w_i, w_h, b_i, b_h = gru_inputs(torch, rng, b, t, d, h)
         gen = card_generator(torch, rng)
@@ -2976,40 +2981,50 @@ def phase_gru_any_h(torch, rng, lengths_np, t: int, d: int) -> dict:
         with torch.no_grad():
             xw = gru_input_projection(x.to(dt), w_i, b_i).contiguous()
             w_hc = w_h.to(dt)
-            before = cuda_lib.launch_count(
-                "gru_fwd", name, "encode+streamed" if streamed else "encode")
-            outs, final = gk.gru_forward(xw, w_hc, b_h, lengths)
-            want = gk.gru_recurrence_plain(xw, w_hc, b_h, lengths)
-            torch.cuda.synchronize()
-            if cuda_lib.launch_count("gru_fwd", name, "encode+streamed"
-                                     if streamed else "encode") != before + 1:
-                raise AssertionError(f"gru_fwd {shape}: not the expected "
-                                     "variant")
-            err = max((outs.float() - want[0].float()).abs().max().item(),
-                      (final.float() - want[1].float()).abs().max().item())
-            tol = BF16_ATOL if bf16 else GRU_ATOL
-            if not err <= tol:
-                raise AssertionError(f"gru_fwd {name} {shape}: max abs err "
-                                     f"{err} > {tol}")
-            ms = cuda_ms(lambda: gk.gru_forward(xw, w_hc, b_h, lengths),
-                         reps=5)
-            plain = cuda_ms(lambda: gk.gru_recurrence_plain(
-                xw, w_hc, b_h, lengths), reps=2, warmup=1)
-            library = library_gru_ms(torch, x, lengths_np, w_i, w_h, b_i,
-                                     b_h, final,
-                                     dtype=dt if bf16 else None)
-            bms, by = gru_bounds(b, t, h, live, bf16=bf16)
-            rows[("gru_fwd", name, h)] = dict(
-                shape=shape, max_abs_err=err, ms=ms, plain_ms=plain,
-                bound_ms=bms, bound_by=by, library_ms=library)
-            log(f"  2e gru_fwd {name} {shape}: err {err:.3g}  kernel "
-                f"{ms:.4f} ms  plain {plain:.4f} ms  cuDNN "
-                f"{'refused' if library is None else f'{library:.4f} ms'}  "
-                f"bound {bms:.4f} ms ({by})")
-            del outs, final, want
-
-            outs, final, gates = gk.gru_forward(xw, w_hc, b_h, lengths,
-                                                save_gates=True)
+            for save in (False, True):
+                variant = (("save_gates" if save else "encode")
+                           + ("+streamed" if streamed else ""))
+                before = cuda_lib.launch_count("gru_fwd", name, variant)
+                got = gk.gru_forward(xw, w_hc, b_h, lengths, save_gates=save)
+                want = gk.gru_recurrence_plain(xw, w_hc, b_h, lengths,
+                                               save_gates=save)
+                torch.cuda.synchronize()
+                if cuda_lib.launch_count("gru_fwd", name,
+                                         variant) != before + 1:
+                    raise AssertionError(f"gru_fwd {shape}: not the "
+                                         f"expected variant ({variant})")
+                errs = [(got[0].float() - want[0].float()).abs().max().item(),
+                        (got[1].float() - want[1].float()).abs().max().item()]
+                if save and live:
+                    errs.append((got[2][live_mask].float()
+                                 - want[2][live_mask].float()).abs().max()
+                                .item())
+                err = max(errs)
+                what = "gru_fwd save_gates" if save else "gru_fwd"
+                if not err <= tol:
+                    raise AssertionError(f"{what} {name} {shape}: max abs "
+                                         f"err {err} > {tol}")
+                ms = cuda_ms(lambda: gk.gru_forward(xw, w_hc, b_h, lengths,
+                                                    save_gates=save), reps=5)
+                plain = cuda_ms(lambda: gk.gru_recurrence_plain(
+                    xw, w_hc, b_h, lengths, save_gates=save), reps=2,
+                    warmup=1)
+                library = library_gru_ms(torch, x, lengths_np, w_i, w_h, b_i,
+                                         b_h, got[1],
+                                         mode="train" if save else
+                                         "inference",
+                                         dtype=dt if bf16 else None)
+                bms, by = gru_bounds(b, t, h, live, gates=save, bf16=bf16)
+                rows[(what, name, h)] = dict(
+                    shape=shape, max_abs_err=err, ms=ms, plain_ms=plain,
+                    bound_ms=bms, bound_by=by, library_ms=library)
+                log(f"  2e {what} {name} {shape}: err {err:.3g}  kernel "
+                    f"{ms:.4f} ms  plain {plain:.4f} ms  cuDNN"
+                    f"{' train fwd' if save else ''} "
+                    f"{'refused' if library is None else f'{library:.4f} ms'}"
+                    f"  bound {bms:.4f} ms ({by})")
+                del want
+            outs, final, gates = got
             douts = torch.randn(b, t, h, device=dev, generator=gen).to(dt)
             dfinal = torch.randn(b, h, device=dev, generator=gen).to(dt)
             got = gk.gru_backward(gates, outs, lengths, w_hc, douts, dfinal)
@@ -3842,17 +3857,25 @@ def main() -> int:
         return sum(n for k, n in ncounts.items()
                    if k.startswith(prefix) and not k.endswith("+streamed"))
 
-    def streamed(row_key, name, kernel, dtype):
-        return entry(name, f"{kernel}.cu", k1 if kernel == "gru_fwd" else k2,
+    def streamed(row_key, name, kernel, dtype, only=None):
+        """An entry of a streamed variant: its launches in 9f, of every
+        variant of the kernel or only of ``only``."""
+        source = "gru_fwd_streamed.cu" if kernel == "gru_fwd" else \
+            f"{kernel}.cu"
+        return entry(name, source, k1 if kernel == "gru_fwd" else k2,
                      [any_h[row_key]], "nccl (9f)",
                      sum(n for k, n in ncounts.items()
                          if k.startswith(f"{kernel} {dtype}")
-                         and k.endswith("+streamed")),
-                     variant=f"streamed W_h (H > {kernel}'s resident limit)")
+                         and k.endswith("+streamed")
+                         and only in (None, k.split()[-1])),
+                     variant=f"streamed W_h (H > {kernel}'s resident limit)"
+                     + (f", {only}" if only else ""))
 
     entries = [
         entry("gru_fwd", "gru_fwd.cu", k1,
-              gru_rows + fwd_rows + [any_h[("gru_fwd", "float32", PAD_H)]],
+              gru_rows + fwd_rows + [any_h[("gru_fwd", "float32", PAD_H)],
+                                     any_h[("gru_fwd save_gates", "float32",
+                                            PAD_H)]],
               "serve+train+fit+cli+daemon+nccl+sharded+bench",
               total(counts, "gru_fwd float32")
               + total(tcounts, "gru_fwd float32")
@@ -3934,6 +3957,12 @@ def main() -> int:
                  "gru_fwd", "float32"),
         streamed(("gru_fwd", "bfloat16", STREAM_H), "gru_fwd bf16 streamed",
                  "gru_fwd", "bfloat16"),
+        streamed(("gru_fwd save_gates", "float32", STREAM_H),
+                 "gru_fwd streamed save_gates", "gru_fwd", "float32",
+                 only="save_gates+streamed"),
+        streamed(("gru_fwd save_gates", "bfloat16", STREAM_H),
+                 "gru_fwd bf16 streamed save_gates", "gru_fwd", "bfloat16",
+                 only="save_gates+streamed"),
         streamed(("gru_bwd", "float32", STREAM_H), "gru_bwd streamed",
                  "gru_bwd", "float32"),
         streamed(("gru_bwd", "bfloat16", STREAM_H), "gru_bwd bf16 streamed",

@@ -1,5 +1,6 @@
-// Device helpers shared by the two cooperative GRU kernels (gru_fwd.cu,
-// gru_bwd.cu): the unit split, element conversions, the shared-memory row
+// Device helpers shared by the cooperative GRU kernels (gru_fwd.cu,
+// gru_fwd_streamed.cu, gru_bwd.cu): the unit split, element conversions,
+// the gates' sigmoid, the shared-memory row
 // stride of a W_h slice, L2-only staging by cp.async, the bf16 tensor-core
 // product (ldmatrix, mma.sync), and the cooperative launch with its
 // co-residency check.
@@ -46,6 +47,10 @@ __device__ __forceinline__ E from_f(float x) {
     return x;
   else
     return __float2bfloat16_rn(x);
+}
+
+__device__ __forceinline__ float sigmoid_f(float x) {
+  return 1.0f / (1.0f + expf(-x));
 }
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {

@@ -63,18 +63,10 @@
 //   values is exact in f32, so the result is the plain version's up to
 //   summation order.
 //
-// The streamed variant (kStream, past fwd_max_hidden): a block's slice of
-// W_h no longer fits in shared memory, so the block writes it once, in the
-// same [3U + pad][WS] layout, to its own part of a global scratch the
-// wrapper allocates, and the product reads it from there every step
-// (through L1/L2; from HBM once the whole W_h outgrows the 50 MB L2, near
-// H = 2,048 in f32). Only the staging buffers stay in shared memory. bf16
-// B fragments are then loaded as 32-bit words from the scratch (ldmatrix
-// reads shared memory only). The arithmetic and its order are the resident
-// variant's, so the two agree bit for bit where both run. Its
-// instantiations are compiled in a translation unit of their own,
-// gru_fwd_streamed.cu (this file under GRU_FWD_STREAMED_UNIT), which the
-// build compiles beside this one.
+// Past fwd_max_hidden a block's slice of W_h no longer fits in shared
+// memory: gru_fwd_streamed.cu's kernel takes that H (W_h staged slab by
+// slab beside the state, one sweep of the state a step, live rows only),
+// with this kernel's arithmetic in its order.
 //
 // What bounds it on an H100 (video_low, 512 rows x 64 steps, H = 1024;
 // PERF.md): the product. In f32, 512 x 1024 x 24 FMAs a block a step run
@@ -106,6 +98,7 @@ using gru::kThreads;
 using gru::ldmatrix_x2;
 using gru::ldmatrix_x4;
 using gru::mma_bf16;
+using gru::sigmoid_f;
 using gru::to_f;
 using gru::units_per_block;
 using gru::w_stride;
@@ -151,20 +144,11 @@ __host__ __device__ size_t slice_elems(int H, int U) {
   return (size_t)(3 * U + Layout<E>::kPadRows) * w_stride<E>(H);
 }
 
-// the staging buffers, and the W_h slice unless it is streamed
+// the staging buffers and the W_h slice
 template <typename E>
-size_t smem_bytes(int H, int U, bool stream) {
+size_t smem_bytes(int H, int U) {
   return Layout<E>::kStages * (size_t)stage_bytes<E>() +
-         (stream ? 0 : slice_elems<E>(H, U) * sizeof(E));
-}
-
-template <typename E>
-size_t resident_smem_bytes(int H, int U) {
-  return smem_bytes<E>(H, U, false);
-}
-
-__device__ __forceinline__ float sigmoid_f(float x) {
-  return 1.0f / (1.0f + expf(-x));
+         slice_elems<E>(H, U) * sizeof(E);
 }
 
 // bf16: one slab of the chunk's state rows into registers: thread t loads
@@ -289,10 +273,7 @@ __device__ __forceinline__ void product_f32(
 // the staged slab s times the n-tile of gate g (the pass's 8 units), 64
 // bf16 depths in four k16 steps. a_row / a_k and b_base are the lane's
 // ldmatrix addresses: A (x4) row lane % 16 of the m-tile at depth
-// 8 (lane / 16); B (x2) unit lane % 8 at depth 8 ((lane / 8) % 2). With
-// kStream the slice lies in global memory and b_base is the lane's own
-// fragment: unit lane / 4 at depth 2 (lane % 4), two 32-bit loads a tile.
-template <bool kStream>
+// 8 (lane / 16); B (x2) unit lane % 8 at depth 8 ((lane / 8) % 2).
 __device__ __forceinline__ void mma_slab(float (&c)[2][3][4],
                                          const unsigned char* buf, int a_row,
                                          int a_k,
@@ -309,13 +290,7 @@ __device__ __forceinline__ void mma_slab(float (&c)[2][3][4],
 #pragma unroll
     for (int g = 0; g < 3; ++g) {
       unsigned b[2];
-      const __nv_bfloat16* bp = b_base + g * gate_stride + k0 + 16 * kk;
-      if constexpr (kStream) {
-        b[0] = *reinterpret_cast<const unsigned*>(bp);
-        b[1] = *reinterpret_cast<const unsigned*>(bp + 8);
-      } else {
-        ldmatrix_x2(b, bp);
-      }
+      ldmatrix_x2(b, b_base + g * gate_stride + k0 + 16 * kk);
 #pragma unroll
       for (int mt = 0; mt < 2; ++mt) mma_bf16(c[mt][g], a[mt], b);
     }
@@ -344,9 +319,8 @@ __device__ __forceinline__ void stage_bf16(unsigned char* buf,
 // The bf16 product over a chunk: c[mt][g] as mma_slab says, over all
 // slabs. With kAsync (H a multiple of 8) the slabs come by cp.async
 // through a ring of three buffers, two slabs in flight and one barrier a
-// slab; otherwise through registers and two buffers. kStream: the W_h
-// slice lies in global memory (see mma_slab).
-template <bool kAsync, bool kStream>
+// slab; otherwise through registers and two buffers.
+template <bool kAsync>
 __device__ __forceinline__ void product_bf16(
     float (&c)[2][3][4], unsigned char* stage, const __nv_bfloat16* ws,
     int WS, int U, int p0, const __nv_bfloat16* __restrict__ src,
@@ -359,8 +333,7 @@ __device__ __forceinline__ void product_bf16(
   const int a_row = warp * 32 + (lane % 8) + 8 * ((lane / 8) % 2);
   const int a_k = 8 * (lane / 16);
   const __nv_bfloat16* b_base =
-      kStream ? ws + (size_t)(p0 + lane / 4) * WS + 2 * (lane % 4)
-              : ws + (size_t)(p0 + lane % 8) * WS + 8 * ((lane / 8) % 2);
+      ws + (size_t)(p0 + lane % 8) * WS + 8 * ((lane / 8) % 2);
   const size_t gate_stride = (size_t)U * WS;
   if constexpr (kAsync) {
     // the previous product ended at a barrier: every buffer is free
@@ -379,8 +352,8 @@ __device__ __forceinline__ void product_bf16(
         stage_bf16(stage + ((s + 2) % 3) * kStage, src, row_stride, rows,
                    (s + 2) * kK, H, tid);
       if (active)
-        mma_slab<kStream>(c, stage + (s % 3) * kStage, a_row, a_k, b_base,
-                          gate_stride, s * kK);
+        mma_slab(c, stage + (s % 3) * kStage, a_row, a_k, b_base,
+                 gate_stride, s * kK);
     }
     __syncthreads();  // every thread is done with the last slabs
   } else {
@@ -393,8 +366,8 @@ __device__ __forceinline__ void product_bf16(
       if (s + 1 < n_slabs)
         load_state(next, src, row_stride, rows, (s + 1) * kK, H, tid);
       if (active)
-        mma_slab<kStream>(c, stage + (s % 2) * kStage, a_row, a_k, b_base,
-                          gate_stride, s * kK);
+        mma_slab(c, stage + (s % 2) * kStage, a_row, a_k, b_base,
+                 gate_stride, s * kK);
       if (s + 1 < n_slabs)  // the other buffer's last reads ended at a barrier
         store_state(stage + ((s + 1) % 2) * kStage, next, tid);
       __syncthreads();
@@ -402,7 +375,7 @@ __device__ __forceinline__ void product_bf16(
   }
 }
 
-template <typename E, bool kSaveGates, bool kWithH0, bool kStream>
+template <typename E, bool kSaveGates, bool kWithH0>
 __global__ void __launch_bounds__(kThreads, 1)
 gru_fwd_kernel(const E* __restrict__ xw,            // [B, T, 3H]
                const E* __restrict__ w_h,           // [H, 3H]
@@ -413,19 +386,13 @@ gru_fwd_kernel(const E* __restrict__ xw,            // [B, T, 3H]
                E* __restrict__ final_h,             // [B, H]
                E* __restrict__ gates,               // [B, T, 4H] (kSaveGates)
                float* __restrict__ carry,           // [B, H] f32 (bf16 only)
-               E* w_scratch,  // kStream: [grid][3U + pad][WS]
                int B, int T, int H, int U) {
   constexpr bool kLowp = std::is_same<E, __nv_bfloat16>::value;
   extern __shared__ __align__(16) unsigned char smem[];
   using L = Layout<E>;
   unsigned char* stage = smem;  // [kStages][L::kChunkRows][L::kRowBytes]
-  // the block's [3U + pad][WS] slice: after the staging buffers, or its
-  // own part of the global scratch (written and read by this block only)
-  E* ws;
-  if constexpr (kStream)
-    ws = w_scratch + blockIdx.x * slice_elems<E>(H, U);
-  else
-    ws = reinterpret_cast<E*>(smem + L::kStages * stage_bytes<E>());
+  // the block's [3U + pad][WS] slice, after the staging buffers
+  E* ws = reinterpret_cast<E*>(smem + L::kStages * stage_bytes<E>());
   const int WS = w_stride<E>(H);
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int u0 = blockIdx.x * U;
@@ -501,11 +468,11 @@ gru_fwd_kernel(const E* __restrict__ xw,            // [B, T, 3H]
           if (product) {
             const __nv_bfloat16* s0 = src + (size_t)c0 * src_stride;
             if (H % 8 == 0)
-              product_bf16<true, kStream>(c, stage, ws, WS, U, p0, s0,
-                                          src_stride, rows, H, tid);
+              product_bf16<true>(c, stage, ws, WS, U, p0, s0, src_stride,
+                                 rows, H, tid);
             else
-              product_bf16<false, kStream>(c, stage, ws, WS, U, p0, s0,
-                                           src_stride, rows, H, tid);
+              product_bf16<false>(c, stage, ws, WS, U, p0, s0, src_stride,
+                                  rows, H, tid);
           }
           // C fragment: c[.][.][2 h + e] is row lane / 4 + 8 h, column
           // 2 (lane % 4) + e of the 16 x 8 tile
@@ -566,11 +533,11 @@ gru_fwd_kernel(const E* __restrict__ xw,            // [B, T, 3H]
   }
 }
 
-template <typename E, bool kSaveGates, bool kWithH0, bool kStream>
+template <typename E, bool kSaveGates, bool kWithH0>
 int launch_gru_fwd(const void* xw, const void* w_h, const float* b_h,
                    const int32_t* lengths, const void* h0, void* outs,
-                   void* final_h, void* gates, float* carry, void* scratch,
-                   int B, int T, int H, cudaStream_t stream) {
+                   void* final_h, void* gates, float* carry, int B, int T,
+                   int H, cudaStream_t stream) {
   const int sms = gru::device_sms();
   if (sms == 0) return (int)cudaErrorInvalidDevice;
   int U = units_per_block(H, sms);
@@ -581,118 +548,67 @@ int launch_gru_fwd(const void* xw, const void* w_h, const float* b_h,
   E* outs_e = static_cast<E*>(outs);
   E* final_e = static_cast<E*>(final_h);
   E* gates_e = static_cast<E*>(gates);
-  E* scratch_e = static_cast<E*>(scratch);
   void* args[] = {(void*)&xw_e,    (void*)&w_e,     (void*)&b_h,
                   (void*)&lengths, (void*)&h0_e,    (void*)&outs_e,
                   (void*)&final_e, (void*)&gates_e, (void*)&carry,
-                  (void*)&scratch_e, (void*)&B,     (void*)&T,
-                  (void*)&H,       (void*)&U};
-  return gru::launch_cooperative(
-      gru_fwd_kernel<E, kSaveGates, kWithH0, kStream>, grid,
-      smem_bytes<E>(H, U, kStream), args, stream);
+                  (void*)&B,       (void*)&T,       (void*)&H,
+                  (void*)&U};
+  return gru::launch_cooperative(gru_fwd_kernel<E, kSaveGates, kWithH0>,
+                                 grid, smem_bytes<E>(H, U), args, stream);
 }
 
-template <typename E, bool kStream>
+template <typename E>
 int dispatch_gru_fwd(const void* xw, const void* w_h, const float* b_h,
                      const int32_t* lengths, const void* h0, void* outs,
-                     void* final_h, void* gates, float* carry, void* scratch,
-                     int B, int T, int H, cudaStream_t s) {
+                     void* final_h, void* gates, float* carry, int B, int T,
+                     int H, cudaStream_t s) {
   if (gates != nullptr && h0 != nullptr)
-    return launch_gru_fwd<E, true, true, kStream>(
-        xw, w_h, b_h, lengths, h0, outs, final_h, gates, carry, scratch, B,
-        T, H, s);
+    return launch_gru_fwd<E, true, true>(xw, w_h, b_h, lengths, h0, outs,
+                                         final_h, gates, carry, B, T, H, s);
   if (gates != nullptr)
-    return launch_gru_fwd<E, true, false, kStream>(
-        xw, w_h, b_h, lengths, h0, outs, final_h, gates, carry, scratch, B,
-        T, H, s);
+    return launch_gru_fwd<E, true, false>(xw, w_h, b_h, lengths, h0, outs,
+                                          final_h, gates, carry, B, T, H, s);
   if (h0 != nullptr)
-    return launch_gru_fwd<E, false, true, kStream>(
-        xw, w_h, b_h, lengths, h0, outs, final_h, gates, carry, scratch, B,
-        T, H, s);
-  return launch_gru_fwd<E, false, false, kStream>(
-      xw, w_h, b_h, lengths, h0, outs, final_h, gates, carry, scratch, B, T,
-      H, s);
-}
-
-// the streamed variant's global scratch: every block's W_h slice
-template <typename E>
-size_t scratch_bytes(int H) {
-  const int sms = gru::device_sms();
-  if (sms == 0) return 0;
-  const int U = units_per_block(H, sms);
-  return (size_t)((H + U - 1) / U) * slice_elems<E>(H, U) * sizeof(E);
+    return launch_gru_fwd<E, false, true>(xw, w_h, b_h, lengths, h0, outs,
+                                          final_h, gates, carry, B, T, H, s);
+  return launch_gru_fwd<E, false, false>(xw, w_h, b_h, lengths, h0, outs,
+                                         final_h, gates, carry, B, T, H, s);
 }
 
 }  // namespace
 
-// The streamed variant's dispatch, defined by gru_fwd_streamed.cu.
-int gru_fwd_streamed(const void* xw, const void* w_h, const float* b_h,
-                     const int32_t* lengths, const void* h0, void* outs,
-                     void* final_h, void* gates, float* carry, void* scratch,
-                     int B, int T, int H, int bf16, cudaStream_t s);
-
-#ifdef GRU_FWD_STREAMED_UNIT
-
-int gru_fwd_streamed(const void* xw, const void* w_h, const float* b_h,
-                     const int32_t* lengths, const void* h0, void* outs,
-                     void* final_h, void* gates, float* carry, void* scratch,
-                     int B, int T, int H, int bf16, cudaStream_t s) {
-  if (bf16)
-    return dispatch_gru_fwd<__nv_bfloat16, true>(
-        xw, w_h, b_h, lengths, h0, outs, final_h, gates, carry, scratch, B,
-        T, H, s);
-  return dispatch_gru_fwd<float, true>(xw, w_h, b_h, lengths, h0, outs,
-                                       final_h, gates, carry, scratch, B, T,
-                                       H, s);
-}
-
-#else
-
-// H must be a multiple of 4 and every pointer 8-byte aligned (the wrapper
-// checks both). xw, w_h, h0, outs, final and gates are f32, or bf16 when
-// bf16 != 0; b_h is f32 either way; carry is an f32 [B, H] scratch in bf16
-// (null in f32). h0 (the seeded variant) and gates (the gate-saving
-// variant) may each be null; the instantiation is chosen by the element
-// type and by which are given. w_scratch null: the resident variant, H up
-// to cmhse_gru_fwd_max_hidden(bf16); otherwise the streamed one, any H,
-// w_scratch holding cmhse_gru_fwd_scratch_bytes(H, bf16) bytes.
+// H must be a multiple of 4, at most cmhse_gru_fwd_max_hidden(bf16) (past
+// it, gru_fwd_streamed.cu's cmhse_gru_fwd_streamed), and every pointer
+// 8-byte aligned (the wrapper checks both). xw, w_h, h0, outs, final and
+// gates are f32, or bf16 when bf16 != 0; b_h is f32 either way; carry is
+// an f32 [B, H] scratch in bf16 (null in f32). h0 (the seeded variant) and
+// gates (the gate-saving variant) may each be null; the instantiation is
+// chosen by the element type and by which are given.
 extern "C" int cmhse_gru_fwd(const void* xw, const void* w_h,
                              const float* b_h, const int32_t* lengths,
                              const void* h0, void* outs, void* final_h,
-                             void* gates, void* carry, void* w_scratch, int B,
-                             int T, int H, int bf16, void* stream) {
+                             void* gates, void* carry, int B, int T, int H,
+                             int bf16, void* stream) {
   if (B <= 0 || T <= 0 || H <= 0 || H % 4 != 0 ||
       (bf16 != 0) != (carry != nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   float* c = static_cast<float*>(carry);
-  if (w_scratch != nullptr)
-    return gru_fwd_streamed(xw, w_h, b_h, lengths, h0, outs, final_h, gates,
-                            c, w_scratch, B, T, H, bf16, s);
   if (bf16)
-    return dispatch_gru_fwd<__nv_bfloat16, false>(
-        xw, w_h, b_h, lengths, h0, outs, final_h, gates, c, w_scratch, B, T,
-        H, s);
-  return dispatch_gru_fwd<float, false>(xw, w_h, b_h, lengths, h0, outs,
-                                        final_h, gates, c, w_scratch, B, T, H,
-                                        s);
+    return dispatch_gru_fwd<__nv_bfloat16>(xw, w_h, b_h, lengths, h0, outs,
+                                           final_h, gates, c, B, T, H, s);
+  return dispatch_gru_fwd<float>(xw, w_h, b_h, lengths, h0, outs, final_h,
+                                 gates, c, B, T, H, s);
 }
 
 // Largest H the resident variant takes on the current device: the block's
 // W_h slice and the staging buffers must fit in one block's shared memory.
 extern "C" int cmhse_gru_fwd_max_hidden(int bf16) {
-  return bf16 ? gru::max_hidden(resident_smem_bytes<__nv_bfloat16>)
-              : gru::max_hidden(resident_smem_bytes<float>);
-}
-
-// Bytes of the streamed variant's W_h scratch at H (0 on error).
-extern "C" size_t cmhse_gru_fwd_scratch_bytes(int H, int bf16) {
-  return bf16 ? scratch_bytes<__nv_bfloat16>(H) : scratch_bytes<float>(H);
+  return bf16 ? gru::max_hidden(smem_bytes<__nv_bfloat16>)
+              : gru::max_hidden(smem_bytes<float>);
 }
 
 // Message for an error code returned by any launcher of this library.
 extern "C" const char* cmhse_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
-
-#endif  // GRU_FWD_STREAMED_UNIT

@@ -35,18 +35,20 @@ LIB_NAME = "libcmhse_kernels.so"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # xw, w_h, b_h, lengths, h0, outs, final, gates, carry, w_scratch, B, T,
-    # H, bf16, stream
-    "cmhse_gru_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                      _P),
+    # xw, w_h, b_h, lengths, h0, outs, final, gates, carry, B, T, H, bf16,
+    # stream
+    "cmhse_gru_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "cmhse_gru_fwd_max_hidden": (_I,),
-    "cmhse_gru_fwd_scratch_bytes": (_I, _I),  # H, bf16
+    # xw, w_h, b_h, order, counts, h0, outs, final, gates, carry, B, T, H,
+    # bf16, stream
+    "cmhse_gru_fwd_streamed": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                               _I, _I, _P),
     # gates, outs, h0, douts, dfinal, lengths, order, w_h, dxw, dhn, db, dh0,
     # carry, w_scratch, B, T, H, bf16, stream
     "cmhse_gru_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                       _I, _I, _I, _I, _P),
     "cmhse_gru_bwd_max_hidden": (_I,),
-    "cmhse_gru_bwd_scratch_bytes": (_I, _I),
+    "cmhse_gru_bwd_scratch_bytes": (_I, _I),  # H, bf16
     # a, b, mask, row_diag, col_diag, keys, row_max, row_arg, col_max,
     # col_arg, M, N, D, margin, stream
     "cmhse_simhinge_pair": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
@@ -56,7 +58,7 @@ _SIGNATURES = {
     "cmhse_rankcount_smem_bytes": (_I,),
 }
 # functions of _SIGNATURES that return a size_t (the rest return an int)
-_SIZE_RESULTS = ("cmhse_gru_fwd_scratch_bytes", "cmhse_gru_bwd_scratch_bytes")
+_SIZE_RESULTS = ("cmhse_gru_bwd_scratch_bytes",)
 
 # Kernel launches by (kernel, dtype, variant), for proof that a run went
 # through the kernels: each wrapper adds one to its own key where it

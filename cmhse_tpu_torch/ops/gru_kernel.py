@@ -37,8 +37,13 @@ units and slice the results back (:func:`pad_forward_operands`,
 n = tanh(0) = 0 and stays 0, and its zero row of ``W_h`` feeds no other
 unit. Past the H at which a block's slice of ``W_h`` fits in shared memory
 (:func:`fwd_max_hidden`, :func:`bwd_max_hidden`) each kernel runs its
-streamed variant, which reads the slice from a global scratch every step
-instead; its launches count under a variant ending in ``+streamed``.
+streamed variant; its launches count under a variant ending in
+``+streamed``. ``gru_fwd``'s (``csrc/gru_fwd_streamed.cu``) stages ``W_h``
+slab by slab into shared memory beside the state, reads each live row's
+state once a step for all of a block's units, and multiplies only the rows
+still live (the rows ordered once a call by length, :func:`live_row_order`,
+with :func:`live_counts` rows live at each step); ``gru_bwd``'s reads its
+rows of ``W_h`` from a global scratch every step.
 
 Dispatch: a CPU tensor takes the plain versions; a CUDA tensor launches the
 kernels or raises. There is no fallback between the two, and a bf16 tensor
@@ -317,9 +322,17 @@ def live_row_order(lengths: torch.Tensor) -> torch.Tensor:
     """The batch rows ordered by length, longest first, equal lengths in
     row order (int32, on ``lengths``' device): the rows live at step t,
     ``t < length``, are then a prefix of it, which ``gru_bwd``'s product
-    walks."""
+    and the streamed ``gru_fwd``'s walk."""
     return torch.argsort(lengths, descending=True, stable=True).to(
         torch.int32)
+
+
+def live_counts(lengths: torch.Tensor, steps: int) -> torch.Tensor:
+    """The rows live at each of ``steps`` steps, ``t < length`` (int32
+    ``[steps]``, on ``lengths``' device): the length of the prefix of
+    :func:`live_row_order` that step t multiplies."""
+    t = torch.arange(steps, device=lengths.device)
+    return (lengths[:, None] > t[None, :]).sum(0, dtype=torch.int32)
 
 
 def fwd_max_hidden(dtype: torch.dtype = torch.float32) -> int:
@@ -340,29 +353,24 @@ def bwd_max_hidden(dtype: torch.dtype = torch.float32) -> int:
         int(dtype == torch.bfloat16))
 
 
-def _w_scratch(kind: str, hdim: int, dt: torch.dtype,
-               dev: torch.device) -> torch.Tensor | None:
-    """The streamed variant's W_h scratch when ``hdim`` is past the
-    resident limit of ``kind`` ("fwd" or "bwd"), else None (the resident
-    variant). The current device must be ``dev``."""
+def _bwd_w_scratch(hdim: int, dt: torch.dtype,
+                   dev: torch.device) -> torch.Tensor | None:
+    """``gru_bwd``'s streamed W_h scratch when ``hdim`` is past its
+    resident limit, else None (the resident variant). The current device
+    must be ``dev``."""
     bf16 = int(dt == torch.bfloat16)
     lib = cuda_lib.library()
-    if kind == "fwd":
-        limit, size = (lib.cmhse_gru_fwd_max_hidden(bf16),
-                       lib.cmhse_gru_fwd_scratch_bytes)
-    else:
-        limit, size = (lib.cmhse_gru_bwd_max_hidden(bf16),
-                       lib.cmhse_gru_bwd_scratch_bytes)
-        # phase 1 of gru_bwd takes a unit a thread of one 256-thread block
-        # an SM, so this refusal is the card's, not the resident limit's
-        most = 256 * torch.cuda.get_device_properties(dev).multi_processor_count
-        if hdim > most:
-            raise ValueError(f"the gru_bwd kernel takes H up to {most} on "
-                             f"this card (256 units a block, one block an "
-                             f"SM), got {hdim}")
-    if hdim <= limit:
+    # phase 1 of gru_bwd takes a unit a thread of one 256-thread block an
+    # SM, so this refusal is the card's, not the resident limit's
+    most = 256 * torch.cuda.get_device_properties(dev).multi_processor_count
+    if hdim > most:
+        raise ValueError(f"the gru_bwd kernel takes H up to {most} on this "
+                         f"card (256 units a block, one block an SM), got "
+                         f"{hdim}")
+    if hdim <= lib.cmhse_gru_bwd_max_hidden(bf16):
         return None
-    return torch.empty(size(hdim, bf16), dtype=torch.uint8, device=dev)
+    return torch.empty(lib.cmhse_gru_bwd_scratch_bytes(hdim, bf16),
+                       dtype=torch.uint8, device=dev)
 
 
 def gru_forward(
@@ -382,7 +390,9 @@ def gru_forward(
     ``xw``/``w_h``/``h0`` in that dtype, an f32 ``b_h`` and int32
     ``lengths``; anything else raises. H not a multiple of 4 is padded
     (module docstring); H past :func:`fwd_max_hidden` takes the streamed
-    variant. Each launch counts in ``cuda_lib.launches`` under ("gru_fwd",
+    variant, which also takes the rows in :func:`live_row_order` and the
+    live rows of each step (:func:`live_counts`), both made here on the
+    card. Each launch counts in ``cuda_lib.launches`` under ("gru_fwd",
     dtype, variant), the variant "encode", "with_h0", "save_gates" or
     "save_gates+with_h0", with "+streamed" appended past the resident
     limit.
@@ -415,25 +425,33 @@ def gru_forward(
             final.copy_(h0)
         return result
     lib = cuda_lib.library()
+    bf16 = int(dt == torch.bfloat16)
     with torch.cuda.device(dev):
-        scratch = _w_scratch("fwd", hdim, dt, dev)
+        streamed = hdim > lib.cmhse_gru_fwd_max_hidden(bf16)
         # bf16: the f32 carry of each block's own units (the outputs are
         # rounded, so they cannot carry it)
         carry = (torch.empty(b, hdim, dtype=torch.float32, device=dev)
-                 if dt == torch.bfloat16 else None)
-        err = lib.cmhse_gru_fwd(
-            xw.data_ptr(), w_h.data_ptr(), b_h.data_ptr(), lengths.data_ptr(),
-            _ptr(h0), outs.data_ptr(), final.data_ptr(), _ptr(gates),
-            _ptr(carry), _ptr(scratch), b, t, hdim,
-            int(dt == torch.bfloat16),
-            torch.cuda.current_stream(dev).cuda_stream)
+                 if bf16 else None)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if streamed:
+            order, counts = live_row_order(lengths), live_counts(lengths, t)
+            err = lib.cmhse_gru_fwd_streamed(
+                xw.data_ptr(), w_h.data_ptr(), b_h.data_ptr(),
+                order.data_ptr(), counts.data_ptr(), _ptr(h0),
+                outs.data_ptr(), final.data_ptr(), _ptr(gates), _ptr(carry),
+                b, t, hdim, bf16, stream)
+        else:
+            err = lib.cmhse_gru_fwd(
+                xw.data_ptr(), w_h.data_ptr(), b_h.data_ptr(),
+                lengths.data_ptr(), _ptr(h0), outs.data_ptr(),
+                final.data_ptr(), _ptr(gates), _ptr(carry), b, t, hdim, bf16,
+                stream)
     cuda_lib.check(err, "gru_fwd launch")
     flags = [f for f, on in (("save_gates", save_gates),
                              ("with_h0", h0 is not None)) if on]
     variant = "+".join(flags) or "encode"
     cuda_lib.count_launch("gru_fwd", _dtype_name(dt),
-                          variant + ("+streamed" if scratch is not None
-                                     else ""))
+                          variant + ("+streamed" if streamed else ""))
     return result
 
 
@@ -500,7 +518,7 @@ def gru_backward(
         return dxw, dhn, db.zero_(), dh0
     lib = cuda_lib.library()
     with torch.cuda.device(dev):
-        scratch = _w_scratch("bwd", hdim, dt, dev)
+        scratch = _bwd_w_scratch(hdim, dt, dev)
         # bf16: the f32 carried gradient (dh0 is rounded, so it cannot
         # carry it; in f32 dh0 does)
         carry = (torch.empty(b, hdim, dtype=torch.float32, device=dev)

@@ -1465,6 +1465,97 @@ def test_gru_streamed_equals_resident_bitwise(cuda, dtype):
         assert torch.equal(a, b)
 
 
+def _many_chunk_lengths(b, t, seed):
+    """Lengths for more rows than one chunk of the streamed gru_fwd, in
+    random order: a fifth 0, most 1 or 2 (dead after the first steps), a
+    few up to and past ``t``."""
+    rng = np.random.RandomState(seed)
+    lengths = rng.choice([0, 1, 2], size=b, p=[0.2, 0.4, 0.4])
+    long = rng.choice(b, size=b // 10, replace=False)
+    lengths[long] = rng.randint(3, t + 2, size=long.size)
+    return torch.from_numpy(lengths.astype(np.int32))
+
+
+# B = 600: past a chunk in both types (256 rows in f32 and in bf16 at
+# H = 2,048); H 4 past the resident limit (a block's last slot partly past
+# its units; W_h in 4-byte pieces), 2,048 (16-byte pieces) and 2,064 (the
+# last slab cut short by H)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("which", ["fwd_max+4", "2048", "2064"])
+@pytest.mark.parametrize("variant", ["encode", "save_gates", "save_gates_h0"])
+def test_gru_fwd_streamed_live_rows_match_plain(cuda, dtype, which,
+                                                variant):
+    dt = getattr(torch, dtype)
+    h = _any_h(dtype, which)
+    b, t = 600, 9
+    xw, w_h, b_h, _ = [a.to(cuda) for a in _gru_inputs(b, t, h, seed=h + 2)]
+    lengths = _many_chunk_lengths(b, t, seed=h).to(cuda)
+    xw, w_h = xw.to(dt), w_h.to(dt)
+    save = variant != "encode"
+    h0 = ((torch.randn(b, h, device=cuda) * 0.5).to(dt)
+          if variant == "save_gates_h0" else None)
+    want = gru_kernel.gru_recurrence_plain(xw, w_h, b_h, lengths, h0,
+                                           save_gates=save)
+    cuda_lib.reset_launches()
+    got = gru_kernel.gru_forward(xw, w_h, b_h, lengths, h0, save_gates=save)
+    torch.cuda.synchronize()
+    name = {"save_gates_h0": "save_gates+with_h0"}.get(variant, variant)
+    assert cuda_lib.launches == {("gru_fwd", dtype, name + "+streamed"): 1}
+    # bf16: the kernel and the plain version round the same f32 sums, taken
+    # in other orders, so a value may land one bf16 ulp away; among the
+    # millions of values here some pass |2|, where an ulp (2^-7 of the
+    # value at most) exceeds BF16_ATOL
+    band = (dict(atol=1e-5, rtol=0) if dt == torch.float32
+            else dict(atol=BF16_ATOL, rtol=2.0 ** -7))
+    # outs at every step: the frozen ones too
+    torch.testing.assert_close(got[0], want[0], **band)
+    torch.testing.assert_close(got[1], want[1], **band)
+    if save:
+        live = (torch.arange(t, device=cuda)[None, :] < lengths[:, None])
+        torch.testing.assert_close(got[2][live], want[2][live], **band)
+    dead = lengths == 0  # a length-0 row keeps its start at every step
+    start = h0[dead] if h0 is not None else torch.zeros_like(got[1][dead])
+    assert torch.equal(got[1][dead], start)
+    assert torch.equal(got[0][dead], start[:, None].expand(-1, t, -1))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("h", [1024, 1100])
+def test_gru_streamed_equals_resident_bitwise_many_chunks(cuda, dtype, h):
+    """test_gru_streamed_equals_resident_bitwise at B = 600, past a chunk,
+    with the lengths in random order (the streamed kernel multiplies its
+    rows in length order, the resident one in row order): the same bits.
+    H = 1,024 stages the bf16 state by cp.async, 1,100 through registers."""
+    dt = getattr(torch, dtype)
+    b, t = 600, 7
+    xw, w_h, b_h, _ = [a.to(cuda) for a in _gru_inputs(b, t, h, 17)]
+    lengths = _many_chunk_lengths(b, t, seed=h + 1).to(cuda)
+    xw, w_h = xw.to(dt), w_h.to(dt)
+    h0 = (torch.randn(b, h, device=cuda) * 0.5).to(dt)
+    variants = [(None, False), (None, True), (h0, True)]
+    resident = [gru_kernel.gru_forward(xw, w_h, b_h, lengths, s0, save)
+                for s0, save in variants]
+    lib = cuda_lib.library()
+    saved = lib.cmhse_gru_fwd_max_hidden
+    try:  # the wrapper reads the limit through the library
+        lib.cmhse_gru_fwd_max_hidden = lambda bf16: 4
+        cuda_lib.reset_launches()
+        streamed = [gru_kernel.gru_forward(xw, w_h, b_h, lengths, s0, save)
+                    for s0, save in variants]
+        assert cuda_lib.launches == {
+            ("gru_fwd", dtype, v + "+streamed"): 1
+            for v in ("encode", "save_gates", "save_gates+with_h0")}
+    finally:
+        lib.cmhse_gru_fwd_max_hidden = saved
+    assert gru_kernel.fwd_max_hidden(dt) >= h
+    live = (torch.arange(t, device=cuda)[None, :] < lengths[:, None])
+    for r, s in zip(resident, streamed):
+        assert torch.equal(r[0], s[0])
+        assert torch.equal(r[1], s[1])
+        if len(r) == 3:
+            assert torch.equal(r[2][live], s[2][live])
+
+
 def test_trainable_gru_at_h30_on_card_matches_cpu(cuda):
     """TrainableGRU forward and backward at H = 30 (padded to 32 on the
     card) against the CPU's plain path, seeded and not."""

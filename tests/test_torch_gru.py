@@ -118,6 +118,26 @@ def test_init_is_seeded_and_symmetric():
         assert p.abs().max() <= 0.25 and p.min() < 0 < p.max()
 
 
+@pytest.mark.parametrize("b,t,seed", [(1, 1, 0), (9, 7, 1), (37, 4, 2),
+                                      (600, 9, 3)])
+def test_live_counts_and_order_match_numpy(b, t, seed):
+    """The streamed gru_fwd's host side: ``live_counts`` against a numpy
+    count of t < length at each step (length 0 and lengths past T
+    included), and the prefix of ``live_row_order`` that long holds exactly
+    the step's live rows."""
+    rng = np.random.RandomState(seed)
+    lengths = rng.randint(0, t + 3, b).astype(np.int32)
+    lengths[::5] = 0
+    counts = gru_kernel.live_counts(torch.from_numpy(lengths), t)
+    want = np.array([(lengths > s).sum() for s in range(t)])
+    assert counts.dtype == torch.int32 and tuple(counts.shape) == (t,)
+    np.testing.assert_array_equal(counts.numpy(), want)
+    order = gru_kernel.live_row_order(torch.from_numpy(lengths)).numpy()
+    assert sorted(order.tolist()) == list(range(b))
+    for s in range(t):
+        assert set(order[:want[s]]) == set(np.flatnonzero(lengths > s))
+
+
 @pytest.mark.parametrize("seeded,save_gates", [(False, False), (True, True)])
 def test_padding_to_a_multiple_of_4_is_exact(seeded, save_gates):
     """The CUDA wrapper's padding of H = 30 to 32 (``pad_forward_operands``
