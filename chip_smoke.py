@@ -3732,6 +3732,9 @@ def main() -> int:
     bf16_rows = phase_gru_bf16(torch, rng, enc_shapes, train_shapes)
     phase(f"phase 2e: gru_fwd and gru_bwd at every H: {STREAM_H} (the "
           f"streamed variants, f32 and bf16) and {PAD_H} (padded) vs plain")
+    for source in ("gru_fwd_streamed.cu", "gru_bwd_streamed.cu"):
+        for line in kernel_resources(source):
+            log(f"  ptxas {source}: {line}")
     any_h = phase_gru_any_h(torch, rng, b0.frame_len.reshape(-1),
                             dc.max_frames, 500)
     phase("phase 3: rankcount vs plain (exact-arithmetic rows)")
@@ -3860,9 +3863,8 @@ def main() -> int:
     def streamed(row_key, name, kernel, dtype, only=None):
         """An entry of a streamed variant: its launches in 9f, of every
         variant of the kernel or only of ``only``."""
-        source = "gru_fwd_streamed.cu" if kernel == "gru_fwd" else \
-            f"{kernel}.cu"
-        return entry(name, source, k1 if kernel == "gru_fwd" else k2,
+        return entry(name, f"{kernel}_streamed.cu",
+                     k1 if kernel == "gru_fwd" else k2,
                      [any_h[row_key]], "nccl (9f)",
                      sum(n for k, n in ncounts.items()
                          if k.startswith(f"{kernel} {dtype}")

@@ -59,7 +59,9 @@
 // fixed order: db is written once, with no atomics, so the result is
 // bitwise the same run to run. Phase 1 is elementwise and latency-bound (a
 // thread walks B / 32 rows at 8 units a block), so each thread issues the
-// loads of kBatch rows before it uses any of them.
+// loads of several rows before it uses any of them. Phase 1 and the bias
+// sums are gru_common.cuh's, shared with gru_bwd_streamed.cu (the variant
+// past cmhse_gru_bwd_max_hidden, where a block's W_h rows no longer fit).
 //
 // Products, per chunk of live rows and per pass of 8 units (a second pass
 // when U > 8), over slabs of depth staged in shared memory:
@@ -73,18 +75,6 @@
 //   mma.sync.m16n8k16 (bf16, f32 accumulation) with ldmatrix: a warp owns
 //   32 rows (two m-tiles) x the pass's 8 units (one n-tile); the W_h slice,
 //   K-contiguous per unit, is the column-major B as it stands.
-//
-// The streamed variant (kStream, past bwd_max_hidden): the block writes
-// its rows of W_h once, in the same [U][WS] layout, to its own part of a
-// global scratch the wrapper allocates, and the product reads them from
-// there every step; only the staging ring and the chunk's rows stay in
-// shared memory. bf16 B fragments come as 32-bit loads from the scratch
-// (ldmatrix reads shared memory only). U is no longer capped at two passes:
-// the product runs over the block's units kMaxPasses passes at a time,
-// each group re-staging the live rows' operand. Up to two passes that is
-// one group, the resident variant's arithmetic in its order, so the two
-// agree bit for bit where both run. Phase 1 keeps one unit a thread of a
-// row sweep, so U is at most kThreads (H up to 256 x the SM count).
 //
 // What bounds it on an H100 (video_low, 512 rows x 64 steps, H = 1024,
 // about 27% of the row-steps live; PERF.md): the product, about 85% of a
@@ -113,19 +103,18 @@ namespace {
 
 using gru::commit_staged;
 using gru::cp_async16;
-using gru::from_f;
 using gru::kPassUnits;
 using gru::kThreads;
 using gru::ldmatrix_x2;
 using gru::ldmatrix_x4;
 using gru::mma_bf16;
+using gru::operand_at;
 using gru::to_f;
 using gru::units_per_block;
 using gru::w_stride;
 using gru::wait_staged;
 
 constexpr int kMaxPasses = 2;  // U <= 16 units a block
-constexpr int kBatch = 8;      // rows a phase-1 thread has in flight
 
 // How each element type stages the live rows' operand. A chunk is the rows
 // one product covers; a staged row holds one slab of depths plus 16 bytes
@@ -156,36 +145,13 @@ __host__ __device__ constexpr int stage_bytes() {
   return Layout<E>::kChunkRows * Layout<E>::kRowBytes;
 }
 
-// elements of one block's W_h rows, [U][WS]
+// staging ring, the W_h slice [U][3H] and the chunk's batch rows
 template <typename E>
-__host__ __device__ size_t slice_elems(int H, int U) {
-  return (size_t)U * w_stride<E>(3 * H);
-}
-
-// staging ring, the W_h slice [U][3H] unless it is streamed, and the
-// chunk's batch rows; ~0 for a U the variant cannot take
-template <typename E>
-size_t smem_bytes(int H, int U, bool stream) {
-  if (U > (stream ? kThreads : kMaxPasses * kPassUnits)) return ~(size_t)0;
+size_t smem_bytes(int H, int U) {
+  if (U > kMaxPasses * kPassUnits) return ~(size_t)0;
   return kStages * (size_t)stage_bytes<E>() +
-         (stream ? 0 : slice_elems<E>(H, U) * sizeof(E)) +
+         (size_t)U * w_stride<E>(3 * H) * sizeof(E) +
          Layout<E>::kChunkRows * sizeof(int);
-}
-
-template <typename E>
-size_t resident_smem_bytes(int H, int U) {
-  return smem_bytes<E>(H, U, false);
-}
-
-// Where depth k of batch row b's operand lies at step t: dxw for k < 2H,
-// dhn past it.
-template <typename E>
-__device__ __forceinline__ const E* operand_at(const E* __restrict__ dxw,
-                                               const E* __restrict__ dhn,
-                                               int b, int t, int T, int H,
-                                               int k) {
-  const size_t bt = (size_t)b * T + t;
-  return k < 2 * H ? dxw + bt * 3 * H + k : dhn + bt * H + (k - 2 * H);
 }
 
 // f32: slab s (32 depths) of the chunk's first `rows` rows into shared
@@ -338,10 +304,8 @@ __device__ __forceinline__ void store_slab(unsigned char* buf,
 // slab s times the n-tile of pass p (8 units), 64 depths in four k16
 // steps. a_row / a_k and b_base[p] are the lane's ldmatrix addresses: A
 // (x4) row lane % 16 of the m-tile at depth 8 (lane / 16); B (x2) unit
-// lane % 8 at depth 8 ((lane / 8) % 2). With kStream the rows lie in
-// global memory and b_base[p] is the lane's own fragment: unit lane / 4 at
-// depth 2 (lane % 4), two 32-bit loads a tile.
-template <int kPasses, bool kStream>
+// lane % 8 at depth 8 ((lane / 8) % 2).
+template <int kPasses>
 __device__ __forceinline__ void mma_slab(
     float (&c)[2][kMaxPasses][4], const unsigned char* buf, int a_row,
     int a_k, const __nv_bfloat16* const (&b_base)[kMaxPasses], int k0) {
@@ -356,13 +320,7 @@ __device__ __forceinline__ void mma_slab(
 #pragma unroll
     for (int p = 0; p < kPasses; ++p) {
       unsigned b[2];
-      const __nv_bfloat16* bp = b_base[p] + k0 + 16 * kk;
-      if constexpr (kStream) {
-        b[0] = *reinterpret_cast<const unsigned*>(bp);
-        b[1] = *reinterpret_cast<const unsigned*>(bp + 8);
-      } else {
-        ldmatrix_x2(b, bp);
-      }
+      ldmatrix_x2(b, b_base[p] + k0 + 16 * kk);
 #pragma unroll
       for (int mt = 0; mt < 2; ++mt) mma_bf16(c[mt][p], a[mt], b);
     }
@@ -372,9 +330,8 @@ __device__ __forceinline__ void mma_slab(
 // The bf16 product over a chunk: c as mma_slab says, over all slabs. With
 // kAsync (H a multiple of 8) the slabs come by cp.async through a ring of
 // three buffers, two slabs in flight and one barrier a slab; otherwise
-// through registers and two buffers. kStream: the W_h rows lie in global
-// memory (see mma_slab).
-template <bool kAsync, int kPasses, bool kStream>
+// through registers and two buffers.
+template <bool kAsync, int kPasses>
 __device__ __forceinline__ void product_bf16(
     float (&c)[2][kMaxPasses][4], unsigned char* stage,
     const __nv_bfloat16* ws, int WS, int n_units,
@@ -391,10 +348,8 @@ __device__ __forceinline__ void product_bf16(
   const __nv_bfloat16* b_base[kMaxPasses];
 #pragma unroll
   for (int p = 0; p < kMaxPasses; ++p) {
-    // past the units: row 0
-    const int j = kPassUnits * p + (kStream ? lane / 4 : lane % 8);
-    b_base[p] = ws + (size_t)(j < n_units ? j : 0) * WS +
-                (kStream ? 2 * (lane % 4) : 8 * ((lane / 8) % 2));
+    const int j = kPassUnits * p + lane % 8;  // past the units: row 0
+    b_base[p] = ws + (size_t)(j < n_units ? j : 0) * WS + 8 * ((lane / 8) % 2);
   }
   if constexpr (kAsync) {
     auto stage_turn = [&](int s) {  // as in product_f32
@@ -410,8 +365,8 @@ __device__ __forceinline__ void product_bf16(
       __syncthreads();  // as in product_f32
       stage_turn(s + kStages - 1);
       if (active)
-        mma_slab<kPasses, kStream>(c, stage + (s % kStages) * kStage,
-                                   a_row, a_k, b_base, s * kK);
+        mma_slab<kPasses>(c, stage + (s % kStages) * kStage, a_row, a_k,
+                          b_base, s * kK);
     }
     __syncthreads();  // every thread is done with the last slabs
   } else {
@@ -423,8 +378,8 @@ __device__ __forceinline__ void product_bf16(
       if (s + 1 < n_slabs)
         load_slab(next, dxw, dhn, rows_s, rows, s + 1, t, T, H, tid);
       if (active)
-        mma_slab<kPasses, kStream>(c, stage + (s % 2) * kStage, a_row, a_k,
-                                   b_base, s * kK);
+        mma_slab<kPasses>(c, stage + (s % 2) * kStage, a_row, a_k, b_base,
+                          s * kK);
       if (s + 1 < n_slabs)  // the other buffer's last reads ended at a barrier
         store_slab(stage + ((s + 1) % 2) * kStage, next, tid);
       __syncthreads();
@@ -432,7 +387,7 @@ __device__ __forceinline__ void product_bf16(
   }
 }
 
-template <typename E, bool kStream>
+template <typename E>
 __global__ void __launch_bounds__(kThreads, 1)
 gru_bwd_kernel(const E* __restrict__ gates,          // [B, T, 4H]
                const E* __restrict__ outs,           // [B, T, H]
@@ -447,25 +402,14 @@ gru_bwd_kernel(const E* __restrict__ gates,          // [B, T, 4H]
                float* __restrict__ db,               // [4H]
                E* __restrict__ dh0,                  // [B, H]
                float* __restrict__ carry,            // [B, H] f32
-               E* w_scratch,  // kStream: [grid][U][WS]
                int B, int T, int H, int U) {
   constexpr bool kLowp = std::is_same<E, __nv_bfloat16>::value;
   using L = Layout<E>;
   extern __shared__ __align__(16) unsigned char smem[];
   unsigned char* stage = smem;  // [kStages][L::kChunkRows][L::kRowBytes]
+  E* ws = reinterpret_cast<E*>(smem + kStages * stage_bytes<E>());
   const int WS = w_stride<E>(3 * H);
-  // the block's [U][WS] rows: after the staging ring, or its own part of
-  // the global scratch (written and read by this block only); then the
-  // chunk's batch rows
-  E* ws;
-  int* rows_s;
-  if constexpr (kStream) {
-    ws = w_scratch + blockIdx.x * slice_elems<E>(H, U);
-    rows_s = reinterpret_cast<int*>(smem + kStages * stage_bytes<E>());
-  } else {
-    ws = reinterpret_cast<E*>(smem + kStages * stage_bytes<E>());
-    rows_s = reinterpret_cast<int*>(ws + slice_elems<E>(H, U));
-  }
+  int* rows_s = reinterpret_cast<int*>(ws + (size_t)U * WS);  // chunk's rows
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int u0 = blockIdx.x * U;
   const int n_units = min(U, H - u0);  // > 0: the grid is ceil(H / U)
@@ -489,7 +433,7 @@ gru_bwd_kernel(const E* __restrict__ gates,          // [B, T, 4H]
   const int j1 = tid % n_units, r1 = tid / n_units;
   const bool in_p1 = r1 < sweep;
   const int u1 = u0 + j1;
-  float db_r = 0.0f, db_z = 0.0f, db_n = 0.0f, db_hn = 0.0f;
+  float db_part[4] = {0.0f, 0.0f, 0.0f, 0.0f};  // the unit's bias sums
   if (in_p1)
     for (int b = r1; b < B; b += sweep)
       carry[(size_t)b * H + u1] =
@@ -497,65 +441,9 @@ gru_bwd_kernel(const E* __restrict__ gates,          // [B, T, 4H]
 
   for (int t = T - 1; t >= 0; --t) {
     // ---- phase 1: gate gradients of the block's units, every row --------
-    // A thread's rows go kBatch at a time, each stage's loads issued for
-    // the whole batch before any is used, so that their latencies overlap.
-    if (in_p1) {
-      for (int b0 = r1; b0 < B; b0 += kBatch * sweep) {
-        float d[kBatch], g[kBatch][4], hp[kBatch];
-        bool live[kBatch];
-#pragma unroll
-        for (int q = 0; q < kBatch; ++q) {
-          const int b = b0 + q * sweep;
-          d[q] = 0.0f;
-          live[q] = false;
-          if (b < B) {
-            const size_t bt = (size_t)b * T + t;
-            d[q] = carry[(size_t)b * H + u1];
-            if (douts != nullptr) d[q] += to_f(douts[bt * H + u1]);
-            live[q] = t < lengths[b];
-          }
-        }
-#pragma unroll
-        for (int q = 0; q < kBatch; ++q) {
-          if (!live[q]) continue;
-          const int b = b0 + q * sweep;
-          const size_t bt = (size_t)b * T + t;
-          const E* gp = gates + bt * 4 * H + u1;
-#pragma unroll
-          for (int k = 0; k < 4; ++k) g[q][k] = to_f(gp[k * H]);
-          hp[q] = t > 0 ? to_f(outs[(bt - 1) * H + u1])
-                  : h_init != nullptr ? to_f(h_init[(size_t)b * H + u1])
-                                      : 0.0f;
-        }
-#pragma unroll
-        for (int q = 0; q < kBatch; ++q) {
-          const int b = b0 + q * sweep;
-          if (b >= B) break;
-          const size_t bt = (size_t)b * T + t;
-          float c = d[q], drp = 0.0f, dzp = 0.0f, dnp = 0.0f, dhn = 0.0f;
-          if (live[q]) {
-            const float r = g[q][0], z = g[q][1], n = g[q][2], hn = g[q][3];
-            const float dn = d[q] * (1.0f - z);
-            const float dz = d[q] * (hp[q] - n);
-            dnp = dn * (1.0f - n * n);
-            dhn = dnp * r;
-            dzp = dz * z * (1.0f - z);
-            drp = dnp * hn * r * (1.0f - r);
-            c = d[q] * z;
-          }
-          E* dx = dxw + bt * H3 + u1;
-          dx[0] = from_f<E>(drp);
-          dx[H] = from_f<E>(dzp);
-          dx[2 * H] = from_f<E>(dnp);
-          dhn_out[bt * H + u1] = from_f<E>(dhn);
-          carry[(size_t)b * H + u1] = c;
-          db_r += drp;
-          db_z += dzp;
-          db_n += dnp;
-          db_hn += dhn;
-        }
-      }
-    }
+    if (in_p1)
+      gru::bwd_gate_grads<E>(t, r1, sweep, u1, B, T, H, gates, outs, h_init,
+                             douts, lengths, dxw, dhn_out, carry, db_part);
 
     // rows live at step t: the prefix order[0 : n_t] (order sorts by length)
     int n_t = 0;
@@ -574,37 +462,30 @@ gru_bwd_kernel(const E* __restrict__ gates,          // [B, T, 4H]
         const int ju = 2 * (lane % 4);       // units ju, ju + 1 of a pass
         const int b_row[2] = {rg < rows ? rows_s[rg] : 0,
                               rg + 64 < rows ? rows_s[rg + 64] : 0};
+        float acc[kMaxPasses][2][2] = {};
         const bool two = rows > 64;
-        // kMaxPasses passes a group (one group in the resident variant):
-        // the group's units start at unit j0 of the block
-        for (int g0 = 0; g0 < passes; g0 += kMaxPasses) {
-          const int j0 = g0 * kPassUnits;
-          const E* wg = ws + (size_t)j0 * WS;
-          const int nu = n_units - j0;
-          float acc[kMaxPasses][2][2] = {};
-          if (passes - g0 == 1 && !two)
-            product_f32<1, 1>(acc, stage, wg, WS, nu, rg, ju, dxw, dhn_out,
-                              rows_s, rows, t, T, H, tid);
-          else if (passes - g0 == 1)
-            product_f32<2, 1>(acc, stage, wg, WS, nu, rg, ju, dxw, dhn_out,
-                              rows_s, rows, t, T, H, tid);
-          else if (!two)
-            product_f32<1, 2>(acc, stage, wg, WS, nu, rg, ju, dxw, dhn_out,
-                              rows_s, rows, t, T, H, tid);
-          else
-            product_f32<2, 2>(acc, stage, wg, WS, nu, rg, ju, dxw, dhn_out,
-                              rows_s, rows, t, T, H, tid);
+        if (passes == 1 && !two)
+          product_f32<1, 1>(acc, stage, ws, WS, n_units, rg, ju, dxw,
+                            dhn_out, rows_s, rows, t, T, H, tid);
+        else if (passes == 1)
+          product_f32<2, 1>(acc, stage, ws, WS, n_units, rg, ju, dxw,
+                            dhn_out, rows_s, rows, t, T, H, tid);
+        else if (!two)
+          product_f32<1, 2>(acc, stage, ws, WS, n_units, rg, ju, dxw,
+                            dhn_out, rows_s, rows, t, T, H, tid);
+        else
+          product_f32<2, 2>(acc, stage, ws, WS, n_units, rg, ju, dxw,
+                            dhn_out, rows_s, rows, t, T, H, tid);
 #pragma unroll
-          for (int p = 0; p < kMaxPasses; ++p)
+        for (int p = 0; p < kMaxPasses; ++p)
 #pragma unroll
-            for (int i = 0; i < 2; ++i)
+          for (int i = 0; i < 2; ++i)
 #pragma unroll
-              for (int e = 0; e < 2; ++e) {
-                const int j = kPassUnits * p + ju + e;
-                if (rg + 64 * i < rows && j < nu)
-                  carry[(size_t)b_row[i] * H + u0 + j0 + j] += acc[p][i][e];
-              }
-        }
+            for (int e = 0; e < 2; ++e) {
+              const int j = kPassUnits * p + ju + e;
+              if (rg + 64 * i < rows && j < n_units)
+                carry[(size_t)b_row[i] * H + u0 + j] += acc[p][i][e];
+            }
       } else {
         // C fragment: c[mt][p][2 h + e] is row lane / 4 + 8 h of m-tile mt,
         // unit 2 (lane % 4) + e of pass p
@@ -616,43 +497,33 @@ gru_bwd_kernel(const E* __restrict__ gates,          // [B, T, 4H]
             const int r = warp * 32 + mt * 16 + lane / 4 + 8 * h;
             b_row[mt][h] = r < rows ? rows_s[r] : 0;
           }
-        for (int g0 = 0; g0 < passes; g0 += kMaxPasses) {  // as in f32
-          const int j0 = g0 * kPassUnits;
-          const E* wg = ws + (size_t)j0 * WS;
-          const int nu = n_units - j0;
-          const bool one = passes - g0 == 1;
-          float c[2][kMaxPasses][4] = {};
-          if (H % 8 == 0 && one)
-            product_bf16<true, 1, kStream>(c, stage, wg, WS, nu, dxw,
-                                           dhn_out, rows_s, rows, t, T, H,
-                                           tid);
-          else if (H % 8 == 0)
-            product_bf16<true, 2, kStream>(c, stage, wg, WS, nu, dxw,
-                                           dhn_out, rows_s, rows, t, T, H,
-                                           tid);
-          else if (one)
-            product_bf16<false, 1, kStream>(c, stage, wg, WS, nu, dxw,
-                                            dhn_out, rows_s, rows, t, T, H,
-                                            tid);
-          else
-            product_bf16<false, 2, kStream>(c, stage, wg, WS, nu, dxw,
-                                            dhn_out, rows_s, rows, t, T, H,
-                                            tid);
+        float c[2][kMaxPasses][4] = {};
+        if (H % 8 == 0 && passes == 1)
+          product_bf16<true, 1>(c, stage, ws, WS, n_units, dxw, dhn_out,
+                                rows_s, rows, t, T, H, tid);
+        else if (H % 8 == 0)
+          product_bf16<true, 2>(c, stage, ws, WS, n_units, dxw, dhn_out,
+                                rows_s, rows, t, T, H, tid);
+        else if (passes == 1)
+          product_bf16<false, 1>(c, stage, ws, WS, n_units, dxw, dhn_out,
+                                 rows_s, rows, t, T, H, tid);
+        else
+          product_bf16<false, 2>(c, stage, ws, WS, n_units, dxw, dhn_out,
+                                 rows_s, rows, t, T, H, tid);
 #pragma unroll
-          for (int mt = 0; mt < 2; ++mt)
+        for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-            for (int h = 0; h < 2; ++h)
+          for (int h = 0; h < 2; ++h)
 #pragma unroll
-              for (int p = 0; p < kMaxPasses; ++p)
+            for (int p = 0; p < kMaxPasses; ++p)
 #pragma unroll
-                for (int e = 0; e < 2; ++e) {
-                  const int r = warp * 32 + mt * 16 + lane / 4 + 8 * h;
-                  const int j = kPassUnits * p + 2 * (lane % 4) + e;
-                  if (r < rows && j < nu)
-                    carry[(size_t)b_row[mt][h] * H + u0 + j0 + j] +=
-                        c[mt][p][2 * h + e];
-                }
-        }
+              for (int e = 0; e < 2; ++e) {
+                const int r = warp * 32 + mt * 16 + lane / 4 + 8 * h;
+                const int j = kPassUnits * p + 2 * (lane % 4) + e;
+                if (r < rows && j < n_units)
+                  carry[(size_t)b_row[mt][h] * H + u0 + j] +=
+                      c[mt][p][2 * h + e];
+              }
       }
       // the next chunk's rows_s is written after the product's last
       // barrier, once every thread holds its rows in registers
@@ -660,41 +531,22 @@ gru_bwd_kernel(const E* __restrict__ gates,          // [B, T, 4H]
     __syncthreads();  // the carry is complete for the next step's phase 1
   }
 
-  __syncthreads();
-  if constexpr (kLowp) {  // in f32 the carry is dh0 itself
-    if (in_p1)
-      for (int b = r1; b < B; b += sweep)
-        dh0[(size_t)b * H + u1] = from_f<E>(carry[(size_t)b * H + u1]);
-  }
-  // bias sums: the phase-1 threads' partials of each unit, summed in the
-  // order of their rows; the staging buffers are free
-  float* part = reinterpret_cast<float*>(stage);  // [kThreads][4]
-  part[4 * tid] = db_r;
-  part[4 * tid + 1] = db_z;
-  part[4 * tid + 2] = db_n;
-  part[4 * tid + 3] = db_hn;
-  __syncthreads();
-  if (tid < n_units) {
-    float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    for (int r = 0; r < sweep; ++r)
-#pragma unroll
-      for (int g = 0; g < 4; ++g) s[g] += part[4 * (r * n_units + tid) + g];
-#pragma unroll
-    for (int g = 0; g < 4; ++g) db[g * H + u0 + tid] = s[g];
-  }
+  // the staging buffers are free for the bias sums' partials
+  gru::bwd_finish<E>(db_part, reinterpret_cast<float*>(stage), in_p1, r1,
+                     sweep, u1, u0, n_units, B, H, carry, dh0, db, tid);
 }
 
-template <typename E, bool kStream>
+template <typename E>
 int launch_gru_bwd(const void* gates, const void* outs, const void* h0,
                    const void* douts, const void* dfinal,
                    const int32_t* lengths, const int32_t* order,
                    const void* w_h, void* dxw, void* dhn, float* db,
-                   void* dh0, float* carry, void* scratch, int B, int T,
-                   int H, cudaStream_t stream) {
+                   void* dh0, float* carry, int B, int T, int H,
+                   cudaStream_t stream) {
   const int sms = gru::device_sms();
   if (sms == 0) return (int)cudaErrorInvalidDevice;
   int U = units_per_block(H, sms);
-  const size_t smem = smem_bytes<E>(H, U, kStream);
+  const size_t smem = smem_bytes<E>(H, U);
   if (smem == ~(size_t)0) return (int)cudaErrorInvalidValue;
   const int grid = (H + U - 1) / U;
   const E* gates_e = static_cast<const E*>(gates);
@@ -706,82 +558,46 @@ int launch_gru_bwd(const void* gates, const void* outs, const void* h0,
   E* dxw_e = static_cast<E*>(dxw);
   E* dhn_e = static_cast<E*>(dhn);
   E* dh0_e = static_cast<E*>(dh0);
-  E* scratch_e = static_cast<E*>(scratch);
   void* args[] = {(void*)&gates_e, (void*)&outs_e,  (void*)&h0_e,
                   (void*)&douts_e, (void*)&dfinal_e, (void*)&lengths,
                   (void*)&order,   (void*)&w_e,     (void*)&dxw_e,
                   (void*)&dhn_e,   (void*)&db,      (void*)&dh0_e,
-                  (void*)&carry,   (void*)&scratch_e, (void*)&B,
-                  (void*)&T,       (void*)&H,       (void*)&U};
-  return gru::launch_cooperative(gru_bwd_kernel<E, kStream>, grid, smem,
-                                 args, stream);
-}
-
-template <typename E>
-int dispatch_gru_bwd(const void* gates, const void* outs, const void* h0,
-                     const void* douts, const void* dfinal,
-                     const int32_t* lengths, const int32_t* order,
-                     const void* w_h, void* dxw, void* dhn, float* db,
-                     void* dh0, float* carry, void* scratch, int B, int T,
-                     int H, cudaStream_t s) {
-  if (scratch != nullptr)
-    return launch_gru_bwd<E, true>(gates, outs, h0, douts, dfinal, lengths,
-                                   order, w_h, dxw, dhn, db, dh0, carry,
-                                   scratch, B, T, H, s);
-  return launch_gru_bwd<E, false>(gates, outs, h0, douts, dfinal, lengths,
-                                  order, w_h, dxw, dhn, db, dh0, carry,
-                                  scratch, B, T, H, s);
-}
-
-// the streamed variant's global scratch: every block's W_h rows
-template <typename E>
-size_t scratch_bytes(int H) {
-  const int sms = gru::device_sms();
-  if (sms == 0) return 0;
-  const int U = units_per_block(H, sms);
-  return (size_t)((H + U - 1) / U) * slice_elems<E>(H, U) * sizeof(E);
+                  (void*)&carry,   (void*)&B,       (void*)&T,
+                  (void*)&H,       (void*)&U};
+  return gru::launch_cooperative(gru_bwd_kernel<E>, grid, smem, args,
+                                 stream);
 }
 
 }  // namespace
 
-// H must be a multiple of 4 and every pointer 16-byte aligned (the wrapper
-// checks both). gates, outs, h0, douts, dfinal, w_h, dxw, dhn and dh0 are
-// f32, or bf16 when bf16 != 0; db [4H] is f32 either way. order is the rows
-// sorted by length, descending (any order of equal lengths). carry is an
-// f32 [B, H] scratch in bf16 and null in f32 (dh0 carries). h0, douts and
-// dfinal may each be null. w_scratch null: the resident variant, H up to
-// cmhse_gru_bwd_max_hidden(bf16); otherwise the streamed one, H up to
-// kThreads x the SM count, w_scratch holding
-// cmhse_gru_bwd_scratch_bytes(H, bf16) bytes.
+// H must be a multiple of 4, at most cmhse_gru_bwd_max_hidden(bf16), and
+// every pointer 16-byte aligned (the wrapper checks all three). gates, outs,
+// h0, douts, dfinal, w_h, dxw, dhn and dh0 are f32, or bf16 when bf16 != 0;
+// db [4H] is f32 either way. order is the rows sorted by length, descending
+// (any order of equal lengths). carry is an f32 [B, H] scratch in bf16 and
+// null in f32 (dh0 carries). h0, douts and dfinal may each be null.
 extern "C" int cmhse_gru_bwd(const void* gates, const void* outs,
                              const void* h0, const void* douts,
                              const void* dfinal, const int32_t* lengths,
                              const int32_t* order, const void* w_h, void* dxw,
                              void* dhn, float* db, void* dh0, void* carry,
-                             void* w_scratch, int B, int T, int H, int bf16,
-                             void* stream) {
+                             int B, int T, int H, int bf16, void* stream) {
   if (B <= 0 || T <= 0 || H <= 0 || H % 4 != 0 || dh0 == nullptr ||
       (bf16 != 0) != (carry != nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (bf16)
-    return dispatch_gru_bwd<__nv_bfloat16>(
+    return launch_gru_bwd<__nv_bfloat16>(
         gates, outs, h0, douts, dfinal, lengths, order, w_h, dxw, dhn, db,
-        dh0, static_cast<float*>(carry), w_scratch, B, T, H, s);
-  return dispatch_gru_bwd<float>(gates, outs, h0, douts, dfinal, lengths,
-                                 order, w_h, dxw, dhn, db, dh0,
-                                 static_cast<float*>(dh0), w_scratch, B, T, H,
-                                 s);
+        dh0, static_cast<float*>(carry), B, T, H, s);
+  return launch_gru_bwd<float>(gates, outs, h0, douts, dfinal, lengths,
+                               order, w_h, dxw, dhn, db, dh0,
+                               static_cast<float*>(dh0), B, T, H, s);
 }
 
-// Largest H the resident variant takes on the current device: the block's
-// W_h rows and the staging ring must fit in one block's shared memory.
+// Largest H the kernel takes on the current device: the block's W_h rows
+// and the staging ring must fit in one block's shared memory.
 extern "C" int cmhse_gru_bwd_max_hidden(int bf16) {
-  return bf16 ? gru::max_hidden(resident_smem_bytes<__nv_bfloat16>)
-              : gru::max_hidden(resident_smem_bytes<float>);
-}
-
-// Bytes of the streamed variant's W_h scratch at H (0 on error).
-extern "C" size_t cmhse_gru_bwd_scratch_bytes(int H, int bf16) {
-  return bf16 ? scratch_bytes<__nv_bfloat16>(H) : scratch_bytes<float>(H);
+  return bf16 ? gru::max_hidden(smem_bytes<__nv_bfloat16>)
+              : gru::max_hidden(smem_bytes<float>);
 }

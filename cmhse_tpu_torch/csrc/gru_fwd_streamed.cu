@@ -161,15 +161,6 @@ size_t smem_bytes(int U) {
          Plan<E>::kSlotRows / S * sizeof(int);
 }
 
-// 4 bytes global -> shared, through L1 (only for W_h, read-only for the
-// call); `in` false zero-fills and reads nothing.
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          bool in) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(in ? 4 : 0));
-}
-
 __device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4],
                                                   const void* p) {
   asm volatile(
@@ -202,7 +193,7 @@ __device__ __forceinline__ void stage_w_pieces(unsigned char* wbuf,
     if constexpr (kBytes == 16)
       cp_async16(dst, src, in);
     else
-      cp_async4(dst, src, in);
+      gru::cp_async_ca<4>(dst, src, in);
   }
 }
 

@@ -25,8 +25,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
-SOURCES = ("gru_fwd.cu", "gru_fwd_streamed.cu", "gru_bwd.cu", "simhinge.cu",
-           "rankcount.cu")
+SOURCES = ("gru_fwd.cu", "gru_fwd_streamed.cu", "gru_bwd.cu",
+           "gru_bwd_streamed.cu", "simhinge.cu", "rankcount.cu")
 HEADERS = ("gru_common.cuh",)  # included by sources; part of the build hash
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -44,11 +44,14 @@ _SIGNATURES = {
     "cmhse_gru_fwd_streamed": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                _I, _I, _P),
     # gates, outs, h0, douts, dfinal, lengths, order, w_h, dxw, dhn, db, dh0,
-    # carry, w_scratch, B, T, H, bf16, stream
-    "cmhse_gru_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                      _I, _I, _I, _I, _P),
+    # carry, B, T, H, bf16, stream
+    "cmhse_gru_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                      _I, _I, _I, _P),
     "cmhse_gru_bwd_max_hidden": (_I,),
-    "cmhse_gru_bwd_scratch_bytes": (_I, _I),  # H, bf16
+    # gates, outs, h0, douts, dfinal, lengths, order, counts, w_h, dxw, dhn,
+    # db, dh0, carry, B, T, H, bf16, stream
+    "cmhse_gru_bwd_streamed": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                               _P, _P, _I, _I, _I, _I, _P),
     # a, b, mask, row_diag, col_diag, keys, row_max, row_arg, col_max,
     # col_arg, M, N, D, margin, stream
     "cmhse_simhinge_pair": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
@@ -58,7 +61,7 @@ _SIGNATURES = {
     "cmhse_rankcount_smem_bytes": (_I,),
 }
 # functions of _SIGNATURES that return a size_t (the rest return an int)
-_SIZE_RESULTS = ("cmhse_gru_bwd_scratch_bytes",)
+_SIZE_RESULTS: tuple[str, ...] = ()
 
 # Kernel launches by (kernel, dtype, variant), for proof that a run went
 # through the kernels: each wrapper adds one to its own key where it

@@ -1,6 +1,8 @@
 """The masked GRU recurrence and its backward: the hand-written CUDA kernels
-``csrc/gru_fwd.cu`` and ``csrc/gru_bwd.cu``, their plain PyTorch versions,
-and the ``torch.autograd.Function`` that trains through them.
+``csrc/gru_fwd.cu`` and ``csrc/gru_bwd.cu`` (with their streamed variants,
+``csrc/gru_fwd_streamed.cu`` and ``csrc/gru_bwd_streamed.cu``), their plain
+PyTorch versions, and the ``torch.autograd.Function`` that trains through
+them.
 
 ``gru_fwd`` replaces ``cmhse_tpu/ops/pallas_gru.py:_gru_kernel`` (launched by
 ``pallas_gru_sequence``) in all three variants: the encode path's, the
@@ -38,12 +40,13 @@ n = tanh(0) = 0 and stays 0, and its zero row of ``W_h`` feeds no other
 unit. Past the H at which a block's slice of ``W_h`` fits in shared memory
 (:func:`fwd_max_hidden`, :func:`bwd_max_hidden`) each kernel runs its
 streamed variant; its launches count under a variant ending in
-``+streamed``. ``gru_fwd``'s (``csrc/gru_fwd_streamed.cu``) stages ``W_h``
-slab by slab into shared memory beside the state, reads each live row's
-state once a step for all of a block's units, and multiplies only the rows
-still live (the rows ordered once a call by length, :func:`live_row_order`,
-with :func:`live_counts` rows live at each step); ``gru_bwd``'s reads its
-rows of ``W_h`` from a global scratch every step.
+``+streamed``. Each stages ``W_h`` slab by slab into shared memory beside
+the product's operand (``gru_fwd``'s the state, ``gru_bwd``'s the gate
+gradients), reads each live row's operand once a step for all of a block's
+units, and multiplies only the rows still live (the rows ordered once a
+call by length, :func:`live_row_order`, with :func:`live_counts` rows live
+at each step); ``gru_bwd``'s runs the resident variant's arithmetic in its
+order, so the two agree bit for bit.
 
 Dispatch: a CPU tensor takes the plain versions; a CUDA tensor launches the
 kernels or raises. There is no fallback between the two, and a bf16 tensor
@@ -353,24 +356,19 @@ def bwd_max_hidden(dtype: torch.dtype = torch.float32) -> int:
         int(dtype == torch.bfloat16))
 
 
-def _bwd_w_scratch(hdim: int, dt: torch.dtype,
-                   dev: torch.device) -> torch.Tensor | None:
-    """``gru_bwd``'s streamed W_h scratch when ``hdim`` is past its
-    resident limit, else None (the resident variant). The current device
-    must be ``dev``."""
-    bf16 = int(dt == torch.bfloat16)
-    lib = cuda_lib.library()
-    # phase 1 of gru_bwd takes a unit a thread of one 256-thread block an
-    # SM, so this refusal is the card's, not the resident limit's
+def _bwd_streamed(hdim: int, dt: torch.dtype, dev: torch.device) -> bool:
+    """Whether ``gru_bwd`` takes its streamed variant at ``hdim`` (past
+    its resident limit). Raises past what either variant takes."""
+    # phase 1 of gru_bwd (both variants) takes a unit a thread of one
+    # 256-thread block an SM, so this refusal is the card's, not the
+    # resident limit's
     most = 256 * torch.cuda.get_device_properties(dev).multi_processor_count
     if hdim > most:
         raise ValueError(f"the gru_bwd kernel takes H up to {most} on this "
                          f"card (256 units a block, one block an SM), got "
                          f"{hdim}")
-    if hdim <= lib.cmhse_gru_bwd_max_hidden(bf16):
-        return None
-    return torch.empty(lib.cmhse_gru_bwd_scratch_bytes(hdim, bf16),
-                       dtype=torch.uint8, device=dev)
+    return hdim > cuda_lib.library().cmhse_gru_bwd_max_hidden(
+        int(dt == torch.bfloat16))
 
 
 def gru_forward(
@@ -472,9 +470,10 @@ def gru_backward(
     contiguous tensors all in that dtype and int32 ``lengths``; anything
     else raises. H not a multiple of 4 is padded (module docstring); H past
     :func:`bwd_max_hidden` takes the streamed variant, up to 256 units a
-    block on one block an SM. One launch a call, counted in
-    ``cuda_lib.launches`` under ("gru_bwd", dtype, "with_h0" or "zero_h0"),
-    with "+streamed" appended past the resident limit.
+    block on one block an SM, which also takes the live rows of each step
+    (:func:`live_counts`, made here on the card). One launch a call,
+    counted in ``cuda_lib.launches`` under ("gru_bwd", dtype, "with_h0" or
+    "zero_h0"), with "+streamed" appended past the resident limit.
     """
     b, t, h4 = gates.shape
     hdim = h4 // 4
@@ -518,23 +517,27 @@ def gru_backward(
         return dxw, dhn, db.zero_(), dh0
     lib = cuda_lib.library()
     with torch.cuda.device(dev):
-        scratch = _bwd_w_scratch(hdim, dt, dev)
+        streamed = _bwd_streamed(hdim, dt, dev)
         # bf16: the f32 carried gradient (dh0 is rounded, so it cannot
         # carry it; in f32 dh0 does)
         carry = (torch.empty(b, hdim, dtype=torch.float32, device=dev)
                  if dt == torch.bfloat16 else None)
         order = live_row_order(lengths)
-        err = lib.cmhse_gru_bwd(
-            gates.data_ptr(), outs.data_ptr(), _ptr(h0), _ptr(douts),
-            _ptr(dfinal), lengths.data_ptr(), order.data_ptr(),
-            w_h.data_ptr(), dxw.data_ptr(), dhn.data_ptr(), db.data_ptr(),
-            dh0.data_ptr(), _ptr(carry), _ptr(scratch), b, t, hdim,
-            int(dt == torch.bfloat16),
-            torch.cuda.current_stream(dev).cuda_stream)
+        head = (gates.data_ptr(), outs.data_ptr(), _ptr(h0), _ptr(douts),
+                _ptr(dfinal), lengths.data_ptr(), order.data_ptr())
+        tail = (w_h.data_ptr(), dxw.data_ptr(), dhn.data_ptr(),
+                db.data_ptr(), dh0.data_ptr(), _ptr(carry), b, t, hdim,
+                int(dt == torch.bfloat16),
+                torch.cuda.current_stream(dev).cuda_stream)
+        if streamed:
+            err = lib.cmhse_gru_bwd_streamed(
+                *head, live_counts(lengths, t).data_ptr(), *tail)
+        else:
+            err = lib.cmhse_gru_bwd(*head, *tail)
     cuda_lib.check(err, "gru_bwd launch")
     cuda_lib.count_launch("gru_bwd", _dtype_name(dt),
                           ("zero_h0" if h0 is None else "with_h0")
-                          + ("+streamed" if scratch is not None else ""))
+                          + ("+streamed" if streamed else ""))
     return dxw, dhn, db, dh0
 
 

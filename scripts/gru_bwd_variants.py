@@ -30,115 +30,11 @@ sys.path.insert(0, str(ROOT))
 N_SLABS = "  const int n_slabs = (3 * H + kK - 1) / kK;\n"
 GRID_SYNC = ("    cg::this_grid().sync();  // dxw[:, t] and dhn[:, t] are "
              "complete\n")
+FINISH = "  // the staging buffers are free for the bias sums' partials\n"
 ROTATE = (N_SLABS
           + "  const int s0 = (int)((long long)blockIdx.x * n_slabs / "
           "gridDim.x);\n"
           "  auto rot = [&](int s) { return (s + s0) % n_slabs; };\n")
-
-# phase 1 as committed, and as first written: a thread's rows one at a
-# time, each row's loads waiting on the last
-PHASE1_BATCHED = '''\
-    // ---- phase 1: gate gradients of the block's units, every row --------
-    // A thread's rows go kBatch at a time, each stage's loads issued for
-    // the whole batch before any is used, so that their latencies overlap.
-    if (in_p1) {
-      for (int b0 = r1; b0 < B; b0 += kBatch * sweep) {
-        float d[kBatch], g[kBatch][4], hp[kBatch];
-        bool live[kBatch];
-#pragma unroll
-        for (int q = 0; q < kBatch; ++q) {
-          const int b = b0 + q * sweep;
-          d[q] = 0.0f;
-          live[q] = false;
-          if (b < B) {
-            const size_t bt = (size_t)b * T + t;
-            d[q] = carry[(size_t)b * H + u1];
-            if (douts != nullptr) d[q] += to_f(douts[bt * H + u1]);
-            live[q] = t < lengths[b];
-          }
-        }
-#pragma unroll
-        for (int q = 0; q < kBatch; ++q) {
-          if (!live[q]) continue;
-          const int b = b0 + q * sweep;
-          const size_t bt = (size_t)b * T + t;
-          const E* gp = gates + bt * 4 * H + u1;
-#pragma unroll
-          for (int k = 0; k < 4; ++k) g[q][k] = to_f(gp[k * H]);
-          hp[q] = t > 0 ? to_f(outs[(bt - 1) * H + u1])
-                  : h_init != nullptr ? to_f(h_init[(size_t)b * H + u1])
-                                      : 0.0f;
-        }
-#pragma unroll
-        for (int q = 0; q < kBatch; ++q) {
-          const int b = b0 + q * sweep;
-          if (b >= B) break;
-          const size_t bt = (size_t)b * T + t;
-          float c = d[q], drp = 0.0f, dzp = 0.0f, dnp = 0.0f, dhn = 0.0f;
-          if (live[q]) {
-            const float r = g[q][0], z = g[q][1], n = g[q][2], hn = g[q][3];
-            const float dn = d[q] * (1.0f - z);
-            const float dz = d[q] * (hp[q] - n);
-            dnp = dn * (1.0f - n * n);
-            dhn = dnp * r;
-            dzp = dz * z * (1.0f - z);
-            drp = dnp * hn * r * (1.0f - r);
-            c = d[q] * z;
-          }
-          E* dx = dxw + bt * H3 + u1;
-          dx[0] = from_f<E>(drp);
-          dx[H] = from_f<E>(dzp);
-          dx[2 * H] = from_f<E>(dnp);
-          dhn_out[bt * H + u1] = from_f<E>(dhn);
-          carry[(size_t)b * H + u1] = c;
-          db_r += drp;
-          db_z += dzp;
-          db_n += dnp;
-          db_hn += dhn;
-        }
-      }
-    }
-
-'''
-PHASE1_ROW_BY_ROW = '''\
-    // ---- phase 1: gate gradients of the block's units, every row --------
-    if (in_p1) {
-#pragma unroll 4
-      for (int b = r1; b < B; b += sweep) {
-        const size_t bu = (size_t)b * H + u1;
-        const size_t bt = (size_t)b * T + t;
-        float d = carry[bu];
-        if (douts != nullptr) d += to_f(douts[bt * H + u1]);
-        float c = d, drp = 0.0f, dzp = 0.0f, dnp = 0.0f, dhn = 0.0f;
-        if (t < lengths[b]) {
-          const E* g = gates + bt * 4 * H + u1;
-          const float r = to_f(g[0]), z = to_f(g[H]), n = to_f(g[2 * H]),
-                      hn = to_f(g[3 * H]);
-          const float hp = t > 0 ? to_f(outs[(bt - 1) * H + u1])
-                           : h_init != nullptr ? to_f(h_init[bu])
-                                               : 0.0f;
-          const float dn = d * (1.0f - z);
-          const float dz = d * (hp - n);
-          dnp = dn * (1.0f - n * n);
-          dhn = dnp * r;
-          dzp = dz * z * (1.0f - z);
-          drp = dnp * hn * r * (1.0f - r);
-          c = d * z;
-        }
-        E* dx = dxw + bt * H3 + u1;
-        dx[0] = from_f<E>(drp);
-        dx[H] = from_f<E>(dzp);
-        dx[2 * H] = from_f<E>(dnp);
-        dhn_out[bt * H + u1] = from_f<E>(dhn);
-        carry[bu] = c;
-        db_r += drp;
-        db_z += dzp;
-        db_n += dnp;
-        db_hn += dhn;
-      }
-    }
-
-'''
 
 # variant name -> [(old text, new text, occurrences)]
 VARIANTS = {
@@ -167,7 +63,6 @@ VARIANTS = {
          "  static constexpr int kRowBytes = 144;",
          "  static constexpr int kSlabBytes = 256;  // 64 depths\n"
          "  static constexpr int kRowBytes = 272;", 1)],
-    "phase 1 row by row": [(PHASE1_BATCHED, PHASE1_ROW_BY_ROW, 1)],
     "clock split": [
         ("namespace {\n\nusing gru::commit_staged;",
          "namespace {\n__device__ unsigned long long g_prof[4];\n"
@@ -188,10 +83,8 @@ VARIANTS = {
          "phase 1\n",
          "    __syncthreads();  // the carry is complete for the next step's "
          "phase 1\n    pc[3] += clock64() - c_d;\n", 1),
-        ("  __syncthreads();\n  if constexpr (kLowp) {",
-         "  if (blockIdx.x == 0 && tid == 0)\n"
-         "    for (int i = 0; i < 4; ++i) g_prof[i] = pc[i];\n"
-         "  __syncthreads();\n  if constexpr (kLowp) {", 1),
+        (FINISH, "  if (blockIdx.x == 0 && tid == 0)\n"
+         "    for (int i = 0; i < 4; ++i) g_prof[i] = pc[i];\n" + FINISH, 1),
         ("}  // namespace\n",
          "}  // namespace\nextern \"C\" int cmhse_gru_bwd_prof("
          "unsigned long long* out) {\n  return (int)cudaMemcpyFromSymbol("

@@ -1342,7 +1342,7 @@ def test_cli_evaluate_streaming_on_card_matches_cpu(cuda, tmp_path):
 
 # ---- every H on the card: padding and the streamed variants ----------------
 # H = 30 (padded to 32), 4 past each resident W_h limit of the type, and
-# 2,048 / 4,096 (streamed: the W_h slices in global memory). Held to the
+# 2,048 / 4,096 (streamed: W_h staged slab by slab). Held to the
 # bands above: f32 1e-5 abs (forward) and 1e-4 of the largest entry
 # (backward), bf16 1e-2 abs and relative L2 2e-2.
 
@@ -1519,13 +1519,56 @@ def test_gru_fwd_streamed_live_rows_match_plain(cuda, dtype, which,
     assert torch.equal(got[0][dead], start[:, None].expand(-1, t, -1))
 
 
+# B = 600: past a chunk of the streamed gru_bwd in both types (256 rows at
+# H <= 2,112 on 132 SMs, 128 at 4,096); H 4 past the resident limit (bf16:
+# H % 8 == 4, the operand through registers, W_h in 8-byte pieces), 2,048
+# (16 units a block), 2,064 (the last slab cut short by 3H) and 4,096 (32
+# units a block: more than one slot of 16)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("which", ["bwd_max+4", "2048", "2064", "4096"])
+@pytest.mark.parametrize("seeded", [False, True])
+def test_gru_bwd_streamed_live_rows_match_plain(cuda, dtype, which, seeded):
+    dt = getattr(torch, dtype)
+    h = _any_h(dtype, which)
+    b, t = 600, 9
+    xw, w_h, b_h, _ = [a.to(cuda) for a in _gru_inputs(b, t, h, seed=h + 3)]
+    lengths = _many_chunk_lengths(b, t, seed=h + 4).to(cuda)
+    xw, w_h = xw.to(dt), w_h.to(dt)
+    gen = torch.Generator(device=cuda).manual_seed(h)
+    h0 = ((torch.randn(b, h, device=cuda, generator=gen) * 0.5).to(dt)
+          if seeded else None)
+    outs, _, gates = gru_kernel.gru_recurrence_plain(xw, w_h, b_h, lengths,
+                                                     h0, save_gates=True)
+    douts = torch.randn(b, t, h, device=cuda, generator=gen).to(dt)
+    dfinal = torch.randn(b, h, device=cuda, generator=gen).to(dt)
+    want = gru_kernel.gru_backward_plain(gates, outs, lengths, w_h, douts,
+                                         dfinal, h0)
+    cuda_lib.reset_launches()
+    got = gru_kernel.gru_backward(gates, outs, lengths, w_h, douts, dfinal,
+                                  h0)
+    torch.cuda.synchronize()
+    variant = ("with_h0" if seeded else "zero_h0") + "+streamed"
+    assert cuda_lib.launches == {("gru_bwd", dtype, variant): 1}
+    for name, g, w in zip(("dxw", "dhn", "db", "dh0"), got, want):
+        assert torch.isfinite(g.float()).all(), name
+        err = (_rel_err(g.float(), w.float()) if dt == torch.float32
+               else _rel_l2(g, w))
+        assert err <= (1e-4 if dt == torch.float32 else BF16_GRAD_RL2), (
+            name, err)
+    dead = lengths == 0  # a length-0 row has no live step
+    assert dead.any()
+    assert not got[0][dead].any() and not got[1][dead].any()
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("h", [1024, 1100])
 def test_gru_streamed_equals_resident_bitwise_many_chunks(cuda, dtype, h):
     """test_gru_streamed_equals_resident_bitwise at B = 600, past a chunk,
-    with the lengths in random order (the streamed kernel multiplies its
-    rows in length order, the resident one in row order): the same bits.
-    H = 1,024 stages the bf16 state by cp.async, 1,100 through registers."""
+    with the lengths in random order (the streamed kernels multiply their
+    rows in length order, the resident K1 in row order): the same bits, in
+    K1's three variants and K2 with and without h0. H = 1,024 stages the
+    bf16 operands by cp.async, 1,100 through registers (and K2's W_h in
+    8-byte pieces)."""
     dt = getattr(torch, dtype)
     b, t = 600, 7
     xw, w_h, b_h, _ = [a.to(cuda) for a in _gru_inputs(b, t, h, 17)]
@@ -1554,6 +1597,31 @@ def test_gru_streamed_equals_resident_bitwise_many_chunks(cuda, dtype, h):
         assert torch.equal(r[1], s[1])
         if len(r) == 3:
             assert torch.equal(r[2][live], s[2][live])
+    # K2 on the resident forward's gates (save_gates, save_gates + h0)
+    gen = torch.Generator(device=cuda).manual_seed(h)
+    douts = torch.randn(b, t, h, device=cuda, generator=gen).to(dt)
+    dfinal = torch.randn(b, h, device=cuda, generator=gen).to(dt)
+    cases = [(resident[1], None), (resident[2], h0)]
+
+    def backward():
+        return [gru_kernel.gru_backward(f[2], f[0], lengths, w_h, douts,
+                                        dfinal, s0) for f, s0 in cases]
+
+    r_bwd = backward()
+    saved = lib.cmhse_gru_bwd_max_hidden
+    try:
+        lib.cmhse_gru_bwd_max_hidden = lambda bf16: 4
+        cuda_lib.reset_launches()
+        s_bwd = backward()
+        assert cuda_lib.launches == {
+            ("gru_bwd", dtype, v + "+streamed"): 1
+            for v in ("zero_h0", "with_h0")}
+    finally:
+        lib.cmhse_gru_bwd_max_hidden = saved
+    assert gru_kernel.bwd_max_hidden(dt) >= h
+    for r, s in zip(r_bwd, s_bwd):
+        for a, c in zip(r, s):
+            assert torch.equal(a, c)
 
 
 def test_trainable_gru_at_h30_on_card_matches_cpu(cuda):
