@@ -118,6 +118,33 @@ Phases (any failure raises and the script exits non-zero):
   11. ``python -m cmhse_tpu_torch.cli.bench`` in a subprocess: its one
      JSON line (printed), the value and every metric finite, K1-K4
      launched;
+     11b. the JAX package's other training presets at their published
+     widths (vocab 10,000, word_dim 300, feat_dim 500, H = E = 1024) on
+     correlated synthetic data, random weights from the seed: ``didemo``
+     (bucketed, length-grouped batches; attention pools, no decoders):
+     one step at batch 8, card against the CPU's plain path in 5c's bands,
+     at the smallest and the largest bucket its loader gives 512 videos;
+     its 64 batches of 8 through the prefetch twice (host ms of the pass
+     that grows the pinned ring, and of the next; each batch equal to
+     ``Batch.to``'s); ``python -m cmhse_tpu_torch.cli.train --preset
+     didemo --synthetic --correlated --synthetic_videos 768 --num_epochs
+     2`` in its own process (run as ``-m`` runs it, each step timed): its
+     buckets, steps, median step ms a bucket, epoch seconds, launches a
+     step (K1 ``save_gates`` 4, K2 4, K3 2, no ``with_h0``), finite losses
+     of which a later one is below the first, a ``best`` checkpoint, more
+     than one bucket; ``cli.evaluate <run>/best --streaming --dump_ranks``
+     (K4) on a reference-layout val split of 256 didemo-shaped videos,
+     the dump against a dense ``validate_metrics``; ``fit`` of 2 epochs
+     over 256 videos at batch 64, killed after step 6 and resumed from its
+     step-6 snapshot, bitwise equal to the uninterrupted run;
+     ``flat_anet_subset`` (one GRU a modality, T = 128 frames / 96
+     words): one step at batch 8 card against CPU, ``fit`` for 2 epochs
+     over its 100 videos at batch 32 (K1 2, K2 2, K3 1 a step); hier_anet:
+     one step at batch 8 card against CPU, then 8 steps on one batch of
+     64 (K1 4, K2 4, K3 2 a step); then K1 (encode, ``save_gates``) and K2
+     against their plain versions at flat's 32 x 128 (D = 500) and 32 x
+     96 (D = 300) and at didemo's largest bucket, 384 x 48 (D = 500), with
+     cuDNN's times, and K3 at 384 rows;
   12. one JSON line listing each kernel and bf16 variant with its path, its
      launches there, its error against its plain version, times and bound;
   13. last line: ``{"ok": true, "device": {...}}``.
@@ -1076,18 +1103,13 @@ def phase_train_breakdown(torch, state, batch, loss_cfg) -> None:
 
 
 def phase_train_parity(torch, np, seed: int) -> None:
-    """5c: one step's loss, grad_norm and every parameter gradient on a
-    batch of 8 videos at full width, card against the CPU plain path from
-    the same weights. Gradients, not post-step weights: Adam's first step
-    is about lr * sign(g), so a weight whose gradient is near 0 may move
-    either way."""
+    """5c: one cmhse_full step at batch 8 and full width, card against the
+    CPU's plain path (``step_parity``)."""
     import dataclasses
 
     from cmhse_tpu_torch.config import get_preset
     from cmhse_tpu_torch.data import (SyntheticHierarchicalDataset,
                                       batches_from_dataset)
-    from cmhse_tpu_torch.models import CMHSE
-    from cmhse_tpu_torch.train import global_norm, total_loss
 
     cfg = get_preset("cmhse_full")
     dc = dataclasses.replace(cfg.data, batch_size=8)
@@ -1095,11 +1117,25 @@ def phase_train_parity(torch, np, seed: int) -> None:
         num_videos=8, feat_dim=dc.feat_dim, vocab_size=dc.vocab_size,
         max_clips=dc.max_clips, max_frames=dc.max_frames,
         max_words=dc.max_words, seed=seed + 2)
-    host = next(batches_from_dataset(ds, dc, shuffle=False))
+    step_parity(torch, cfg, next(batches_from_dataset(ds, dc, shuffle=False)),
+                seed)
+
+
+def step_parity(torch, cfg, host, seed: int, label: str = "batch 8",
+                card="cuda") -> None:
+    """One step's loss, grad_norm and every parameter gradient on the host
+    batch ``host`` at ``cfg``'s widths, ``card`` against the CPU plain path
+    from the same weights (drawn from ``seed``), within TRAIN_LOSS_RTOL,
+    TRAIN_NORM_RTOL and TRAIN_GRAD_RTOL. Gradients, not post-step weights:
+    Adam's first step is about lr * sign(g), so a weight whose gradient is
+    near 0 may move either way."""
+    from cmhse_tpu_torch.models import CMHSE
+    from cmhse_tpu_torch.train import global_norm, total_loss
+
     res = {}
-    for dev in ("cuda", "cpu"):
+    for dev in (card, "cpu"):
         t0 = time.perf_counter()
-        model = CMHSE(cfg.model, dc.vocab_size, device=dev,
+        model = CMHSE(cfg.model, cfg.data.vocab_size, device=dev,
                       generator=torch.Generator().manual_seed(seed))
         b = host.to(dev)
         loss, metrics = total_loss(model(b), b, cfg.loss)
@@ -1111,14 +1147,14 @@ def phase_train_parity(torch, np, seed: int) -> None:
                         norm=global_norm(list(grads.values())).item(),
                         metrics={k: v.item() for k, v in metrics.items()},
                         s=time.perf_counter() - t0)
-    card, cpu = res["cuda"], res["cpu"]
+    card, cpu = res[card], res["cpu"]
     loss_rel = abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"])
     norm_rel = abs(card["norm"] - cpu["norm"]) / abs(cpu["norm"])
     grad_rel = {k: float((g - cpu["grads"][k]).abs().max()
                          / cpu["grads"][k].abs().max().clamp_min(1e-30))
                 for k, g in card["grads"].items()}
     worst = max(grad_rel, key=grad_rel.get)
-    log(f"  batch 8: card {card['metrics']} grad_norm {card['norm']:.6f}; "
+    log(f"  {label}: card {card['metrics']} grad_norm {card['norm']:.6f}; "
         f"CPU {cpu['metrics']} grad_norm {cpu['norm']:.6f} "
         f"({cpu['s']:.1f} s on the CPU)")
     log(f"  loss rel err {loss_rel:.3g} (limit {TRAIN_LOSS_RTOL}), grad_norm "
@@ -1127,7 +1163,7 @@ def phase_train_parity(torch, np, seed: int) -> None:
         f"{TRAIN_GRAD_RTOL})")
     if not (loss_rel <= TRAIN_LOSS_RTOL and norm_rel <= TRAIN_NORM_RTOL
             and grad_rel[worst] <= TRAIN_GRAD_RTOL):
-        raise AssertionError("card and CPU train steps differ")
+        raise AssertionError(f"card and CPU train steps differ ({label})")
 
 
 def leaf_bands(got: dict, want: dict, want32: dict) -> tuple:
@@ -2149,6 +2185,47 @@ def dump_rows(path: str) -> list:
         return [json.loads(line) for line in f]
 
 
+def dump_against_dense(torch, np, checkpoint: str, data: str, rows: list,
+                       device=None) -> None:
+    """A ``--dump_ranks`` file's rows against ``validate_metrics(streaming=
+    False)`` of the same checkpoint on the val split of ``data``: each rank
+    equal, or moved only across a rival inside the near-tie band."""
+    from cmhse_tpu_torch.data import (PrecompDataset, Vocabulary,
+                                      batches_from_dataset)
+    from cmhse_tpu_torch.eval.encode import encode_gallery_device
+    from cmhse_tpu_torch.eval.retrieval import validate_metrics
+    from cmhse_tpu_torch.train.checkpoint import restore_for_eval
+
+    model, rcfg = restore_for_eval(checkpoint, device=device)
+    ds = PrecompDataset(data, "val", Vocabulary.load(
+        str(Path(data) / "vocab.json")), feat_dim=rcfg.data.feat_dim,
+        flat=not rcfg.model.hierarchical)
+    batches = list(batches_from_dataset(ds, rcfg.data, shuffle=False))
+    _, ranks = validate_metrics(model, batches, streaming=False,
+                                return_ranks=True)
+    v, p, valid = encode_gallery_device(model, batches)
+    sims = (v[valid] @ p[valid].T).float()
+    n_diff, gaps = 0, []
+    for key, direction, s in (("v2p_ranks", "v2p_rank", sims),
+                              ("p2v_ranks", "p2v_rank", sims.T)):
+        dumped = np.asarray([r[direction] for r in rows])
+        if dumped.shape != ranks[key].shape:
+            raise AssertionError(f"the dump has {dumped.shape} {direction}s, "
+                                 f"validate_metrics {ranks[key].shape}")
+        differ = np.flatnonzero(dumped != ranks[key])
+        n_diff += len(differ)
+        check_rank_band(torch, dumped, s, direction)
+        for i in differ:  # how near the positive's closest rival lies
+            gap = (s[i] - s[i, i]).abs()
+            gap[i] = float("inf")
+            gaps.append(float(gap.min()))
+    log(f"  the dump against validate_metrics(streaming=False): {n_diff} "
+        f"of {2 * len(rows)} ranks differ, all within the "
+        f"+-{RANK_TIE_TOL} near-tie band (largest gap to the nearest "
+        f"rival among them {max(gaps, default=0.0):.3g}); keys "
+        f"{rows[0]['key']}..{rows[-1]['key']}")
+
+
 def phase_cli(torch, np, seed: int, root: str) -> dict:
     """7b-7f: the command-line chain at cmhse_full's published widths over a
     reference-layout directory written by the port's fixtures under
@@ -2168,11 +2245,7 @@ def phase_cli(torch, np, seed: int, root: str) -> dict:
                                      import_torch, retrieve)
     from cmhse_tpu_torch.cli import train as train_cli
     from cmhse_tpu_torch.config import get_preset
-    from cmhse_tpu_torch.data import (PrecompDataset, Vocabulary,
-                                      batches_from_dataset)
     from cmhse_tpu_torch.data.fixtures import write_reference_dataset
-    from cmhse_tpu_torch.eval.encode import encode_gallery_device
-    from cmhse_tpu_torch.eval.retrieval import validate_metrics
     from cmhse_tpu_torch.ops import cuda_lib
     from cmhse_tpu_torch.train.checkpoint import restore_for_eval
 
@@ -2266,37 +2339,9 @@ def phase_cli(torch, np, seed: int, root: str) -> dict:
         raise AssertionError("the subprocess's dump differs from the "
                              "in-process one")
 
-    def dense():
-        model, rcfg = restore_for_eval(run)
-        ds = PrecompDataset(data, "val",
-                            Vocabulary.load(os.path.join(
-                                data, "vocab.json")),
-                            feat_dim=rcfg.data.feat_dim)
-        batches = list(batches_from_dataset(ds, rcfg.data,
-                                            shuffle=False))
-        _, ranks = validate_metrics(model, batches, streaming=False,
-                                    return_ranks=True)
-        v, p, valid = encode_gallery_device(model, batches)
-        return ranks, (v[valid] @ p[valid].T).float()
-
-    (ranks, sims), _ = stage("dense validate_metrics (comparison)",
-                             dense, counted=False)
-    n_diff, gaps = 0, []
-    for key, direction, s in (("v2p_ranks", "v2p_rank", sims),
-                              ("p2v_ranks", "p2v_rank", sims.T)):
-        dumped = np.asarray([r[direction] for r in rows])
-        differ = np.flatnonzero(dumped != ranks[key])
-        n_diff += len(differ)
-        check_rank_band(torch, dumped, s, direction)
-        for i in differ:  # how near the positive's closest rival lies
-            gap = (s[i] - s[i, i]).abs()
-            gap[i] = float("inf")
-            gaps.append(float(gap.min()))
-    log(f"  the dump against validate_metrics(streaming=False): {n_diff} "
-        f"of {2 * len(rows)} ranks differ, all within the "
-        f"+-{RANK_TIE_TOL} near-tie band (largest gap to the nearest "
-        f"rival among them {max(gaps, default=0.0):.3g}); keys "
-        f"{rows[0]['key']}..{rows[-1]['key']}")
+    stage("dense validate_metrics (comparison)",
+          lambda: dump_against_dense(torch, np, run, data, rows),
+          counted=False)
 
     log("  7e: cli.export_torch -> .pth.tar, cli.import_torch, "
         "cli.evaluate --dump_ranks of the import")
@@ -3634,6 +3679,453 @@ def phase_bench(torch) -> dict:
     return launches
 
 
+# phase 11b: the JAX package's other training presets at their published
+# widths (vocab 10,000, word_dim 300, feat_dim 500, H = E = 1024)
+PRESET_PARITY_BATCH = 8  # the card-vs-CPU steps, as 5c
+PRESET_EPOCHS = 2
+# didemo: 8-video length groups of this many correlated videos; the
+# shortest group fits the 12-frame bucket, the longest takes 48
+DIDEMO_PARITY_VIDEOS = 512
+# didemo's cli.train run. At 512 synthetic videos every batch of 64 takes
+# the top bucket (the shortest length group's longest clip has 26 frames
+# from seed 0); from 640 on the shortest group fits the 24-frame bucket.
+DIDEMO_CLI_VIDEOS = 768
+DIDEMO_EVAL_VIDEOS = 256  # the reference-layout val split cli.evaluate ranks
+DIDEMO_RESUME_VIDEOS = 256  # 4 steps an epoch at batch 64
+DIDEMO_SNAPSHOT = 3  # snapshot_step of the resume check
+DIDEMO_KILL_AFTER = 6  # killed in epoch 1, two length groups done
+FLAT_TRAIN_VIDEOS = 100  # flat_anet_subset's own (BASELINE config 1)
+FLAT_VAL_VIDEOS = 100
+HIER_STEPS = 8
+PRESET_CLI_TIMEOUT_S = 600
+# (GRUs, ranking levels) a step: K1 save_gates and K2 once a GRU, K3 once a
+# level; none of these presets has decoders, so no seeded (with_h0) launch
+PRESET_SHAPE = {"didemo": (4, 2), "hier_anet": (4, 2),
+                "flat_anet_subset": (2, 1)}
+
+
+def preset_step_launches(name: str) -> dict:
+    """The kernel launches one train step of preset ``name`` makes."""
+    grus, levels = PRESET_SHAPE[name]
+    return {"gru_bwd float32 zero_h0": grus,
+            "gru_fwd float32 save_gates": grus,
+            "simhinge float32 pair": levels}
+
+
+def sync(torch, dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def bucket_of(batch) -> str:
+    """A batch's bucket: frames a clip x words a sentence."""
+    return f"{batch.frames.shape[2]}x{batch.words.shape[2]}"
+
+
+class StepRecorder:
+    """A stand-in for a train step function (``real``) that records each
+    step's bucket, wall ms (from a synchronize to a synchronize) and kernel
+    launches, then returns the real step's result."""
+
+    def __init__(self, torch, real, dev) -> None:
+        self.torch, self.real, self.dev = torch, real, dev
+        self.steps: list[dict] = []
+
+    def __call__(self, state, batch, loss_cfg, **kw):
+        before = launch_counts()
+        sync(self.torch, self.dev)
+        t0 = time.perf_counter()
+        out = self.real(state, batch, loss_cfg, **kw)
+        sync(self.torch, self.dev)
+        ms = (time.perf_counter() - t0) * 1e3
+        after = launch_counts()
+        self.steps.append(dict(
+            bucket=bucket_of(batch), ms=ms,
+            launches={k: n - before.get(k, 0) for k, n in after.items()
+                      if n != before.get(k, 0)}))
+        return out
+
+
+def check_steps(what: str, steps: list, want: dict, dev) -> dict:
+    """Log the steps' buckets with their counts and median ms, and fail
+    unless each step launched ``want`` (on the card). Returns {bucket:
+    median ms}."""
+    import numpy as np
+
+    by = {}
+    for s in steps:
+        by.setdefault(s["bucket"], []).append(s["ms"])
+    medians = {b: float(np.median(v)) for b, v in by.items()}
+    log(f"  {what}: {len(steps)} steps (the first {steps[0]['ms']:.3f} ms); "
+        "frames x words buckets, steps and median step ms: " + ", ".join(
+            f"{b} {len(by[b])} steps {medians[b]:.3f} ms"
+            for b in sorted(by, key=lambda b: tuple(map(int, b.split("x"))))))
+    if dev.type == "cuda":
+        wrong = [s for s in steps if s["launches"] != want]
+        if wrong:
+            raise AssertionError(f"{what}: launches a step {wrong[0]}, "
+                                 f"expected {want}")
+        log(f"  {what}: launches a step {want} in every step")
+    return medians
+
+
+def preset_config(name: str, **data):
+    """Preset ``name`` at its published widths, ``data`` overriding its
+    DataConfig (the batch size)."""
+    import dataclasses
+
+    from cmhse_tpu_torch.config import get_preset
+
+    cfg = get_preset(name)
+    return cfg.replace(data=dataclasses.replace(cfg.data, **data))
+
+
+def preset_examples(cfg, n: int, seed: int) -> list:
+    """``n`` correlated synthetic videos at ``cfg``'s caps, drawn once
+    (set-up), as phase 6's."""
+    from cmhse_tpu_torch.data import CorrelatedSyntheticDataset
+
+    d = cfg.data
+    ds = CorrelatedSyntheticDataset(
+        num_videos=n, feat_dim=d.feat_dim, vocab_size=d.vocab_size,
+        max_clips=d.max_clips, max_frames=d.max_frames,
+        max_words=d.max_words, seed=seed)
+    return [ds[i] for i in range(n)]
+
+
+def preset_fit_config(cfg, ckpt_dir: str, seed: int, **train):
+    """``cfg`` trained PRESET_EPOCHS epochs into ``ckpt_dir``, logging each
+    step, lr decay each epoch, validation at each epoch's end only."""
+    import dataclasses
+
+    over = dict(num_epochs=PRESET_EPOCHS, lr_update=1, val_step=0,
+                snapshot_step=0, log_step=1, seed=seed,
+                checkpoint_dir=ckpt_dir)
+    over.update(train)
+    return cfg.replace(train=dataclasses.replace(cfg.train, **over))
+
+
+def cli_train_child(out_path: str, argv: list) -> None:
+    """Phase 11b's ``python -m cmhse_tpu_torch.cli.train`` run, in its own
+    process: the module run as ``-m`` runs it (runpy, ``__main__``), with
+    ``train.loop.train_step`` wrapped by a StepRecorder. Writes to
+    ``out_path`` as JSON: the exit code, the steps and the process's kernel
+    launches."""
+    import runpy
+
+    import torch
+
+    import cmhse_tpu_torch.train.loop as loop_mod
+    from cmhse_tpu_torch.device import resolve_device
+
+    cpu = "--platform" in argv and argv[argv.index("--platform") + 1] == "cpu"
+    dev = resolve_device("cpu" if cpu else None)
+    rec = StepRecorder(torch, loop_mod.train_step, dev)
+    sys.argv = ["cmhse_tpu_torch.cli.train", *argv]
+    rc = None
+    with patched(loop_mod, "train_step", rec):
+        try:
+            runpy.run_module("cmhse_tpu_torch.cli.train", run_name="__main__",
+                             alter_sys=True)
+        except SystemExit as e:
+            rc = e.code
+    with open(out_path, "w") as f:
+        json.dump(dict(rc=rc, steps=rec.steps, launches=launch_counts()), f)
+
+
+def preset_kernel_rows(torch, rng, didemo_batch, flat_batch) -> dict:
+    """K1 (encode, save_gates) and K2 against their plain versions, with
+    cuDNN's times, at flat_anet_subset's video_low (32 x 128, D = 500) and
+    text_low (32 x 96, D = 300) and at didemo's largest bucket's video_low
+    (384 x 48, D = 500), with the lengths of one batch of each; K3 at 384
+    rows (didemo's low level at batch 64)."""
+    b = flat_batch
+    shapes = [
+        (f"flat video_low {b.frames.shape[0]}x{b.frames.shape[2]} D=500",
+         b.frame_len[:, 0].copy(), b.frames.shape[2], 500),
+        (f"flat text_low {b.words.shape[0]}x{b.words.shape[2]} D=300",
+         b.word_len[:, 0].copy(), b.words.shape[2], 300),
+        (f"didemo video_low {didemo_batch.frame_len.size}x"
+         f"{didemo_batch.frames.shape[2]} D=500",
+         didemo_batch.frame_len.reshape(-1).copy(),
+         didemo_batch.frames.shape[2], 500),
+    ]
+    encode = phase_gru(torch, rng, shapes)
+    fwd, bwd = phase_gru_train(torch, rng,
+                               [(*s, False) for s in shapes])
+    n_low = didemo_batch.frame_len.size
+    return dict(encode=encode, save_gates=fwd, bwd=bwd,
+                simhinge=phase_simhinge(torch, rng, (n_low,)))
+
+
+def phase_presets(torch, np, seed: int, root: str, dev) -> dict:
+    """11b: didemo, flat_anet_subset and hier_anet at their published
+    widths on correlated synthetic data, random weights from ``seed``,
+    on ``dev``. Returns the launches of the runs that drive each preset's
+    path (each counted from 0 and read after it) and the kernel rows."""
+    import collections
+    import dataclasses
+    import importlib.util
+    import os
+
+    import cmhse_tpu_torch.train.loop as loop_mod
+    from cmhse_tpu_torch.cli import build_vocab, evaluate
+    from cmhse_tpu_torch.data import Prefetcher, batches_from_dataset
+    from cmhse_tpu_torch.data.fixtures import write_reference_dataset
+    from cmhse_tpu_torch.models import CMHSE
+    from cmhse_tpu_torch.ops import cuda_lib
+    from cmhse_tpu_torch.train import (create_train_state,
+                                       set_learning_rate, train_step)
+    from cmhse_tpu_torch.train.checkpoint import CheckpointManager
+
+    counts = collections.Counter()
+    rng = np.random.RandomState(seed + 11)
+    on_card = dev.type == "cuda"
+    platform = [] if on_card else ["--platform", "cpu"]
+
+    # ---- didemo: bucketed, length-grouped batches, one step a dispatch ----
+    didemo = preset_config("didemo", batch_size=PRESET_PARITY_BATCH)
+    dc = didemo.data
+    log(f"  didemo: Cmax {dc.max_clips} Fmax {dc.max_frames} Smax "
+        f"{dc.max_sentences} Wmax {dc.max_words}, buckets frames "
+        f"{dc.frame_buckets} words {dc.word_buckets}, fixed_shape "
+        f"{dc.fixed_shape}, group_by_length {dc.group_by_length}; model "
+        f"{didemo.model}; loss {didemo.loss}")
+    examples = preset_examples(didemo, DIDEMO_PARITY_VIDEOS, seed + 3)
+    grouped = list(batches_from_dataset(
+        examples, dc, shuffle=True, seed=seed, fixed_shape=False,
+        group_by_length=True))
+
+    def size(b):
+        return b.frames.shape[2] * b.words.shape[2]
+
+    small, large = min(grouped, key=size), max(grouped, key=size)
+    if size(small) == size(large):
+        raise AssertionError("didemo's batches of 8 took one bucket")
+    for b in (small, large):
+        zero = int((b.frame_len == 0).sum())
+        step_parity(torch, didemo, b, seed,
+                    f"didemo batch 8, bucket {bucket_of(b)} ({zero} of "
+                    f"{b.frame_len.size} clip rows empty)", dev)
+
+    # the pinned ring grows when a larger bucket follows a smaller one:
+    # the first pass over an epoch's batches pays for the allocations
+    pre = Prefetcher(dev)
+    pass_ms = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        for _ in pre(grouped):
+            pass
+        sync(torch, dev)
+        pass_ms.append((time.perf_counter() - t0) * 1e3)
+    for host, (_, got) in zip(grouped, pre(grouped)):
+        want = host.to(dev)
+        for f in dataclasses.fields(host):
+            if not torch.equal(torch.as_tensor(getattr(got, f.name)),
+                               getattr(want, f.name)):
+                raise AssertionError(f"prefetched {f.name} differs")
+    log(f"  prefetch of {len(grouped)} bucketed batches of 8 (host ms, "
+        f"through the pinned ring): first pass {pass_ms[0]:.3f} (buffers "
+        f"grown), second {pass_ms[1]:.3f}; every batch equal to Batch.to's")
+
+    run = os.path.join(root, "didemo_cli")
+    mc = didemo.model  # the preset's own widths, spelled out
+    argv = ["--preset", "didemo", "--synthetic", "--correlated",
+            "--synthetic_videos", str(DIDEMO_CLI_VIDEOS), "--num_epochs",
+            str(PRESET_EPOCHS), "--vocab_size", str(dc.vocab_size),
+            "--word_dim", str(mc.word_dim), "--feat_dim", str(mc.feat_dim),
+            "--rnn_hidden", str(mc.rnn_hidden), "--embed_size",
+            str(mc.embed_size), "--log_step", "1", "--seed", str(seed),
+            "--logger_name", run] + platform
+    out_path = os.path.join(root, "didemo_cli.json")
+    log("  python -m cmhse_tpu_torch.cli.train " + " ".join(argv)
+        + " (its own process; each step timed)")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", "import chip_smoke; chip_smoke."
+         f"cli_train_child({out_path!r}, {argv!r})"],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT)),
+        capture_output=True, text=True, timeout=PRESET_CLI_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0 or not os.path.exists(out_path):
+        raise AssertionError(f"cli.train --preset didemo: rc "
+                             f"{proc.returncode}\n{proc.stderr[-4000:]}")
+    with open(out_path) as f:
+        child = json.load(f)
+    if child["rc"] not in (0, None):
+        raise AssertionError(f"cli.train --preset didemo exited {child['rc']}")
+    counts.update(child["launches"])
+    log_path = os.path.join(run, "log.jsonl")
+    losses = [e["loss"] for e in jsonl(log_path, "train_step")]
+    epochs = jsonl(log_path, "epoch_end")
+    medians = check_steps("didemo cli.train", child["steps"],
+                          preset_step_launches("didemo"), dev)
+    log(f"  didemo cli.train: {wall:.2f} s in its own process; epoch "
+        "seconds " + ", ".join(f"{e['seconds']:.3f}" for e in epochs)
+        + f"; validations (rsum) " + ", ".join(
+            f"{e['rsum']:.2f}" for e in jsonl(log_path, "validate"))
+        + f"; launches in the process {child['launches']}")
+    log("  losses: " + json.dumps(losses))
+    if len(medians) < 2:
+        raise AssertionError(f"didemo's cli.train saw one bucket: {medians}")
+    if len(losses) != len(child["steps"]) or not all(np.isfinite(losses)) \
+            or not min(losses[1:]) < losses[0]:
+        raise AssertionError(f"didemo's losses {losses}")
+    if not os.path.exists(os.path.join(run, "best")):
+        raise AssertionError("didemo's cli.train wrote no best checkpoint")
+
+    data = os.path.join(root, "didemo_data")
+    layout = "h5" if importlib.util.find_spec("h5py") else "npy"
+    write_reference_dataset(
+        data, n_train=8, n_val=DIDEMO_EVAL_VIDEOS, feat_dim=dc.feat_dim,
+        seed=seed, features=layout, clips=(1, dc.max_clips + 1),
+        rows=(4, dc.max_frames + 1))
+    if build_vocab.main(["--data_path", data, "--threshold", "1",
+                         *platform]) != 0:
+        raise AssertionError("build_vocab")
+    dump = os.path.join(root, "didemo_ranks.jsonl")
+    eval_argv = [os.path.join(run, "best"), "--data_path", data,
+                 "--streaming", "--dump_ranks", dump] + platform
+    cuda_lib.reset_launches()
+    t0 = time.perf_counter()
+    if evaluate.main(eval_argv) != 0:
+        raise AssertionError("cli.evaluate of didemo's best")
+    sync(torch, dev)
+    eval_counts = launch_counts()
+    counts.update(eval_counts)
+    log(f"  cli.evaluate {' '.join(eval_argv)}: "
+        f"{time.perf_counter() - t0:.2f} s (in this process), "
+        f"{DIDEMO_EVAL_VIDEOS} reference-layout val videos of 1-"
+        f"{dc.max_clips} clips of 4-{dc.max_frames} rows; launches "
+        f"{eval_counts}")
+    if on_card and total(eval_counts, "rankcount float32") != 2:
+        raise AssertionError(f"cli.evaluate --streaming: {eval_counts}")
+    dump_against_dense(torch, np, os.path.join(run, "best"), data,
+                       dump_rows(dump), dev)
+
+    # a bucketed run killed mid-epoch and resumed from its snapshot
+    resume = preset_config("didemo")
+    train = preset_examples(resume, DIDEMO_RESUME_VIDEOS, seed + 4)
+    cfg_a = preset_fit_config(resume, os.path.join(root, "didemo_a"), seed,
+                              snapshot_step=DIDEMO_SNAPSHOT)
+    rec = StepRecorder(torch, loop_mod.train_step, dev)
+    cuda_lib.reset_launches()
+    t0 = time.perf_counter()
+    with patched(loop_mod, "train_step", rec):
+        state_a, _ = loop_mod.fit(cfg_a, train, None, device=dev)
+    fit_s = time.perf_counter() - t0
+    counts.update(launch_counts())
+    check_steps("didemo fit (the uninterrupted run)", rec.steps,
+                preset_step_launches("didemo"), dev)
+    calls = {"n": 0}
+    real_step = loop_mod.train_step
+
+    def killer(state, batch, loss_cfg, **kw):
+        if calls["n"] >= DIDEMO_KILL_AFTER:
+            raise Killed()
+        calls["n"] += 1
+        return real_step(state, batch, loss_cfg, **kw)
+
+    cfg_b = preset_fit_config(resume, os.path.join(root, "didemo_b"), seed,
+                              snapshot_step=DIDEMO_SNAPSHOT)
+    with patched(loop_mod, "train_step", killer):
+        try:
+            loop_mod.fit(cfg_b, train, None, device=dev)
+            raise AssertionError("the didemo run was not killed")
+        except Killed:
+            pass
+    mgr = CheckpointManager(cfg_b.train.checkpoint_dir)
+    snap = torch.load(os.path.join(mgr.ckpt_dir, str(mgr.latest_step())),
+                      weights_only=True)
+    where = (snap["step"], snap["epoch"], snap["groups_done"])
+    per_epoch = -(-DIDEMO_RESUME_VIDEOS // resume.data.batch_size)
+    if where != (DIDEMO_KILL_AFTER, DIDEMO_KILL_AFTER // per_epoch,
+                 DIDEMO_KILL_AFTER % per_epoch):
+        raise AssertionError(f"didemo's snapshot (step, epoch, groups) "
+                             f"{where}")
+    cfg_r = preset_fit_config(resume, cfg_b.train.checkpoint_dir, seed,
+                              snapshot_step=DIDEMO_SNAPSHOT,
+                              resume=cfg_b.train.checkpoint_dir)
+    state_b, _ = loop_mod.fit(cfg_r, train, None, device=dev)
+    cmp = compare_states(torch, state_a.state_dict(), state_b.state_dict())
+    log(f"  didemo bucketed fit, {DIDEMO_RESUME_VIDEOS} videos at batch "
+        f"{resume.data.batch_size}: {fit_s:.2f} s; killed after step "
+        f"{DIDEMO_KILL_AFTER}, resumed from its snapshot (step, epoch, "
+        f"groups) {where}: steps {cmp['steps']}, bitwise equal "
+        f"{cmp['bitwise']}, worst {cmp['worst'][0]} {cmp['worst'][1]:.3g}")
+    if not cmp["bitwise"] or cmp["steps"][0] != cmp["steps"][1]:
+        raise AssertionError("didemo's resumed run differs from the "
+                             "uninterrupted one")
+    largest = next(batches_from_dataset(train, resume.data, shuffle=False))
+    del state_a, state_b
+
+    # ---- flat_anet_subset: one GRU a modality, T = 128 / 96 ----
+    flat = preset_config("flat_anet_subset")
+    fd = flat.data
+    log(f"  flat_anet_subset: batch {fd.batch_size}, Fmax {fd.max_frames} "
+        f"Wmax {fd.max_words}, model {flat.model}, loss {flat.loss}")
+    flat8 = preset_config("flat_anet_subset",
+                          batch_size=PRESET_PARITY_BATCH)
+    step_parity(torch, flat8, next(batches_from_dataset(
+        preset_examples(flat8, PRESET_PARITY_BATCH, seed + 5), flat8.data,
+        shuffle=False)), seed, "flat_anet_subset batch 8", dev)
+    train = preset_examples(flat, FLAT_TRAIN_VIDEOS, seed + 6)
+    val = preset_examples(flat, FLAT_VAL_VIDEOS, seed + 7)
+    cfg_f = preset_fit_config(flat, os.path.join(root, "flat"), seed)
+    rec = StepRecorder(torch, loop_mod.train_step, dev)
+    cuda_lib.reset_launches()
+    t0 = time.perf_counter()
+    with patched(loop_mod, "train_step", rec):
+        _, best = loop_mod.fit(cfg_f, train, val, device=dev)
+    fit_s = time.perf_counter() - t0
+    counts.update(launch_counts())
+    check_steps("flat_anet_subset fit", rec.steps,
+                preset_step_launches("flat_anet_subset"), dev)
+    log_path = os.path.join(cfg_f.train.checkpoint_dir, "log.jsonl")
+    losses = [e["loss"] for e in jsonl(log_path, "train_step")]
+    log(f"  flat_anet_subset fit: {fit_s:.2f} s, epoch seconds "
+        + ", ".join(f"{e['seconds']:.3f}"
+                    for e in jsonl(log_path, "epoch_end"))
+        + f"; best rsum {best:.2f}; losses {json.dumps(losses)}")
+    if not all(np.isfinite(losses)) or not np.isfinite(best) or \
+            not os.path.exists(os.path.join(cfg_f.train.checkpoint_dir,
+                                            "best")):
+        raise AssertionError("flat_anet_subset's fit")
+    flat_batch = next(batches_from_dataset(train, fd, shuffle=False))
+
+    # ---- hier_anet: hierarchical, last-state readouts, no decoders ----
+    hier = preset_config("hier_anet")
+    hier8 = preset_config("hier_anet", batch_size=PRESET_PARITY_BATCH)
+    step_parity(torch, hier8, next(batches_from_dataset(
+        preset_examples(hier8, PRESET_PARITY_BATCH, seed + 8), hier8.data,
+        shuffle=False)), seed, "hier_anet batch 8", dev)
+    batch = next(batches_from_dataset(
+        preset_examples(hier, hier.data.batch_size, seed + 9), hier.data,
+        shuffle=False))
+    model = CMHSE(hier.model, hier.data.vocab_size, device=dev,
+                  generator=torch.Generator().manual_seed(seed))
+    state = set_learning_rate(create_train_state(hier, model), TRAIN_LR)
+    rec = StepRecorder(torch, train_step, dev)
+    cuda_lib.reset_launches()
+    hier_losses = []
+    for _ in range(HIER_STEPS):
+        state, m = rec(state, batch, hier.loss)
+        hier_losses.append(float(m["loss"]))
+    counts.update(launch_counts())
+    check_steps(f"hier_anet, {HIER_STEPS} train_steps on one batch of "
+                f"{hier.data.batch_size} at lr {TRAIN_LR}", rec.steps,
+                preset_step_launches("hier_anet"), dev)
+    log(f"  hier_anet losses: {json.dumps(hier_losses)}")
+    if not all(np.isfinite(hier_losses)):
+        raise AssertionError(f"hier_anet's losses {hier_losses}")
+    del state, model
+
+    rows = (preset_kernel_rows(torch, rng, largest, flat_batch)
+            if on_card else {})
+    log(f"  phase 11b launches (the preset runs): {dict(counts)}")
+    return dict(counts=dict(counts), rows=rows)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3837,6 +4329,15 @@ def main() -> int:
         shutil.rmtree(cli_root, ignore_errors=True)
     phase("phase 11: python -m cmhse_tpu_torch.cli.bench")
     bcounts_bench = phase_bench(torch)
+    phase("phase 11b: the JAX package's other training presets at their "
+          "published widths: didemo, flat_anet_subset, hier_anet")
+    presets_root = tempfile.mkdtemp(prefix="cmhse_presets_")
+    try:
+        presets = phase_presets(torch, np, args.seed, presets_root,
+                                torch.device("cuda"))
+    finally:
+        shutil.rmtree(presets_root, ignore_errors=True)
+    pcounts, prows = presets["counts"], presets["rows"]
 
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith(("jax.", "cmhse_tpu.")))
@@ -3877,8 +4378,9 @@ def main() -> int:
         entry("gru_fwd", "gru_fwd.cu", k1,
               gru_rows + fwd_rows + [any_h[("gru_fwd", "float32", PAD_H)],
                                      any_h[("gru_fwd save_gates", "float32",
-                                            PAD_H)]],
-              "serve+train+fit+cli+daemon+nccl+sharded+bench",
+                                            PAD_H)]]
+              + prows["encode"] + prows["save_gates"],
+              "serve+train+fit+cli+daemon+nccl+sharded+bench+presets",
               total(counts, "gru_fwd float32")
               + total(tcounts, "gru_fwd float32")
               + total(fcounts, "gru_fwd float32")
@@ -3886,7 +4388,8 @@ def main() -> int:
               + total(dcounts, "gru_fwd float32")
               + resident("gru_fwd float32")
               + total(scounts, "gru_fwd float32")
-              + total(bcounts_bench, "gru_fwd float32"),
+              + total(bcounts_bench, "gru_fwd float32")
+              + total(pcounts, "gru_fwd float32"),
               launches_by_path={"serve": total(counts, "gru_fwd"),
                                 "train": total(tcounts, "gru_fwd"),
                                 "fit": total(fcounts, "gru_fwd"),
@@ -3894,52 +4397,62 @@ def main() -> int:
                                 "daemon": total(dcounts, "gru_fwd"),
                                 "nccl": resident("gru_fwd"),
                                 "sharded": total(scounts, "gru_fwd"),
-                                "bench": total(bcounts_bench, "gru_fwd")},
+                                "bench": total(bcounts_bench, "gru_fwd"),
+                                "presets": total(pcounts, "gru_fwd")},
               launches_train_by_variant={
                   k: n for k, n in tcounts.items() if k.startswith("gru_fwd")},
               launches_fit_by_variant={k: n for k, n in fcounts.items()
                                        if k.startswith("gru_fwd")},
               launches_cli_by_variant={k: n for k, n in ccounts.items()
-                                       if k.startswith("gru_fwd")}),
+                                       if k.startswith("gru_fwd")},
+              launches_presets_by_variant={k: n for k, n in pcounts.items()
+                                           if k.startswith("gru_fwd")}),
         entry("gru_bwd", "gru_bwd.cu", k2,
-              bwd_rows + [any_h[("gru_bwd", "float32", PAD_H)]],
-              "train+fit+cli+nccl+bench",
+              bwd_rows + [any_h[("gru_bwd", "float32", PAD_H)]]
+              + prows["bwd"],
+              "train+fit+cli+nccl+bench+presets",
               total(tcounts, "gru_bwd float32")
               + total(fcounts, "gru_bwd float32")
               + total(ccounts, "gru_bwd float32")
               + resident("gru_bwd float32")
-              + total(bcounts_bench, "gru_bwd float32"),
+              + total(bcounts_bench, "gru_bwd float32")
+              + total(pcounts, "gru_bwd float32"),
               launches_by_path={"train": total(tcounts, "gru_bwd"),
                                 "fit": total(fcounts, "gru_bwd"),
                                 "cli": total(ccounts, "gru_bwd"),
                                 "nccl": resident("gru_bwd"),
-                                "bench": total(bcounts_bench, "gru_bwd")}),
+                                "bench": total(bcounts_bench, "gru_bwd"),
+                                "presets": total(pcounts, "gru_bwd")}),
         entry("simhinge", "simhinge.cu", "cmhse_tpu/ops/pallas_sim.py:58",
-              sh_rows, "train+fit+cli+nccl+bench",
+              sh_rows + prows["simhinge"], "train+fit+cli+nccl+bench+presets",
               total(tcounts, "simhinge") + total(bcounts, "simhinge")
               + total(fcounts, "simhinge") + total(ccounts, "simhinge")
               + total(ncounts, "simhinge")
-              + total(bcounts_bench, "simhinge"),
+              + total(bcounts_bench, "simhinge")
+              + total(pcounts, "simhinge"),
               launches_by_path={"train": total(tcounts, "simhinge"),
                                 "train bf16": total(bcounts, "simhinge"),
                                 "fit": total(fcounts, "simhinge"),
                                 "cli": total(ccounts, "simhinge"),
                                 "nccl": total(ncounts, "simhinge"),
-                                "bench": total(bcounts_bench, "simhinge")},
+                                "bench": total(bcounts_bench, "simhinge"),
+                                "presets": total(pcounts, "simhinge")},
               ms_from="CUDA-graph replay of one call (graph_ms)",
               call_ms=sh_rows[0]["call_ms"]),
         entry("rankcount", "rankcount.cu", k4, rc_rows,
-              "serve+train+cli+nccl+bench",
+              "serve+train+cli+nccl+bench+presets",
               total(counts, "rankcount float32")
               + total(tcounts, "rankcount float32")
               + total(ccounts, "rankcount float32")
               + total(ncounts, "rankcount float32")
-              + total(bcounts_bench, "rankcount float32"),
+              + total(bcounts_bench, "rankcount float32")
+              + total(pcounts, "rankcount float32"),
               launches_by_path={"serve": total(counts, "rankcount"),
                                 "train": total(tcounts, "rankcount"),
                                 "cli": total(ccounts, "rankcount"),
                                 "nccl": total(ncounts, "rankcount"),
-                                "bench": total(bcounts_bench, "rankcount")}),
+                                "bench": total(bcounts_bench, "rankcount"),
+                                "presets": total(pcounts, "rankcount")}),
         entry("gru_fwd bf16", "gru_fwd.cu", k1, bf16_rows["encode"],
               "serve bf16", total(bf16_counts, "gru_fwd bfloat16 encode")),
         entry("gru_fwd bf16 save_gates", "gru_fwd.cu", k1,
@@ -3986,7 +4499,8 @@ def main() -> int:
                 e["launches_by_path"]["nccl"] <= 0:
             raise AssertionError(f"phase 9 (NCCL) launched no {e['name']}")
         for path, where in (("sharded", "phase 10 (the sharded daemon)"),
-                            ("bench", "phase 11 (cli.bench)")):
+                            ("bench", "phase 11 (cli.bench)"),
+                            ("presets", "phase 11b (the presets)")):
             if e.get("launches_by_path", {}).get(path, 1) <= 0:
                 raise AssertionError(f"{where} launched no {e['name']}")
     phase("done")

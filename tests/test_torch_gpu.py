@@ -1754,3 +1754,94 @@ def test_nccl_world_1_dp_step_equals_train_step_bitwise(cuda, tmp_path):
             assert torch.equal(a, b), name
     finally:
         dist.destroy_process_group()
+
+
+# ---- the JAX package's other presets: bucketed didemo, flat at T = 128 -----
+# chip_smoke.py phase 5c's bands: loss within 1e-4 relative, grad_norm
+# within 1e-3, each gradient's largest error within 1e-3 of its largest
+# entry (f32 sums in other orders through the BPTT steps and hinge passes)
+STEP_LOSS_RTOL, STEP_NORM_RTOL, STEP_GRAD_RTOL = 1e-4, 1e-3, 1e-3
+
+
+def _preset_step_on_card_matches_cpu(cuda, cfg, batch, launches):
+    """One step on ``batch`` from seeded weights, card against the CPU:
+    the card's launches, then loss, grad_norm and every gradient in 5c's
+    bands."""
+    from cmhse_tpu_torch.train import global_norm
+
+    res = []
+    for dev in ("cpu", cuda):
+        model = CMHSE(cfg.model, cfg.data.vocab_size, device=dev,
+                      generator=torch.Generator().manual_seed(5))
+        b = batch.to(dev)
+        cuda_lib.reset_launches()
+        loss, _ = total_loss(model(b), b, cfg.loss)
+        loss.backward()
+        grads = {k: p.grad.cpu() for k, p in model.named_parameters()}
+        res.append((loss.item(), float(global_norm(list(grads.values()))),
+                    grads))
+    assert dict(cuda_lib.launches) == launches  # the card's step
+    (loss_c, norm_c, g_c), (loss, norm, g) = res
+    assert abs(loss - loss_c) <= STEP_LOSS_RTOL * abs(loss_c)
+    assert abs(norm - norm_c) <= STEP_NORM_RTOL * abs(norm_c)
+    for k, grad in g.items():
+        assert _rel_err(grad, g_c[k]) <= STEP_GRAD_RTOL, k
+
+
+@pytest.mark.parametrize("which", ["smallest", "largest"])
+def test_bucketed_train_step_on_card_matches_cpu(cuda, which):
+    """didemo's model (attention pools, no decoders) on bucketed,
+    length-grouped batches at tests/test_didemo_stress.py's caps: the
+    smallest and the largest bucket the loader gives, each with empty clip
+    rows."""
+    from cmhse_tpu_torch.config import DataConfig, LossConfig
+    from cmhse_tpu_torch.data import (SyntheticHierarchicalDataset,
+                                      batches_from_dataset)
+
+    data = DataConfig(batch_size=8, feat_dim=16, vocab_size=64, max_clips=4,
+                      max_frames=24, max_sentences=4, max_words=12,
+                      frame_buckets=(6, 12, 24), word_buckets=(4, 8, 12),
+                      fixed_shape=False, group_by_length=True)
+    cfg = ExperimentConfig(
+        data=data, loss=LossConfig(recon_weight=0.0),
+        model=ModelConfig(embed_size=24, word_dim=12, feat_dim=16,
+                          rnn_hidden=24, hierarchical=True,
+                          attention_pool=True))
+    ds = SyntheticHierarchicalDataset(num_videos=48, feat_dim=16,
+                                      vocab_size=64, max_clips=4,
+                                      max_frames=24, max_words=12, seed=1)
+    batches = sorted(batches_from_dataset(ds, data, shuffle=False,
+                                          fixed_shape=False,
+                                          group_by_length=True),
+                     key=lambda b: b.frames.shape[2] * b.words.shape[2])
+    assert batches[0].frames.shape[2] < batches[-1].frames.shape[2]
+    batch = batches[0] if which == "smallest" else batches[-1]
+    assert (batch.frame_len == 0).any()
+    _preset_step_on_card_matches_cpu(cuda, cfg, batch, {
+        ("gru_fwd", "float32", "save_gates"): 4,
+        ("gru_bwd", "float32", "zero_h0"): 4,
+        ("simhinge", "float32", "pair"): 2})
+
+
+def test_flat_train_step_at_t128_on_card_matches_cpu(cuda):
+    """flat_anet_subset's model and loss (one GRU a modality, one ranking
+    level) at its caps, T = 128 frames and 96 words, batch 8."""
+    from cmhse_tpu_torch.config import DataConfig, LossConfig
+    from cmhse_tpu_torch.data import (CorrelatedSyntheticDataset,
+                                      batches_from_dataset)
+
+    data = DataConfig(batch_size=8, feat_dim=20, vocab_size=64, max_clips=1,
+                      max_frames=128, max_sentences=1, max_words=96)
+    cfg = ExperimentConfig(
+        data=data, loss=LossConfig(low_weight=0.0, recon_weight=0.0),
+        model=ModelConfig(embed_size=32, word_dim=16, feat_dim=20,
+                          rnn_hidden=32, hierarchical=False))
+    ds = CorrelatedSyntheticDataset(num_videos=8, feat_dim=20, vocab_size=64,
+                                    max_clips=1, max_frames=128,
+                                    max_words=96, seed=2)
+    batch = next(batches_from_dataset(ds, data, shuffle=False))
+    assert batch.frames.shape[2] == 128 and batch.words.shape[2] == 96
+    _preset_step_on_card_matches_cpu(cuda, cfg, batch, {
+        ("gru_fwd", "float32", "save_gates"): 2,
+        ("gru_bwd", "float32", "zero_h0"): 2,
+        ("simhinge", "float32", "pair"): 1})

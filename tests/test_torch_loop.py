@@ -175,24 +175,52 @@ def test_adjust_learning_rate_matches_jax(tmp_path):
 
 # ---- kill and resume --------------------------------------------------------
 
-@pytest.mark.parametrize("spd,attr,kill_after,position", [
+# didemo's batching: bucketed and length-grouped, at edges that give these
+# batches more than one shape
+BUCKETED = dict(fixed_shape=False, group_by_length=True,
+                frame_buckets=(4, 5, 6), word_buckets=(4, 6))
+
+
+@pytest.mark.parametrize("spd,attr,kill_after,position,data", [
     # 24 videos / batch 8 = 3 steps an epoch: killed after step 4, in
     # epoch 1 with one group done
-    (1, "train_step", 4, (1, 1)),
+    pytest.param(1, "train_step", 4, (1, 1), {},
+                 id="1-train_step-4-position0"),
     # two steps a dispatch: groups of [2, 1] steps; killed after 3 of 4
     # dispatches, in epoch 1 with one group done
-    (2, "train_steps", 3, (1, 1)),
+    pytest.param(2, "train_steps", 3, (1, 1), {},
+                 id="2-train_steps-3-position1"),
+    # bucketed, length-grouped batches (one step a dispatch): the resumed
+    # epoch must skip the same length group the killed run trained
+    pytest.param(1, "train_step", 4, (1, 1), BUCKETED, id="bucketed"),
 ])
 def test_kill_and_resume_matches_uninterrupted_run(tmp_path, monkeypatch,
                                                    spd, attr, kill_after,
-                                                   position):
+                                                   position, data):
     """A run killed mid-epoch and resumed from its last snapshot ends
     bitwise equal (parameters, Adam state, step) to the run that was never
     interrupted."""
     over = dict(snapshot_step=1, steps_per_dispatch=spd)
-    state_a, _ = _fit(_cfg(tmp_path / "a", **over), _ds())
 
-    cfg_b = _cfg(tmp_path / "b", **over)
+    def cfg_at(name):
+        cfg = _cfg(tmp_path / name, **over)
+        return dataclasses.replace(cfg, data=dataclasses.replace(cfg.data,
+                                                                 **data))
+
+    shapes = []
+    real = loop_mod.train_step
+
+    def recording(state, batch, loss_cfg):
+        shapes.append(tuple(batch.frames.shape))
+        return real(state, batch, loss_cfg)
+
+    monkeypatch.setattr(loop_mod, "train_step", recording)
+    state_a, _ = _fit(cfg_at("a"), _ds())
+    monkeypatch.undo()
+    if data:
+        assert len(set(shapes)) > 1, shapes
+
+    cfg_b = cfg_at("b")
     _kill_after(monkeypatch, attr, kill_after)
     with pytest.raises(Preempted):
         _fit(cfg_b, _ds())

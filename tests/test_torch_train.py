@@ -1,6 +1,8 @@
 """The port's training step against the JAX package's, on the CPU: one
-step's loss, metrics and every parameter gradient of ``full`` (decoders on)
-and ``hier`` against ``jax.value_and_grad`` on carried params; the 8-step
+step's loss, metrics and every parameter gradient of ``full`` (decoders on),
+``hier``, ``flat`` (flat_anet_subset's one-level loss) and ``didemo``
+(attention pools, no decoders) against ``jax.value_and_grad`` on carried
+params; the 8-step
 ``train_curve`` golden of tests/make_goldens.py; optax's clip rule and Adam
 against the port's."""
 
@@ -33,10 +35,24 @@ torch.set_num_threads(2)
 GRAD_TOL = dict(rtol=2e-4, atol=2e-5)  # the JAX package's own GRU-grad band
 
 
-def _jax_batch():
-    ds = JaxDataset(num_videos=8, feat_dim=20, vocab_size=64, max_clips=3,
-                    max_frames=6, max_words=5, seed=7)
-    return next(iter(jax_batches(ds, DATA, shuffle=False)))
+def _jax_batch(data=DATA):
+    ds = JaxDataset(num_videos=8, feat_dim=20, vocab_size=64,
+                    max_clips=data.max_clips, max_frames=6, max_words=5,
+                    seed=7)
+    return next(iter(jax_batches(ds, data, shuffle=False)))
+
+
+# name -> (model, data, loss): ``full`` (decoders on), ``hier``, the flat
+# model with flat_anet_subset's loss (one ranking level: one K3 pair a
+# step) and didemo's model (attention pools, no decoders)
+ONE_STEP_CASES = {
+    "full": (CONFIGS["full"], DATA, JaxLossConfig(recon_weight=5e-4)),
+    "hier": (CONFIGS["hier"], DATA, JaxLossConfig(recon_weight=0.0)),
+    "flat": (CONFIGS["flat"], DATA_FLAT,
+             JaxLossConfig(low_weight=0.0, recon_weight=0.0)),
+    "didemo": (dataclasses.replace(CONFIGS["hier"], attention_pool=True),
+               DATA, JaxLossConfig(recon_weight=0.0)),
+}
 
 
 def _port_model(mcfg, params):
@@ -53,13 +69,12 @@ def _port_batch(batch):
                     for f in dataclasses.fields(Batch)}).to("cpu")
 
 
-@pytest.mark.parametrize("name", ["full", "hier"])
+@pytest.mark.parametrize("name", list(ONE_STEP_CASES))
 def test_one_step_loss_and_grads_match_jax(name):
-    mcfg = CONFIGS[name]
-    batch = _jax_batch()
+    mcfg, data, jcfg = ONE_STEP_CASES[name]
+    batch = _jax_batch(data)
     jm = JaxCMHSE(cfg=mcfg, vocab_size=DATA.vocab_size)
     params = jm.init(jax.random.PRNGKey(123), batch)["params"]
-    jcfg = JaxLossConfig(recon_weight=5e-4 if name == "full" else 0.0)
 
     def loss_fn(p):
         return jax_total_loss(jm.apply({"params": p}, batch), batch, jcfg)
