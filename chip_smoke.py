@@ -91,7 +91,12 @@ Phases (any failure raises and the script exits non-zero):
      a direct Retriever, an add of a 64-video split while a second client
      queries, remove, compact, stats, shutdown; 8c. a daemon context with
      40,000 spliced rows, ``--quantized``: the same queries, an add, a
-     remove with auto-compaction, against the exact top-k;
+     remove with auto-compaction, against the exact top-k; 8d.
+     ``scripts/torch_serve_soak.py``'s ``main`` for 10 s at its defaults
+     (4 query clients and an add -> remove churn that compacts each
+     cycle): ``ok``, a compaction, and K1 launches on its path; then its
+     fixture again: K1's encode at its shapes (E 512, H 256) card vs
+     CPU, and its daemon's final answers vs a direct Retriever;
   9. one NCCL rank (world size 1, from torchrun's variables on a free
      local port) at full width: 9a. 3 data-parallel ``train_step``s
      against 3 plain ones from the same weights (bit for bit, median ms of
@@ -1823,7 +1828,7 @@ def phase_topk(torch, rng) -> None:
                     lambda: dense_sim_topk(q, g, valid, 10))
                 s_mib, s_ms = mib_and_ms(
                     lambda: streaming_sim_topk(q, prepared, 10))
-            path = ("streaming" if should_stream_topk(q_rows, n)
+            path = ("streaming" if should_stream_topk(q_rows, n_gallery=n)
                     else "dense")
             log(f"    Q={q_rows} N={n}: block {4 * q_rows * n / 2**20:.1f} "
                 f"MiB; dense {d_ms:.4f} ms, peak {d_mib:.1f} MiB; streaming "
@@ -2518,7 +2523,7 @@ def phase_int8(torch, np, rng) -> None:
             f"{tuple(r._prepared.chunks.shape)}")
     exact, int8 = retr["exact"], retr["int8"]
     pe, p8 = exact._prepared, int8._prepared
-    if not topk.should_stream_topk(INT8_QUERIES, rows):
+    if not topk.should_stream_topk(INT8_QUERIES, n_gallery=rows):
         raise AssertionError("the exact path would not stream here")
 
     with torch.inference_mode():
@@ -2981,6 +2986,109 @@ def phase_splice(torch, np, cli: dict, dmn: dict) -> dict:
         raise AssertionError("the spliced daemon did not stop")
     counts = launch_counts()
     log(f"  launches {counts}")
+    return counts
+
+
+SOAK_SECONDS = 10  # 8d
+
+
+def phase_soak(torch) -> dict:
+    """8d: ``scripts/torch_serve_soak.py``'s ``main`` in this process at
+    its defaults on the card, for SOAK_SECONDS: its own fixture and run,
+    query clients and the add -> remove churn against one daemon. The
+    launch counts are set to 0 just before it and read just after; its
+    summary must be ``ok``, with a compaction and K1 launches. Then the
+    soak's fixture is built again (its ``build_fixture`` at the same
+    arguments): K1's encode of its val split at the soak's shapes, card
+    against the CPU's plain path (ENCODE_ATOL), and the daemon's final
+    text and video_key answers against a direct Retriever on the CPU's
+    embeddings, as 8b holds its daemon."""
+    import importlib.util
+    import os
+    import shutil
+    import tempfile
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_serve_soak", ROOT / "scripts" / "torch_serve_soak.py")
+    soak = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(soak)
+    from cmhse_tpu_torch.cli import device_for
+    from cmhse_tpu_torch.data import (PrecompDataset, Vocabulary,
+                                      batches_from_dataset)
+    from cmhse_tpu_torch.eval.encode import encode_gallery_device
+    from cmhse_tpu_torch.eval.serve import (Retriever, text_query_batch,
+                                            video_query_batch)
+    from cmhse_tpu_torch.ops import cuda_lib
+    from cmhse_tpu_torch.train.checkpoint import restore_for_eval
+
+    answers = {}
+    cuda_lib.reset_launches()
+    t0 = time.perf_counter()
+    out = soak.main(["--seconds", str(SOAK_SECONDS)], answers=answers)
+    counts = launch_counts()
+    log(f"  soak {time.perf_counter() - t0:.2f} s with its set-up: "
+        f"{out['queries']} queries ({out['qps']} /s), "
+        f"{out['add_remove_cycles']} add/remove cycles, "
+        f"{out['compactions']} compactions; stats p50 "
+        f"{out['latency_ms_p50']} ms, p99 {out['latency_ms_p99']} ms "
+        f"(last 1,024); every round trip p50 "
+        f"{out['client_latency_ms_p50']} ms, p99 "
+        f"{out['client_latency_ms_p99']}, max "
+        f"{out['client_latency_ms_max']}; launches {counts}")
+    if not out["ok"] or (out["compactions"] or 0) < 1:
+        raise AssertionError(f"the soak failed: {out}")
+    if total(counts, "gru_fwd") <= 0:
+        raise AssertionError("the soak launched no gru_fwd")
+
+    args = soak.build_parser().parse_args([])
+    td = tempfile.mkdtemp(prefix="cmhse_soak_")
+    try:
+        root, run, n_valid = soak.build_fixture(
+            td, args.n_val, args.feat_dim, args.embed,
+            device_for(args.platform))
+        vocab = Vocabulary.load(os.path.join(root, "vocab.json"))
+        models = {dev: restore_for_eval(run, device=dev)
+                  for dev in ("cuda", "cpu")}
+        cfg = models["cpu"][1]
+        ds = PrecompDataset(root, "val", vocab, feat_dim=cfg.data.feat_dim)
+        enc = {}
+        for dev, (model, _) in models.items():
+            with torch.inference_mode():
+                enc[dev] = encode_gallery_device(
+                    model, batches_from_dataset(ds, cfg.data, shuffle=False),
+                    return_ids=True)
+        live = enc["cpu"][2].cpu()  # padded rows are no one's answer
+        err = max((enc["cuda"][i].cpu()[live] - enc["cpu"][i][live])
+                  .abs().max().item() for i in (0, 1))
+        log(f"  the soak's fixture again: {n_valid} videos, E "
+            f"{cfg.model.embed_size}, H {cfg.model.rnn_hidden}, word_dim "
+            f"{cfg.model.word_dim}, Fmax {cfg.data.max_frames}, Wmax "
+            f"{cfg.data.max_words}; K1 encode card vs CPU (plain) max abs "
+            f"err {err:.3g} (limit {ENCODE_ATOL})")
+        if not err <= ENCODE_ATOL:
+            raise AssertionError(f"the soak's encode: card and CPU differ "
+                                 f"by {err}")
+        model = models["cpu"][0]
+        direct_v, direct_t = Retriever(model), Retriever(model)
+        direct_v.build_gallery(encoded=enc["cpu"], side="video")
+        direct_t.build_gallery(encoded=enc["cpu"], side="text")
+        ids = enc["cpu"][3]
+        key_rows = {k: i for i, k in enumerate(ds.keys)}
+        ws, wi = direct_v.retrieve(*text_query_batch(
+            vocab, soak.TEXTS, cfg.data.max_sentences, cfg.data.max_words),
+            k=10)
+        vs, vi = direct_t.retrieve_video(*video_query_batch(
+            ds, cfg.data, answers["video_keys"]), k=10)
+        same_hits(torch, "the soak's final text queries vs a direct "
+                  "Retriever (CPU)", answers["text"],
+                  [[ds.keys[ids[j]] for j in row] for row in wi], ws,
+                  key_rows)
+        same_hits(torch, "the soak's final video_key queries vs a direct "
+                  "Retriever (CPU)", answers["video"],
+                  [[ds.keys[ids[j]] for j in row] for row in vi], vs,
+                  key_rows)
+    finally:
+        shutil.rmtree(td, ignore_errors=True)
     return counts
 
 
@@ -4316,6 +4424,9 @@ def main() -> int:
         phase(f"phase 8c: a daemon context with {SPLICE_ROWS:,} spliced rows, "
               "--quantized")
         dcounts.update(phase_splice(torch, np, cli_out, dmn))
+        phase(f"phase 8d: scripts/torch_serve_soak.py at its defaults for "
+              f"{SOAK_SECONDS} s (query clients, add -> remove churn)")
+        soak_counts = phase_soak(torch)
         phase("phase 9: one NCCL rank (world size 1): DP steps, their graph, "
               "sharded validation and top-k, K1/K2 beside an all-reduce, "
               "every H")
@@ -4380,12 +4491,13 @@ def main() -> int:
                                      any_h[("gru_fwd save_gates", "float32",
                                             PAD_H)]]
               + prows["encode"] + prows["save_gates"],
-              "serve+train+fit+cli+daemon+nccl+sharded+bench+presets",
+              "serve+train+fit+cli+daemon+soak+nccl+sharded+bench+presets",
               total(counts, "gru_fwd float32")
               + total(tcounts, "gru_fwd float32")
               + total(fcounts, "gru_fwd float32")
               + total(ccounts, "gru_fwd float32")
               + total(dcounts, "gru_fwd float32")
+              + total(soak_counts, "gru_fwd float32")
               + resident("gru_fwd float32")
               + total(scounts, "gru_fwd float32")
               + total(bcounts_bench, "gru_fwd float32")
@@ -4395,6 +4507,7 @@ def main() -> int:
                                 "fit": total(fcounts, "gru_fwd"),
                                 "cli": total(ccounts, "gru_fwd"),
                                 "daemon": total(dcounts, "gru_fwd"),
+                                "soak": total(soak_counts, "gru_fwd"),
                                 "nccl": resident("gru_fwd"),
                                 "sharded": total(scounts, "gru_fwd"),
                                 "bench": total(bcounts_bench, "gru_fwd"),
@@ -4498,7 +4611,8 @@ def main() -> int:
         if "nccl" in e.get("launches_by_path", {}) and \
                 e["launches_by_path"]["nccl"] <= 0:
             raise AssertionError(f"phase 9 (NCCL) launched no {e['name']}")
-        for path, where in (("sharded", "phase 10 (the sharded daemon)"),
+        for path, where in (("soak", "phase 8d (the daemon soak)"),
+                            ("sharded", "phase 10 (the sharded daemon)"),
                             ("bench", "phase 11 (cli.bench)"),
                             ("presets", "phase 11b (the presets)")):
             if e.get("launches_by_path", {}).get(path, 1) <= 0:

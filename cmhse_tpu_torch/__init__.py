@@ -8,10 +8,13 @@ use. Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``.
 """
 
-from cmhse_tpu_torch.config import (DataConfig, ExperimentConfig, LossConfig,
-                                    ModelConfig, TrainConfig, get_preset)
+from cmhse_tpu_torch.config import (PRESETS, DataConfig, ExperimentConfig,
+                                    LossConfig, ModelConfig, TrainConfig,
+                                    get_preset)
+
+__version__ = "0.1.0"
 
 __all__ = [
-    "DataConfig", "ExperimentConfig", "LossConfig", "ModelConfig",
-    "TrainConfig", "get_preset",
+    "DataConfig", "ExperimentConfig", "LossConfig", "ModelConfig", "PRESETS",
+    "TrainConfig", "__version__", "get_preset",
 ]

@@ -167,6 +167,7 @@ def evalrank(
     data_path: str | None = None,
     split: str = "val",
     ks: tuple[int, ...] = (1, 5, 10, 50),
+    *,
     streaming: bool | None = None,
     dump_ranks: str | None = None,
     device: str | torch.device | None = None,
@@ -174,7 +175,9 @@ def evalrank(
     mode: str = "query",
 ) -> dict[str, float]:
     """Load a checkpoint and evaluate a split on ``device`` (the card
-    unless ``"cpu"`` is passed), printing the R@k table.
+    unless ``"cpu"`` is passed), printing the R@k table. The parameters
+    after ``ks`` are keyword-only: the JAX package's fifth is ``mesh``, so
+    a call in its positional form raises instead of binding elsewhere.
 
     ``dump_ranks``: also write one JSONL line per example, ``{"index",
     "key", "v2p_rank", "p2v_rank"}``, in the JAX package's format, so two

@@ -501,7 +501,7 @@ class Retriever:
                                                valid=self.gallery_valid)
         elif prep is not None and prep.int8_chunks is not None:
             scores, idx = quantized_sim_topk(q, prep, k, rescore_m=rescore_m)
-        elif should_stream_topk(int(q.shape[0]), n):
+        elif should_stream_topk(int(q.shape[0]), n_gallery=n):
             if prep is None:
                 if self._streamed is None:
                     self._streamed = prepare_topk_gallery(self.gallery,

@@ -219,11 +219,16 @@ def should_prepare_topk(n_gallery: int) -> bool:
     return n_gallery >= STREAMING_GALLERY_MIN
 
 
-def should_stream_topk(n_queries: int, n_gallery: int) -> bool:
+def should_stream_topk(n_queries: int, *, n_gallery: int) -> bool:
     """Serving top-k streams once a request's dense f32 ``[Q, N]`` block
     would pass :data:`DENSE_TOPK_MAX_BYTES`. A memory rule: on an H100 the
     dense path is as fast or faster at every size chip_smoke.py phase 3b
-    times, so only its peak memory argues for streaming."""
+    times, so only its peak memory argues for streaming.
+
+    ``n_gallery`` is keyword-only: the JAX package's
+    ``should_stream_topk(n_gallery, force)`` is a size rule with another
+    meaning (here :func:`should_prepare_topk`), and a call in its form
+    raises instead of answering."""
     return 4 * n_queries * n_gallery > DENSE_TOPK_MAX_BYTES
 
 

@@ -212,8 +212,8 @@ def sharded_sim_topk(
     n = gallery.shape[0]
     npad = n + (-n) % mesh.data_size
     rows = npad // mesh.data_size
-    stream = (should_stream_topk(queries.shape[0], npad) if streaming is None
-              else streaming)
+    stream = (should_stream_topk(queries.shape[0], n_gallery=npad)
+              if streaming is None else streaming)
     g_pad = _pad_rows(gallery, npad - n)
     v_pad = _padded_valid_mask(npad, n, valid, gallery.device)
     kk = min(k, rows)

@@ -2,8 +2,14 @@
 port's numpy ``pad_batch`` and against the JAX package's packer
 (``cmhse_tpu.native``): every field equal, bf16 frames bit for bit (NaN,
 infinities and exact halfway values included); truncation, empty clips and
-short batches; concurrent builds; a failed build raises."""
+short batches; concurrent builds; a failed build raises.
 
+The JAX packer is built for this module alone: its loader builds into one
+shared ``libpacker.so`` and keeps a failed load for the life of the
+process, so pytest workers that build it at once can leave a worker
+without it. The fixture points the loader at a library of its own."""
+
+import contextlib
 import subprocess
 import sys
 from pathlib import Path
@@ -81,14 +87,33 @@ CASES = ["f32_full", "f32_short", "truncation", "empty_clip", "bf16_special",
          "bf16_short"]
 
 
+@contextlib.contextmanager
+def private_jax_packer(lib_dir: Path):
+    """The JAX package's packer, built from its own unchanged source into
+    ``lib_dir`` and loaded afresh, whatever an earlier load in this process
+    left behind; its loader's state is restored on exit. Fails if it does
+    not build."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_native, "_LIB", str(lib_dir / "libpacker.so"))
+        mp.setattr(jax_native, "_lib", None)
+        mp.setattr(jax_native, "_tried", False)
+        assert jax_native.available(), "the JAX packer did not build"
+        yield jax_native.pack_batch_native
+
+
+@pytest.fixture(scope="module")
+def jax_pack(tmp_path_factory):
+    with private_jax_packer(tmp_path_factory.mktemp("jax_packer")) as pack:
+        yield pack
+
+
 @pytest.mark.parametrize("case", CASES)
-def test_packer_matches_pad_batch_and_jax_packer(case):
+def test_packer_matches_pad_batch_and_jax_packer(case, jax_pack):
     examples, caps, dtype = _examples(case)
     got = native.pack_batch_native(examples, BucketSpec(**caps,
                                                         feature_dtype=dtype))
     want = pad_batch(examples, BucketSpec(**caps, feature_dtype=dtype))
-    jax = jax_native.pack_batch_native(
-        examples, JaxBucketSpec(**caps, feature_dtype=dtype))
+    jax = jax_pack(examples, JaxBucketSpec(**caps, feature_dtype=dtype))
     if dtype == "bfloat16":
         assert got.frames.dtype == torch.bfloat16
     for f in FIELDS:
@@ -103,6 +128,27 @@ def test_packer_matches_pad_batch_and_jax_packer(case):
         assert np.isnan(row[:4]).all() and np.isinf(row[4:6]).all()
     if case == "empty_clip":
         assert got.frame_len[0, 0] == 0 and got.word_len[2, 0] == 0
+
+
+def test_private_jax_packer_loads_after_a_failed_shared_load(tmp_path,
+                                                             monkeypatch):
+    """A worker whose collection-time load failed (a half-written shared
+    library) keeps ``_tried`` set and ``_lib`` None, and the JAX loader
+    would refuse for the life of the process; the private build loads all
+    the same, packs equal to ``pad_batch``, and leaves the state as it
+    found it."""
+    monkeypatch.setattr(jax_native, "_tried", True)
+    monkeypatch.setattr(jax_native, "_lib", None)
+    assert not jax_native.available()
+    examples, caps, _ = _examples("f32_short")
+    with private_jax_packer(tmp_path) as pack:
+        got = pack(examples, JaxBucketSpec(**caps))
+    assert (tmp_path / "libpacker.so").is_file()
+    want = pad_batch(examples, BucketSpec(**caps))
+    for f in FIELDS:
+        np.testing.assert_array_equal(_bits(getattr(got, f)),
+                                      _bits(getattr(want, f)), err_msg=f)
+    assert jax_native._tried and jax_native._lib is None
 
 
 def test_packer_refuses_what_pad_batch_cannot_pack():

@@ -2,15 +2,16 @@
 the JAX daemon tests' fixture checkpoint, its params carried into a port
 run directory (``interop.params_from_jax``, ``write_best_dir``). One script
 of requests through both ``build_context``s and ``_handle_request`` gives
-the same keys, scores within 1e-5 and errors of the same meaning; then the
-port's daemon over a unix socket and TCP through both packages' clients
-(auth, max_connections, MAX_LINE_BYTES, the batch window, shutdown); the
-streaming-scale case (40,000 spliced rows, exact and int8) against the JAX
-daemon; ``main`` with ``--gallery_cache``; ``cli.retrieve --quantized`` and
-``--connect``; ``build_context(sharded=True)`` (the port's local mesh of 8
-CPU shards against JAX's 8-device CPU mesh), ``main --sharded`` and
-``cli.retrieve --sharded`` against the JAX command. Every socket has a timeout and every thread is joined with
-one."""
+the same keys, scores within 1e-5 and errors of the same meaning, on a
+hierarchical and on a flat checkpoint; then the port's daemon over a unix
+socket and TCP through both packages' clients (auth, max_connections,
+MAX_LINE_BYTES, the batch window, shutdown); the streaming-scale case
+(40,000 spliced rows, exact and int8) against the JAX daemon; ``main``
+with ``--gallery_cache``; ``cli.retrieve --quantized`` and ``--connect``;
+``build_context(sharded=True)`` (the port's local mesh of 8 CPU shards
+against JAX's 8-device CPU mesh), ``main --sharded`` and ``cli.retrieve
+--sharded`` against the JAX command. Every socket has a timeout and every
+thread is joined with one."""
 
 import collections
 import contextlib
@@ -31,6 +32,11 @@ from test_serve_daemon import FEAT, VAL_KEYS, _fixture_run
 
 from cmhse_tpu.cli import serve_daemon as jax_daemon
 from cmhse_tpu.client import ServeClient as JaxClient
+from cmhse_tpu.config import DataConfig, ExperimentConfig, ModelConfig
+from cmhse_tpu.data import PrecompDataset, batches_from_dataset
+from cmhse_tpu.data.vocab import build_vocab
+from cmhse_tpu.train import create_train_state
+from cmhse_tpu.train.checkpoint import CheckpointManager
 from cmhse_tpu.data.fixtures import \
     splice_synthetic_gallery as jax_splice
 from cmhse_tpu.train.checkpoint import restore_for_eval as jax_restore
@@ -154,6 +160,60 @@ def test_request_script_matches_jax(run, tmp_path):
     _same_reply(jax_daemon._compact_online(jctx),
                 port_daemon._compact_online(pctx), "_compact_online")
     assert port_daemon._compact_online(pctx)["compacted"] == 0
+
+
+def test_flat_model_matches_jax(tmp_path_factory):
+    """tests/test_serve_daemon.py::test_handler_flat_model for both
+    daemons: a flat (``hierarchical=False``) checkpoint, its weights carried
+    into a port run directory, served over the flat dataset. A query, a
+    video_key query, an add of the train split, both directions at k = 13
+    and stats give the same keys, scores within 1e-5 and the same
+    stats."""
+    root = tmp_path_factory.mktemp("torch_servedata_flat")
+    write_reference_dataset(str(root), n_train=5, n_val=8, feat_dim=FEAT)
+    caps = json.load(open(root / "train_captions.json"))
+    vocab = build_vocab(
+        [s for c in caps.values() for s in c["sentences"]], threshold=1)
+    vocab.save(str(root / "vocab.json"))
+    cfg = ExperimentConfig(
+        data=DataConfig(data_path=str(root), batch_size=4, feat_dim=FEAT,
+                        vocab_size=len(vocab) + 8, max_clips=1,
+                        max_frames=18, max_sentences=1, max_words=24),
+        model=ModelConfig(embed_size=16, word_dim=8, feat_dim=FEAT,
+                          rnn_hidden=16, hierarchical=False),
+    )
+    ds = PrecompDataset(str(root), "val", vocab, feat_dim=FEAT, flat=True)
+    b0 = next(iter(batches_from_dataset(ds, cfg.data, shuffle=False)))
+    state = create_train_state(cfg, jax.random.PRNGKey(0), b0)
+    ckpt = str(tmp_path_factory.mktemp("torch_serveckpt_flat"))
+    mgr = CheckpointManager(ckpt, cfg)
+    mgr.save(state, epoch=0, best_rsum=0.0, is_best=True)
+    mgr.close()
+    port = str(tmp_path_factory.mktemp("torch_serve_run_flat"))
+    with open(os.path.join(port, "config.json"), "w") as f:
+        f.write(cfg.to_json())
+    write_best_dir(port, eval_payload(
+        params_from_jax(jax.tree.map(np.asarray, state.params))))
+    jctx = jax_daemon.build_context(ckpt, str(root), "val")
+    pctx = port_daemon.build_context(port, str(root), "val", device="cpu")
+    assert not pctx["cfg"].model.hierarchical
+
+    def both(req):
+        want = jax_daemon._handle_request(req, jctx)
+        got = port_daemon._handle_request(req, pctx)
+        _same_reply(want, got, req)
+        return got
+
+    r = both({"query": "a man runs", "k": 3})
+    assert len(r["results"]) == 3
+    assert {h["key"] for h in r["results"]} <= set(VAL_KEYS)
+    assert len(both({"video_key": VAL_KEYS[0], "k": 2})["results"]) == 2
+    assert both({"op": "add", "split": "train"})["added"] == 5
+    hits = both({"query": "a man runs", "k": 13})["results"]
+    assert any(h["key"].startswith("v_train") for h in hits)
+    assert len(both({"video_key": VAL_KEYS[1], "k": 13})["results"]) == 13
+    _same_stats(jax_daemon._handle_request({"op": "stats"}, jctx),
+                port_daemon._handle_request({"op": "stats"}, pctx))
 
 
 def _hit_keys(text: str) -> list:

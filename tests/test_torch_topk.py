@@ -88,11 +88,12 @@ def test_prepared_gallery_matches_jax_chunking_and_results():
 
 def test_should_stream_topk_threshold():
     rows = DENSE_TOPK_MAX_BYTES // 4  # f32 scores the budget holds
-    assert not should_stream_topk(1, rows)
-    assert should_stream_topk(1, rows + 1)
-    assert not should_stream_topk(8, rows // 8)
-    assert not should_stream_topk(1024, 100_000)  # 410 MB block: dense
-    assert should_stream_topk(1024, 1_000_000)    # 4.1 GB block: streaming
+    assert not should_stream_topk(1, n_gallery=rows)
+    assert should_stream_topk(1, n_gallery=rows + 1)
+    assert not should_stream_topk(8, n_gallery=rows // 8)
+    # 410 MB block: dense; 4.1 GB block: streaming
+    assert not should_stream_topk(1024, n_gallery=100_000)
+    assert should_stream_topk(1024, n_gallery=1_000_000)
 
 
 # --- the int8 two-stage path, append, the grouped pre-select ---------------
