@@ -34,7 +34,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "queries or the gallery over the ranks")
     p.add_argument("--profile_dir", default=None,
                    help="record the evaluation with torch.profiler and "
-                        "write a Chrome trace into this dir")
+                        "write a Chrome trace (trace.json) into this dir, "
+                        "with the port's spans and counters beside it "
+                        "(spans.json, on the trace's own timebase)")
     p.add_argument("--dump_ranks", default=None, metavar="PATH",
                    help="write per-query JSONL (index/key/v2p_rank/p2v_rank)"
                         "; the JAX package's format")

@@ -89,7 +89,9 @@ def build_parser() -> argparse.ArgumentParser:
     add_platform_flag(p)
     p.add_argument("--profile_dir", default=None,
                    help="record the run with torch.profiler and write a "
-                        "Chrome trace into this dir")
+                        "Chrome trace (trace.json) into this dir, with the "
+                        "port's spans and counters beside it (spans.json, "
+                        "on the trace's own timebase)")
     p.add_argument("--synthetic", action="store_true",
                    help="train on the synthetic dataset")
     p.add_argument("--synthetic_videos", type=int, default=256)

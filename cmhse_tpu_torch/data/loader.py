@@ -6,6 +6,11 @@ first use), as the JAX loader packs whenever its packer builds; the numpy
 :func:`pad_batch` is its plain version, equal field for field. Same order,
 grouping and multi-process slicing as the JAX loader, so the batches are
 array-equal for the same seed.
+
+With the recorder on (:mod:`cmhse_tpu_torch.utils.timing`) each batch
+draws the next batch key; its ``loader.rows`` span covers gathering its
+rows and choosing its bucket, and the ``loader.rows`` counter counts the
+rows.
 """
 
 from __future__ import annotations
@@ -18,6 +23,7 @@ from cmhse_tpu_torch import native
 from cmhse_tpu_torch.config import DataConfig
 from cmhse_tpu_torch.data.batch import Batch
 from cmhse_tpu_torch.data.bucketing import BucketSpec, bucket_for_examples
+from cmhse_tpu_torch.utils import timing
 
 
 def batches_from_dataset(
@@ -100,18 +106,20 @@ def batches_from_dataset(
             continue
         if process_count > 1:
             idxs = idxs[lo:hi]
-        examples = [dataset[int(i)] for i in idxs]
-        if fixed_shape:
-            spec = full_spec
-        else:
-            spec = bucket_for_examples(
-                examples,
-                batch_size=local_rows,
-                feat_dim=cfg.feat_dim,
-                max_clips=cfg.max_clips,
-                max_sentences=cfg.max_sentences,
-                frame_buckets=cfg.frame_buckets,
-                word_buckets=cfg.word_buckets,
-                feature_dtype=cfg.feature_dtype,
-            )
+        with timing.span("loader.rows", timing.next_key()):
+            examples = [dataset[int(i)] for i in idxs]
+            if fixed_shape:
+                spec = full_spec
+            else:
+                spec = bucket_for_examples(
+                    examples,
+                    batch_size=local_rows,
+                    feat_dim=cfg.feat_dim,
+                    max_clips=cfg.max_clips,
+                    max_sentences=cfg.max_sentences,
+                    frame_buckets=cfg.frame_buckets,
+                    word_buckets=cfg.word_buckets,
+                    feature_dtype=cfg.feature_dtype,
+                )
+        timing.count("loader.rows", len(examples))
         yield native.pack_batch_native(examples, spec)

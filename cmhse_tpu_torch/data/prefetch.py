@@ -14,6 +14,14 @@ host waits for the copy that last read from it.
 
 On the CPU the batches are handed over as they are: there is nothing to
 copy, and :meth:`Batch.to` on the CPU shares the numpy arrays' memory.
+
+With the recorder on (:mod:`cmhse_tpu_torch.utils.timing`), a batch's
+``prefetch.pin`` span covers filling its slot, with a ``prefetch.slot_wait``
+span inside it around the wait for the slot's last copy (counted in
+``prefetch.slot_waits`` when that copy had not ended) and the bytes in
+``prefetch.bytes``; ``prefetch.copy`` covers issuing its copies. Each
+batch keeps the key the loader gave it, and handing it over makes that key
+the consumer's, so the step that trains on it shares it.
 """
 
 from __future__ import annotations
@@ -25,6 +33,7 @@ from typing import Callable, Iterable, Iterator
 import torch
 
 from cmhse_tpu_torch.data.batch import Batch
+from cmhse_tpu_torch.utils import timing
 
 FIELDS = tuple(f.name for f in dataclasses.fields(Batch))
 LOOKAHEAD = 2
@@ -43,8 +52,15 @@ class _PinnedSlot:
         self.event: torch.cuda.Event | None = None
 
     def fill(self, batch: Batch) -> dict[str, torch.Tensor]:
+        with timing.span("prefetch.pin"):
+            return self._fill(batch)
+
+    def _fill(self, batch: Batch) -> dict[str, torch.Tensor]:
         if self.event is not None:
-            self.event.synchronize()  # the last copy out of it has ended
+            with timing.span("prefetch.slot_wait"):
+                if timing.active() and not self.event.query():
+                    timing.count("prefetch.slot_waits")
+                self.event.synchronize()  # the last copy out of it has ended
         out = {}
         for name in FIELDS:
             src = torch.as_tensor(getattr(batch, name))
@@ -57,6 +73,9 @@ class _PinnedSlot:
             view = buf[:src.numel()].view(src.shape)
             view.copy_(src)
             out[name] = view
+        if timing.active():
+            timing.count("prefetch.bytes",
+                         sum(v.nbytes for v in out.values()))
         return out
 
 
@@ -86,18 +105,21 @@ class Prefetcher:
         for i, item in enumerate(items):
             slot = self.slots[i % len(self.slots)]
             pinned = slot.fill(batch_of(item))
-            with torch.cuda.stream(self.stream):
+            with timing.span("prefetch.copy"), \
+                    torch.cuda.stream(self.stream):
                 placed = {k: v.to(self.device, non_blocking=True)
                           for k, v in pinned.items()}
                 slot.event = torch.cuda.Event()
                 slot.event.record(self.stream)
-            queue.append((item, placed, slot.event))
+            queue.append((item, placed, slot.event, timing.current_key()))
             if len(queue) >= LOOKAHEAD:
                 yield self._hand_over(*queue.popleft())
         while queue:
             yield self._hand_over(*queue.popleft())
 
-    def _hand_over(self, item, placed: dict, event: torch.cuda.Event):
+    def _hand_over(self, item, placed: dict, event: torch.cuda.Event,
+                   key: int | None):
+        timing.set_key(key)
         compute = torch.cuda.current_stream(self.device)
         compute.wait_event(event)
         for t in placed.values():

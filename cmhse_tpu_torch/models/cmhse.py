@@ -31,6 +31,7 @@ from cmhse_tpu_torch.models.encoders import (SequenceEncoder, WordEmbedding,
                                              _dense)
 from cmhse_tpu_torch.models.gru import gru_input_projection
 from cmhse_tpu_torch.ops.gru_kernel import gru_recurrence
+from cmhse_tpu_torch.utils import timing
 
 COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -111,44 +112,53 @@ class CMHSE(nn.Module):
     on the CPU and then moved, so a seed gives the same weights on every
     device; the decoders are drawn after the encoders, so a seed gives the
     same encoder weights with or without them. Submodule and parameter names
-    follow the JAX params tree (see :mod:`cmhse_tpu_torch.interop`).
+    follow the JAX params tree (see :mod:`cmhse_tpu_torch.interop`). With
+    the recorder on (:mod:`cmhse_tpu_torch.utils.timing`) construction is
+    one ``model.init`` span.
     """
 
     def __init__(self, cfg: ModelConfig, vocab_size: int,
                  device: str | torch.device | None = None,
                  generator: torch.Generator | None = None) -> None:
         super().__init__()
-        if cfg.dtype not in COMPUTE_DTYPES or cfg.param_dtype != "float32":
-            raise NotImplementedError(
-                "the port computes in float32 or bfloat16 with float32 "
-                f"parameters (got dtype={cfg.dtype!r}, "
-                f"param_dtype={cfg.param_dtype!r})")
-        device = resolve_device(device)
-        dtype = COMPUTE_DTYPES[cfg.dtype]
-        if generator is None:
-            generator = torch.Generator().manual_seed(0)
-        self.cfg = cfg
-        self.vocab_size = vocab_size
-        low_readout = "attn" if cfg.attention_pool else cfg.readout
-        high_readout = "attn" if cfg.attention_pool else "last"
-        e, h = cfg.embed_size, cfg.rnn_hidden
-        self.word_embedding = WordEmbedding(vocab_size, cfg.word_dim,
-                                            generator)
-        self.video_low = SequenceEncoder(cfg.feat_dim, e, h, low_readout,
-                                         cfg.bidirectional, generator, dtype)
-        self.text_low = SequenceEncoder(cfg.word_dim, e, h, low_readout,
-                                        cfg.bidirectional, generator, dtype)
-        if cfg.hierarchical:
-            self.video_high = SequenceEncoder(e, e, h, high_readout,
-                                              generator=generator,
-                                              dtype=dtype)
-            self.text_high = SequenceEncoder(e, e, h, high_readout,
-                                             generator=generator, dtype=dtype)
-        if cfg.reconstruction:  # the config refuses it without hierarchy
-            self.video_decoder = ReconstructionDecoder(e, h, generator, dtype)
-            self.text_decoder = ReconstructionDecoder(e, h, generator, dtype)
-        self.to(device)
-        self.eval()
+        with timing.span("model.init"):
+            if cfg.dtype not in COMPUTE_DTYPES or \
+                    cfg.param_dtype != "float32":
+                raise NotImplementedError(
+                    "the port computes in float32 or bfloat16 with float32 "
+                    f"parameters (got dtype={cfg.dtype!r}, "
+                    f"param_dtype={cfg.param_dtype!r})")
+            device = resolve_device(device)
+            dtype = COMPUTE_DTYPES[cfg.dtype]
+            if generator is None:
+                generator = torch.Generator().manual_seed(0)
+            self.cfg = cfg
+            self.vocab_size = vocab_size
+            low_readout = "attn" if cfg.attention_pool else cfg.readout
+            high_readout = "attn" if cfg.attention_pool else "last"
+            e, h = cfg.embed_size, cfg.rnn_hidden
+            self.word_embedding = WordEmbedding(vocab_size, cfg.word_dim,
+                                                generator)
+            self.video_low = SequenceEncoder(cfg.feat_dim, e, h,
+                                             low_readout, cfg.bidirectional,
+                                             generator, dtype)
+            self.text_low = SequenceEncoder(cfg.word_dim, e, h, low_readout,
+                                            cfg.bidirectional, generator,
+                                            dtype)
+            if cfg.hierarchical:
+                self.video_high = SequenceEncoder(e, e, h, high_readout,
+                                                  generator=generator,
+                                                  dtype=dtype)
+                self.text_high = SequenceEncoder(e, e, h, high_readout,
+                                                 generator=generator,
+                                                 dtype=dtype)
+            if cfg.reconstruction:  # the config refuses it without hierarchy
+                self.video_decoder = ReconstructionDecoder(e, h, generator,
+                                                           dtype)
+                self.text_decoder = ReconstructionDecoder(e, h, generator,
+                                                          dtype)
+            self.to(device)
+            self.eval()
 
     @property
     def device(self) -> torch.device:

@@ -10,11 +10,17 @@ written under a temporary name and moved into place with ``os.replace``,
 so processes that build at once each load a whole library. A failed build
 raises with the compiler's output: there is no numpy fallback. Nothing here
 runs at import time.
+
+With the recorder on (:mod:`cmhse_tpu_torch.utils.timing`): the spans
+``native.load`` (the first :func:`library` call) with ``native.build``
+inside it when this process compiles, the ``builds`` counter, and a
+``native.pack`` span and the ``native.bytes`` counter a packed batch.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import hashlib
 import os
@@ -27,6 +33,7 @@ import numpy as np
 import torch
 
 from cmhse_tpu_torch.data.batch import Batch
+from cmhse_tpu_torch.utils import timing
 
 SOURCE = Path(__file__).resolve().parent / "packer.cpp"
 BUILD_ROOT = SOURCE.parent.parent / "_build"
@@ -61,7 +68,9 @@ def build() -> Path:
     if lib.exists():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+    timing.count("builds")
+    with timing.span("native.build"), \
+            tempfile.TemporaryDirectory(dir=out_dir) as tmp:
         tmp_lib = Path(tmp) / LIB_NAME
         out = subprocess.run([cxx, *CXX_FLAGS, str(SOURCE), "-o",
                               str(tmp_lib)],
@@ -77,13 +86,14 @@ def build() -> Path:
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
     """The bound packer library, built on first call."""
-    lib = ctypes.CDLL(str(build()))
-    for name, args in (("pack_frames", _FRAMES_ARGS),
-                       ("pack_frames_bf16", _FRAMES_ARGS),
-                       ("pack_tokens", _TOKENS_ARGS)):
-        fn = getattr(lib, name)
-        fn.argtypes = args
-        fn.restype = None
+    with timing.span("native.load"):
+        lib = ctypes.CDLL(str(build()))
+        for name, args in (("pack_frames", _FRAMES_ARGS),
+                           ("pack_frames_bf16", _FRAMES_ARGS),
+                           ("pack_tokens", _TOKENS_ARGS)):
+            fn = getattr(lib, name)
+            fn.argtypes = args
+            fn.restype = None
     return lib
 
 
@@ -112,6 +122,15 @@ def pack_batch_native(examples: list, spec) -> Batch:
     bf16 frames as a CPU ``torch.bfloat16`` tensor rounded in the copy
     loop."""
     lib = library()
+    with timing.span("native.pack"):
+        batch = _pack(lib, examples, spec)
+    if timing.active():
+        timing.count("native.bytes", sum(getattr(batch, f.name).nbytes
+                                         for f in dataclasses.fields(Batch)))
+    return batch
+
+
+def _pack(lib, examples: list, spec) -> Batch:
     b = spec.batch_size
     if len(examples) > b:
         raise ValueError(f"batch of {len(examples)} > spec batch_size {b}")

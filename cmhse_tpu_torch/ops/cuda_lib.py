@@ -7,6 +7,11 @@ source started together, then linked into one ``libcmhse_kernels.so`` under
 every pointer and the stream pass as ``c_void_p``). Nothing here runs at
 import time: a machine without ``nvcc`` imports this module fine and fails
 only when a kernel is asked for.
+
+With the recorder on (:mod:`cmhse_tpu_torch.utils.timing`): the span
+``cuda_lib.load`` (the first :func:`library` call), with ``cuda_lib.build``
+inside it when this process compiles, and the ``builds`` counter. Kernel
+launches are counted in :data:`launches` whether it is on or not.
 """
 
 from __future__ import annotations
@@ -21,6 +26,8 @@ import subprocess
 import tempfile
 import threading
 from pathlib import Path
+
+from cmhse_tpu_torch.utils import timing
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -138,7 +145,9 @@ def build() -> Path:
     if lib.exists():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+    timing.count("builds")
+    with timing.span("cuda_lib.build"), \
+            tempfile.TemporaryDirectory(dir=out_dir) as tmp:
         procs = []
         for name in SOURCES:
             obj = Path(tmp) / (name + ".o")
@@ -169,14 +178,15 @@ def build() -> Path:
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
     """The bound kernel library, built on first call."""
-    lib = ctypes.CDLL(str(build()))
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = list(argtypes)
-        fn.restype = (ctypes.c_size_t if name in _SIZE_RESULTS
-                      else ctypes.c_int)
-    lib.cmhse_error_string.argtypes = [ctypes.c_int]
-    lib.cmhse_error_string.restype = ctypes.c_char_p
+    with timing.span("cuda_lib.load"):
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = list(argtypes)
+            fn.restype = (ctypes.c_size_t if name in _SIZE_RESULTS
+                          else ctypes.c_int)
+        lib.cmhse_error_string.argtypes = [ctypes.c_int]
+        lib.cmhse_error_string.restype = ctypes.c_char_p
     return lib
 
 

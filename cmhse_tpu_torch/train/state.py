@@ -18,10 +18,18 @@ data-parallel one: each rank feeds its rows of the global batch, and the
 loss is the JAX package's global one (see
 :mod:`cmhse_tpu_torch.parallel.train_dp`); every rank ends the step with
 the same parameters.
+
+With the recorder on (:mod:`cmhse_tpu_torch.utils.timing`), an eager step
+records the spans ``step.forward``, ``step.loss``, ``step.backward`` and
+``step.update`` (zero gradients for parameters that got none, the global
+norm, the clip and Adam), a replay of a captured step one ``step.replay``
+span, :func:`create_train_state` one ``state.init``. A capture records
+none.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from dataclasses import dataclass, field
 
@@ -32,6 +40,7 @@ from cmhse_tpu_torch.data.batch import Batch
 from cmhse_tpu_torch.models.cmhse import CMHSE
 from cmhse_tpu_torch.parallel import train_dp
 from cmhse_tpu_torch.train.objective import total_loss
+from cmhse_tpu_torch.utils import timing
 
 
 @dataclass
@@ -102,8 +111,9 @@ def make_optimizer(model: torch.nn.Module,
 
 def create_train_state(cfg: ExperimentConfig, model: CMHSE) -> TrainState:
     """A fresh state for ``model`` (built by the caller, on its device)."""
-    return TrainState(model=model, optimizer=make_optimizer(model, cfg),
-                      grad_clip=cfg.train.grad_clip)
+    with timing.span("state.init"):
+        return TrainState(model=model, optimizer=make_optimizer(model, cfg),
+                          grad_clip=cfg.train.grad_clip)
 
 
 def set_learning_rate(state: TrainState, lr: float) -> TrainState:
@@ -135,31 +145,41 @@ def clip_by_global_norm_(grads: list[torch.Tensor], max_norm: float,
         g.copy_(torch.where(keep, g, (g / norm) * max_norm))
 
 
+def _untimed(name: str):
+    return contextlib.nullcontext()
+
+
 def _update(state: TrainState, batch: Batch, loss_cfg: LossConfig,
-            mesh=None) -> dict[str, torch.Tensor]:
+            mesh=None, timed: bool = True) -> dict[str, torch.Tensor]:
     """One optimisation step on a batch on the model's device, leaving
     ``state.step`` alone (shared body of :func:`train_step` and
-    :func:`train_steps`, and what a graph captures). With ``mesh``, the
-    batch is this rank's rows and the loss the global batch's."""
+    :func:`train_steps`, and what a graph captures, with ``timed`` False:
+    no spans). With ``mesh``, the batch is this rank's rows and the loss
+    the global batch's."""
+    span = timing.span if timed else _untimed
     model = state.model
     params = list(model.parameters())
     for p in params:
         p.grad = None
-    outputs = model(batch)
-    if mesh is not None:
-        outputs, batch = train_dp.gather_global(outputs, batch, mesh)
-    loss, metrics = total_loss(outputs, batch, loss_cfg)
-    loss.backward()
-    for p in params:
-        if p.grad is None:
-            p.grad = torch.zeros_like(p)
-    grads = [p.grad for p in params]
-    if mesh is not None:
-        train_dp.all_reduce_gradients(grads, mesh)
-    with torch.no_grad():
-        norm = global_norm(grads)
-    clip_by_global_norm_(grads, state.grad_clip, norm)
-    state.optimizer.step()
+    with span("step.forward"):
+        outputs = model(batch)
+    with span("step.loss"):
+        if mesh is not None:
+            outputs, batch = train_dp.gather_global(outputs, batch, mesh)
+        loss, metrics = total_loss(outputs, batch, loss_cfg)
+    with span("step.backward"):
+        loss.backward()
+    with span("step.update"):
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        grads = [p.grad for p in params]
+        if mesh is not None:
+            train_dp.all_reduce_gradients(grads, mesh)
+        with torch.no_grad():
+            norm = global_norm(grads)
+        clip_by_global_norm_(grads, state.grad_clip, norm)
+        state.optimizer.step()
     metrics = {k: v.detach() for k, v in metrics.items()}
     metrics["grad_norm"] = norm
     return metrics
@@ -185,9 +205,9 @@ def _unstack(stacked: Batch, i: int) -> Batch:
 
 
 def _steps(state: TrainState, stacked: Batch, loss_cfg: LossConfig,
-           mesh=None) -> dict[str, torch.Tensor]:
+           mesh=None, timed: bool = True) -> dict[str, torch.Tensor]:
     """The K updates of ``stacked`` in order, metrics stacked ``[K]``."""
-    out = [_update(state, _unstack(stacked, i), loss_cfg, mesh)
+    out = [_update(state, _unstack(stacked, i), loss_cfg, mesh, timed)
            for i in range(stacked.frames.shape[0])]
     return {k: torch.stack([m[k] for m in out]) for k in out[0]}
 
@@ -241,7 +261,8 @@ def train_steps(state: TrainState, stacked: Batch, loss_cfg: LossConfig,
         graph = torch.cuda.CUDAGraph()
         try:
             with torch.cuda.graph(graph, stream=stream):
-                static_metrics = _steps(state, static, loss_cfg, mesh)
+                static_metrics = _steps(state, static, loss_cfg, mesh,
+                                        timed=False)
         except RuntimeError as e:
             if mesh is None or not _capture_refused(e):
                 raise
@@ -254,9 +275,10 @@ def train_steps(state: TrainState, stacked: Batch, loss_cfg: LossConfig,
         state.step += k
         return state, metrics
     graph, static, static_metrics = entry
-    for f in dataclasses.fields(Batch):
-        getattr(static, f.name).copy_(getattr(stacked, f.name))
-    graph.replay()
+    with timing.span("step.replay"):
+        for f in dataclasses.fields(Batch):
+            getattr(static, f.name).copy_(getattr(stacked, f.name))
+        graph.replay()
     state.graph_replays += 1
     state.step += k
     return state, {n: t.clone() for n, t in static_metrics.items()}

@@ -1131,6 +1131,44 @@ def test_prefetch_refill_waits_for_the_copy_in_flight(cuda):
         assert torch.equal(frames.cpu(), torch.as_tensor(h.frames))
 
 
+def test_prefetch_spans_and_counters(cuda):
+    """With the recorder on and the copy stream held up: a ``prefetch.pin``
+    and a ``prefetch.copy`` span a batch under the batch's key, a
+    ``prefetch.slot_wait`` inside each refill's pin, refills that found
+    the copy still queued counted, the bytes copied equal to the batches'
+    ``nbytes``, and each batch's key handed over with it."""
+    from cmhse_tpu_torch.data import Prefetcher
+    from cmhse_tpu_torch.utils import timing
+
+    host = _loop_batches(_loop_cfg(), n=64)
+    pre = Prefetcher(cuda)
+    pre.stream = torch.cuda.Stream()
+    with torch.cuda.stream(pre.stream):
+        torch.cuda._sleep(200_000_000)  # ~0.1 s of the copy stream
+    handed = []
+    with timing.recording() as rec:
+        keyed = ((timing.next_key(), h)[1] for h in host)
+        for _ in pre(keyed):
+            handed.append(timing.current_key())
+    torch.cuda.synchronize()
+    pins, copies = rec.of("prefetch.pin"), rec.of("prefetch.copy")
+    waits = rec.of("prefetch.slot_wait")
+    n = len(host)
+    assert len(pins) == len(copies) == n
+    assert len(waits) == n - len(pre.slots)
+    assert [p.key for p in pins] == [c.key for c in copies] == handed
+    assert handed == list(range(handed[0], handed[0] + n))
+    by_id = {p.id: p for p in pins}
+    for w in waits:
+        pin = by_id[w.parent]
+        assert w.key == pin.key
+        assert pin.start_ns <= w.start_ns <= w.end_ns <= pin.end_ns
+    assert 1 <= rec.counters["prefetch.slot_waits"] <= len(waits)
+    want = sum(np.asarray(getattr(h, f.name)).nbytes for h in host
+               for f in dataclasses.fields(Batch))
+    assert rec.counters["prefetch.bytes"] == want
+
+
 def test_encode_gallery_through_prefetch_matches_pageable(cuda):
     from cmhse_tpu_torch.eval.encode import encode_batch, encode_gallery_device
 
