@@ -1601,7 +1601,7 @@ def phase_serving_bf16(torch, np, f32: dict) -> dict:
     model.load_state_dict(f32_model.state_dict())
     t0 = time.perf_counter()
     batches = [dataclasses.replace(
-        b, frames=torch.from_numpy(b.frames).to(torch.bfloat16))
+        b, frames=torch.as_tensor(b.frames).to(torch.bfloat16))
         for b in f32["batches"]]
     qb = f32["qb"]
     qb = dataclasses.replace(qb, frames=torch.from_numpy(qb.frames).to(

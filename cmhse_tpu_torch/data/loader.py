@@ -5,7 +5,10 @@ Batches are packed by the native C++ packer
 first use), as the JAX loader packs whenever its packer builds; the numpy
 :func:`pad_batch` is its plain version, equal field for field. Same order,
 grouping and multi-process slicing as the JAX loader, so the batches are
-array-equal for the same seed.
+array-equal for the same seed. In a process that sees a CUDA device the
+frames are packed straight into page-locked memory (``pinned=True``: a CPU
+tensor the :class:`~cmhse_tpu_torch.data.prefetch.Prefetcher` copies to the
+card as it lies); elsewhere every field is a numpy array.
 
 With the recorder on (:mod:`cmhse_tpu_torch.utils.timing`) each batch
 draws the next batch key; its ``loader.rows`` span covers gathering its
@@ -18,6 +21,7 @@ from __future__ import annotations
 from typing import Iterator
 
 import numpy as np
+import torch
 
 from cmhse_tpu_torch import native
 from cmhse_tpu_torch.config import DataConfig
@@ -37,8 +41,8 @@ def batches_from_dataset(
     process_index: int = 0,
     process_count: int = 1,
 ) -> Iterator[Batch]:
-    """Yield fixed-shape :class:`Batch` es of numpy arrays from a ragged
-    dataset.
+    """Yield fixed-shape :class:`Batch` es from a ragged dataset: numpy
+    arrays, but ``frames`` a pinned CPU tensor where CUDA is available.
 
     ``fixed_shape=True``: every batch uses the config's maximal caps. False:
     per-batch (frames, words) bucket edges from the batch's longest member.
@@ -100,6 +104,7 @@ def batches_from_dataset(
         feat_dim=cfg.feat_dim,
         feature_dtype=cfg.feature_dtype,
     )
+    pinned = torch.cuda.is_available()
 
     for idxs in groups:
         if drop_last and len(idxs) < cfg.batch_size:
@@ -122,4 +127,4 @@ def batches_from_dataset(
                     feature_dtype=cfg.feature_dtype,
                 )
         timing.count("loader.rows", len(examples))
-        yield native.pack_batch_native(examples, spec)
+        yield native.pack_batch_native(examples, spec, pinned=pinned)

@@ -2,15 +2,19 @@
 ``cmhse_tpu/train/loop.py`` (``device_put`` is asynchronous there, so the
 next batches move while the current step runs).
 
-On a CUDA device each batch is staged in a ring of ``LOOKAHEAD + 1``
-page-locked host buffers, reused from batch to batch, and copied with
-``non_blocking`` copies on one side stream, ``LOOKAHEAD`` batches ahead of
-the consumer (two, as in the JAX loop). The consumer's stream waits on an
-event recorded after each batch's copies (a device-side wait: the host
-does not block), and each device tensor is marked with ``record_stream``
-so that the caching allocator does not hand its memory out again while
-that stream may still read it. Before a pinned buffer is refilled, the
-host waits for the copy that last read from it.
+On a CUDA device each batch is copied with ``non_blocking`` copies on one
+side stream, ``LOOKAHEAD`` batches ahead of the consumer (two, as in the
+JAX loop). A field that is already a page-locked CPU tensor (the loader's
+``frames``, packed straight into pinned memory) is copied from where it
+lies: a ``non_blocking`` copy records its event on the caching host
+allocator's block, which is then not handed out again before the copy has
+ended. Every other field is staged in a ring of ``LOOKAHEAD + 1``
+page-locked host buffers, reused from batch to batch; before a buffer is
+refilled, the host waits for the copy that last read from it. The
+consumer's stream waits on an event recorded after each batch's copies (a
+device-side wait: the host does not block), and each device tensor is
+marked with ``record_stream`` so that the caching allocator does not hand
+its memory out again while that stream may still read it.
 
 On the CPU the batches are handed over as they are: there is nothing to
 copy, and :meth:`Batch.to` on the CPU shares the numpy arrays' memory.
@@ -18,8 +22,10 @@ copy, and :meth:`Batch.to` on the CPU shares the numpy arrays' memory.
 With the recorder on (:mod:`cmhse_tpu_torch.utils.timing`), a batch's
 ``prefetch.pin`` span covers filling its slot, with a ``prefetch.slot_wait``
 span inside it around the wait for the slot's last copy (counted in
-``prefetch.slot_waits`` when that copy had not ended) and the bytes in
-``prefetch.bytes``; ``prefetch.copy`` covers issuing its copies. Each
+``prefetch.slot_waits`` when that copy had not ended); ``prefetch.bytes``
+counts every byte a batch sends to the device, ``prefetch.direct_bytes``
+those sent straight from pinned batch fields; ``prefetch.copy`` covers
+issuing its copies. Each
 batch keeps the key the loader gave it, and handing it over makes that key
 the consumer's, so the step that trains on it shares it.
 """
@@ -44,8 +50,8 @@ def _identity(item):
 
 
 class _PinnedSlot:
-    """One host staging buffer a field, grown as needed and reused, and
-    the event of the copy that last read from it."""
+    """One host staging buffer a field that needs one, grown as needed and
+    reused, and the event of the copy that last read from it."""
 
     def __init__(self) -> None:
         self.buffers: dict[str, torch.Tensor] = {}
@@ -61,9 +67,14 @@ class _PinnedSlot:
                 if timing.active() and not self.event.query():
                     timing.count("prefetch.slot_waits")
                 self.event.synchronize()  # the last copy out of it has ended
-        out = {}
+        out, direct = {}, 0
         for name in FIELDS:
-            src = torch.as_tensor(getattr(batch, name))
+            src = getattr(batch, name)
+            if isinstance(src, torch.Tensor) and src.is_pinned():
+                out[name] = src  # copied as it lies (module docstring)
+                direct += src.nbytes
+                continue
+            src = torch.as_tensor(src)
             buf = self.buffers.get(name)
             if buf is None or buf.dtype != src.dtype or \
                     buf.numel() < src.numel():
@@ -76,11 +87,12 @@ class _PinnedSlot:
         if timing.active():
             timing.count("prefetch.bytes",
                          sum(v.nbytes for v in out.values()))
+            timing.count("prefetch.direct_bytes", direct)
         return out
 
 
 class Prefetcher:
-    """Batches to ``device``, LOOKAHEAD ahead, through pinned buffers (see
+    """Batches to ``device``, LOOKAHEAD ahead, from pinned memory (see
     the module docstring). One object keeps its ring and its copy stream
     across calls, so a training run pins its buffers once."""
 

@@ -4,7 +4,10 @@ and bound with ``ctypes``.
 :func:`pack_batch_native` computes what
 :func:`cmhse_tpu_torch.data.bucketing.pad_batch` computes, field for field
 and bit for bit (bf16 frames included); the loader packs with it, and the
-numpy ``pad_batch`` stays as its plain version. The library lands in
+numpy ``pad_batch`` stays as its plain version. Into fresh zero-filled
+arrays it writes the live rows only; with ``pinned=True`` (the loader where
+CUDA is available) it packs ``frames`` into page-locked memory and writes
+every byte, padding included (:func:`pack_into`, which takes any buffers). The library lands in
 ``cmhse_tpu_torch/_build/packer-<hash of source and flags>/libpacker.so``,
 written under a temporary name and moved into place with ``os.replace``,
 so processes that build at once each load a whole library. A failed build
@@ -90,7 +93,10 @@ def library() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build()))
         for name, args in (("pack_frames", _FRAMES_ARGS),
                            ("pack_frames_bf16", _FRAMES_ARGS),
-                           ("pack_tokens", _TOKENS_ARGS)):
+                           ("pack_tokens", _TOKENS_ARGS),
+                           ("pack_frames_padded", _FRAMES_ARGS),
+                           ("pack_frames_padded_bf16", _FRAMES_ARGS),
+                           ("pack_tokens_padded", _TOKENS_ARGS)):
             fn = getattr(lib, name)
             fn.argtypes = args
             fn.restype = None
@@ -116,21 +122,97 @@ def _csr(rows_per_example: list, n_rows: int, dtype, width: int | None):
     return arrays, ptrs, lengths, off
 
 
-def pack_batch_native(examples: list, spec) -> Batch:
+def pack_batch_native(examples: list, spec, *, pinned: bool = False
+                      ) -> Batch:
     """Native counterpart of :func:`~cmhse_tpu_torch.data.bucketing.pad_batch`
     (same arguments, same :class:`Batch`): f32 frames as a numpy array,
     bf16 frames as a CPU ``torch.bfloat16`` tensor rounded in the copy
-    loop."""
+    loop, the live rows written into zero-filled arrays.
+
+    ``pinned=True`` (the loader in a process that sees a CUDA device):
+    ``frames`` is packed, padding and all, straight into page-locked memory
+    from PyTorch's caching host allocator and handed over as that CPU
+    tensor, f32 or bf16; the other fields stay numpy arrays. It must stay
+    that tensor: a ``non_blocking`` copy out of it records its event on the
+    allocator's block, which is not handed out again before the copy has
+    ended, and a numpy view of it would lose that guard. The
+    :class:`~cmhse_tpu_torch.data.prefetch.Prefetcher` copies such a field
+    to the device directly, with no staging copy."""
     lib = library()
     with timing.span("native.pack"):
-        batch = _pack(lib, examples, spec)
+        if pinned:
+            batch = pack_into(examples, spec, _pinned(spec))
+        else:
+            batch = _pack(lib, examples, spec, _zeros(spec), padded=False)
     if timing.active():
         timing.count("native.bytes", sum(getattr(batch, f.name).nbytes
                                          for f in dataclasses.fields(Batch)))
     return batch
 
 
-def _pack(lib, examples: list, spec) -> Batch:
+def pack_into(examples: list, spec, out: Batch) -> Batch:
+    """Pack ``examples`` into ``out``'s buffers, whatever they hold (an
+    earlier batch, say), and return a :class:`Batch` of them: the packer's
+    padded entry points write every byte of every field. ``out.frames`` is
+    a contiguous CPU tensor of ``spec``'s shape, f32 or bf16 as ``spec``
+    says; the other fields are numpy arrays of ``pad_batch``'s shapes and
+    dtypes."""
+    b, c, f, d = _frames_shape(spec)
+    dtype = torch.bfloat16 if _bf16(spec) else torch.float32
+    fr = out.frames
+    if not (isinstance(fr, torch.Tensor) and fr.device.type == "cpu"
+            and fr.dtype == dtype and tuple(fr.shape) == (b, c, f, d)
+            and fr.is_contiguous()):
+        raise ValueError(f"frames must be a contiguous CPU {dtype} tensor "
+                         f"of shape {(b, c, f, d)}")
+    for name, (shape, dt) in _layout(spec).items():
+        a = getattr(out, name)
+        if not (isinstance(a, np.ndarray) and a.shape == shape
+                and a.dtype == dt and a.flags.c_contiguous
+                and a.flags.writeable):
+            raise ValueError(f"{name} must be a writeable contiguous numpy "
+                             f"{np.dtype(dt)} array of shape {shape}")
+    return _pack(library(), examples, spec, vars(out).copy(), padded=True)
+
+
+def _bf16(spec) -> bool:
+    return spec.feature_dtype == "bfloat16"
+
+
+def _frames_shape(spec) -> tuple:
+    return (spec.batch_size, spec.max_clips, spec.max_frames, spec.feat_dim)
+
+
+def _layout(spec) -> dict:
+    """Shape and dtype of each field but ``frames``, as ``pad_batch``'s."""
+    b, c, s = spec.batch_size, spec.max_clips, spec.max_sentences
+    return {"frame_len": ((b, c), np.int32), "clip_len": ((b,), np.int32),
+            "words": ((b, s, spec.max_words), np.int32),
+            "word_len": ((b, s), np.int32), "sent_len": ((b,), np.int32),
+            "video_ids": ((b,), np.int32), "valid": ((b,), np.bool_)}
+
+
+def _zeros(spec) -> dict:
+    """Fresh zero-filled outputs, bf16 frames as their int16 bits: large
+    ones are pages the OS hands over zero, which the live-rows entry points
+    leave untouched where the batch is padding."""
+    out = {k: np.zeros(shape, dt) for k, (shape, dt) in _layout(spec).items()}
+    out["frames"] = np.zeros(_frames_shape(spec),
+                             np.int16 if _bf16(spec) else np.float32)
+    return out
+
+
+def _pinned(spec) -> Batch:
+    """Outputs of any contents, ``frames`` a page-locked tensor."""
+    return Batch(frames=torch.empty(
+        _frames_shape(spec), pin_memory=True,
+        dtype=torch.bfloat16 if _bf16(spec) else torch.float32),
+        **{k: np.empty(shape, dt) for k, (shape, dt) in _layout(spec).items()})
+
+
+def _pack(lib, examples: list, spec, out: dict, padded: bool) -> Batch:
+    """The packer's calls on ``out``'s buffers: the padded entry points
+    (every byte written) or the live-rows ones (zero-filled buffers)."""
     b = spec.batch_size
     if len(examples) > b:
         raise ValueError(f"batch of {len(examples)} > spec batch_size {b}")
@@ -139,32 +221,32 @@ def _pack(lib, examples: list, spec) -> Batch:
     sents, sent_ptrs, nwords, sent_off = _csr(
         [ex.sentences for ex in examples], b, np.int32, None)
 
-    # zero-filled outputs: the packer writes only the valid rows
-    bf16 = spec.feature_dtype == "bfloat16"
-    frames = np.zeros((b, spec.max_clips, spec.max_frames, spec.feat_dim),
-                      np.int16 if bf16 else np.float32)
-    frame_len = np.zeros((b, spec.max_clips), np.int32)
-    clip_len = np.empty((b,), np.int32)
-    words = np.zeros((b, spec.max_sentences, spec.max_words), np.int32)
-    word_len = np.zeros((b, spec.max_sentences), np.int32)
-    sent_len = np.empty((b,), np.int32)
-
-    pack = lib.pack_frames_bf16 if bf16 else lib.pack_frames
-    pack(clip_ptrs.ctypes.data, nframes.ctypes.data, clip_off.ctypes.data,
-         b, spec.max_clips, spec.max_frames, spec.feat_dim,
-         frames.ctypes.data, frame_len.ctypes.data, clip_len.ctypes.data)
-    lib.pack_tokens(sent_ptrs.ctypes.data, nwords.ctypes.data,
-                    sent_off.ctypes.data, b, spec.max_sentences,
-                    spec.max_words, words.ctypes.data, word_len.ctypes.data,
-                    sent_len.ctypes.data)
+    bf16 = _bf16(spec)
+    if padded:
+        pack_frames = (lib.pack_frames_padded_bf16 if bf16
+                       else lib.pack_frames_padded)
+        pack_tokens = lib.pack_tokens_padded
+    else:
+        pack_frames = lib.pack_frames_bf16 if bf16 else lib.pack_frames
+        pack_tokens = lib.pack_tokens
+    frames = out["frames"]
+    pack_frames(clip_ptrs.ctypes.data, nframes.ctypes.data,
+                clip_off.ctypes.data, b, spec.max_clips, spec.max_frames,
+                spec.feat_dim,
+                frames.data_ptr() if isinstance(frames, torch.Tensor)
+                else frames.ctypes.data,
+                out["frame_len"].ctypes.data, out["clip_len"].ctypes.data)
+    pack_tokens(sent_ptrs.ctypes.data, nwords.ctypes.data,
+                sent_off.ctypes.data, b, spec.max_sentences, spec.max_words,
+                out["words"].ctypes.data, out["word_len"].ctypes.data,
+                out["sent_len"].ctypes.data)
     del clips, sents  # the native calls are done with the rows
 
-    video_ids = np.full((b,), -1, np.int32)
-    video_ids[:len(examples)] = [ex.video_id for ex in examples]
-    valid = np.zeros((b,), bool)
-    valid[:len(examples)] = True
-    if bf16:
-        frames = torch.from_numpy(frames).view(torch.bfloat16)
-    return Batch(frames=frames, frame_len=frame_len, clip_len=clip_len,
-                 words=words, word_len=word_len, sent_len=sent_len,
-                 video_ids=video_ids, valid=valid)
+    n = len(examples)
+    out["video_ids"][:n] = [ex.video_id for ex in examples]
+    out["video_ids"][n:] = -1
+    out["valid"][:n] = True
+    out["valid"][n:] = False
+    if isinstance(frames, np.ndarray) and bf16:
+        out["frames"] = torch.from_numpy(frames).view(torch.bfloat16)
+    return Batch(**out)

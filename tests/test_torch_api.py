@@ -93,6 +93,10 @@ DIFFERENCES = {
     "train.train_steps": ("state, stacked, loss_cfg, mesh",
                           "`mesh`: the data-parallel all-reduce; JAX's is in "
                           "the shardings"),
+    "native.pack_batch_native": (
+        "examples, spec, *, pinned",
+        "keyword-only `pinned`: frames packed into page-locked memory for "
+        "a copy to the card; JAX's device_put takes numpy"),
 }
 
 

@@ -1116,7 +1116,9 @@ def test_prefetch_matches_batch_to_and_keeps_buffers_pinned(cuda):
 def test_prefetch_refill_waits_for_the_copy_in_flight(cuda):
     """With the copy stream held up by a long kernel, each pinned slot is
     refilled while the copy out of it is still queued: the refill must
-    wait for it, or a batch would arrive with a later one's values."""
+    wait for it, or a batch would arrive with a later one's values. The
+    slots stage the small fields (the loader's ``frames`` go to the card
+    from their own pinned memory), so every field is held to its batch."""
     from cmhse_tpu_torch.data import Prefetcher
 
     cfg = _loop_cfg()
@@ -1125,10 +1127,13 @@ def test_prefetch_refill_waits_for_the_copy_in_flight(cuda):
     pre.stream = torch.cuda.Stream()
     with torch.cuda.stream(pre.stream):
         torch.cuda._sleep(200_000_000)  # ~0.1 s of the copy stream
-    kept = [b.frames.clone() for _, b in pre(host)]
+    kept = [{f.name: getattr(b, f.name).clone()
+             for f in dataclasses.fields(Batch)} for _, b in pre(host)]
     torch.cuda.synchronize()
-    for h, frames in zip(host, kept):
-        assert torch.equal(frames.cpu(), torch.as_tensor(h.frames))
+    for h, fields in zip(host, kept):
+        for name, t in fields.items():
+            assert torch.equal(t.cpu(), torch.as_tensor(getattr(h, name))), \
+                name
 
 
 def test_prefetch_spans_and_counters(cuda):
@@ -1167,6 +1172,101 @@ def test_prefetch_spans_and_counters(cuda):
     want = sum(np.asarray(getattr(h, f.name)).nbytes for h in host
                for f in dataclasses.fields(Batch))
     assert rec.counters["prefetch.bytes"] == want
+
+
+def _field_bits(a) -> torch.Tensor:
+    """A field's raw bits as a CPU tensor: f32 as int32, bf16 as int16, so
+    that equal means equal bit for bit."""
+    t = torch.as_tensor(a).cpu()
+    if t.dtype == torch.float32:
+        return t.view(torch.int32)
+    return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_loader_packs_frames_into_pinned_memory(cuda, dtype):
+    """Where CUDA is available the loader's ``frames`` is a page-locked CPU
+    tensor of the configuration's dtype, the other fields numpy arrays, and
+    every field equals ``pad_batch``'s bit for bit."""
+    from cmhse_tpu_torch.data import (BucketSpec, SyntheticHierarchicalDataset,
+                                      batches_from_dataset, pad_batch)
+
+    d = dataclasses.replace(_loop_cfg().data, feature_dtype=dtype)
+    ds = SyntheticHierarchicalDataset(num_videos=20, feat_dim=20,
+                                      vocab_size=64, max_clips=4,
+                                      max_frames=9, max_words=5, seed=3)
+    spec = BucketSpec(d.batch_size, d.max_clips, d.max_frames,
+                      d.max_sentences, d.max_words, d.feat_dim, dtype)
+    batches = list(batches_from_dataset(ds, d, shuffle=False))
+    assert len(batches) == 3  # the last one short
+    for i, b in enumerate(batches):
+        assert isinstance(b.frames, torch.Tensor) and b.frames.is_pinned()
+        assert b.frames.dtype == (torch.bfloat16 if dtype == "bfloat16"
+                                  else torch.float32)
+        want = pad_batch([ds[j] for j in range(8 * i, min(8 * i + 8, 20))],
+                         spec)
+        for f in dataclasses.fields(Batch):
+            got = getattr(b, f.name)
+            if f.name != "frames":
+                assert isinstance(got, np.ndarray), f.name
+            assert torch.equal(_field_bits(got),
+                               _field_bits(getattr(want, f.name))), f.name
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_prefetch_sends_pinned_frames_directly_under_block_reuse(cuda,
+                                                                  dtype):
+    """48 batches packed into pinned memory, long and short lengths in
+    turn, two bucket shapes, through a ``Prefetcher`` whose copy stream is
+    held up before every batch; each host batch dies as soon as its copies
+    are issued, so the caching host allocator is asked for blocks whose
+    copies are still queued. Each batch arrives equal to
+    ``pad_batch(...).to(cuda)`` bit for bit, no slot stages ``frames``,
+    and ``prefetch.direct_bytes`` counts the frames' bytes."""
+    from cmhse_tpu_torch import native
+    from cmhse_tpu_torch.data import (BucketSpec, Prefetcher,
+                                      SyntheticHierarchicalDataset, pad_batch)
+    from cmhse_tpu_torch.utils import timing
+
+    ds = SyntheticHierarchicalDataset(num_videos=16, feat_dim=20,
+                                      vocab_size=64, max_clips=3,
+                                      max_frames=7, max_words=5, seed=6)
+    rows = [ds[i] for i in range(16)]
+    specs = [BucketSpec(8, 3, 7, 3, 5, 20, dtype),
+             BucketSpec(8, 3, 4, 3, 5, 20, dtype)]
+    plan = []
+    for i in range(48):
+        examples = [rows[(i + k) % 16] for k in range(8)]
+        if i % 2:  # short: one clip of one frame each
+            examples = [dataclasses.replace(ex, clips=[ex.clips[0][:1]])
+                        for ex in examples]
+        plan.append((examples, specs[(i // 6) % 2]))
+    pre = Prefetcher(cuda)
+    pre.stream = torch.cuda.Stream()
+    with torch.cuda.stream(pre.stream):
+        torch.cuda._sleep(200_000_000)  # ~0.1 s of the copy stream
+
+    def packed(i: int):
+        with torch.cuda.stream(pre.stream):
+            torch.cuda._sleep(4_000_000)  # each copy waits ~2 ms more
+        return native.pack_batch_native(*plan[i], pinned=True)
+
+    placed = []
+    with timing.recording() as rec:
+        for _, batch in pre(range(len(plan)), batch_of=packed):
+            placed.append(batch)
+    torch.cuda.synchronize()
+    assert not any("frames" in s.buffers for s in pre.slots)
+    assert all(s.buffers for s in pre.slots)  # the small fields staged
+    for (examples, spec), got in zip(plan, placed):
+        want = pad_batch(examples, spec).to(cuda)
+        assert got.frames.shape[2] == spec.max_frames
+        for f in dataclasses.fields(Batch):
+            assert torch.equal(_field_bits(getattr(got, f.name)),
+                               _field_bits(getattr(want, f.name))), f.name
+    frames = sum(pad_batch(*p).frames.nbytes for p in plan)
+    assert rec.counters["prefetch.direct_bytes"] == frames
+    assert rec.counters["prefetch.bytes"] > frames
 
 
 def test_encode_gallery_through_prefetch_matches_pageable(cuda):

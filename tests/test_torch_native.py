@@ -10,6 +10,7 @@ process, so pytest workers that build it at once can leave a worker
 without it. The fixture points the loader at a library of its own."""
 
 import contextlib
+import dataclasses
 import subprocess
 import sys
 from pathlib import Path
@@ -22,7 +23,8 @@ from cmhse_tpu import native as jax_native
 from cmhse_tpu.data.bucketing import BucketSpec as JaxBucketSpec
 from cmhse_tpu_torch import native
 from cmhse_tpu_torch.config import DataConfig
-from cmhse_tpu_torch.data import (BucketSpec, SyntheticHierarchicalDataset,
+from cmhse_tpu_torch.data import (Batch, BucketSpec,
+                                  SyntheticHierarchicalDataset,
                                   batches_from_dataset, pad_batch)
 
 torch.set_num_threads(2)
@@ -36,7 +38,8 @@ def _bits(a) -> np.ndarray:
     """Raw bits of a field: bf16 tensors and f32 arrays as integers, so
     NaNs compare by pattern."""
     if isinstance(a, torch.Tensor):
-        return a.view(torch.int16).numpy()
+        return a.view(torch.int32 if a.dtype == torch.float32
+                      else torch.int16).numpy()
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":
         return a.view(np.uint16).view(np.int16)
@@ -78,13 +81,17 @@ def _examples(case: str):
     if case == "empty_clip":
         examples[0].clips[0] = np.zeros((0, feat), np.float32)
         examples[2].sentences[0] = np.zeros((0,), np.int32)
+    if case == "no_clips":
+        examples[1].clips.clear()
+        examples[6].clips.clear()
+        examples[3].sentences.clear()
     if case == "bf16_special":
         examples[0].clips[0][0, :] = SPECIAL
     return examples, caps, dtype
 
 
-CASES = ["f32_full", "f32_short", "truncation", "empty_clip", "bf16_special",
-         "bf16_short"]
+CASES = ["f32_full", "f32_short", "truncation", "empty_clip", "no_clips",
+         "bf16_special", "bf16_short"]
 
 
 @contextlib.contextmanager
@@ -130,6 +137,80 @@ def test_packer_matches_pad_batch_and_jax_packer(case, jax_pack):
         assert got.frame_len[0, 0] == 0 and got.word_len[2, 0] == 0
 
 
+def _dirty_batch(spec: BucketSpec) -> Batch:
+    """Outputs for :func:`native.pack_into` that hold no byte of a batch:
+    NaN frames (bf16 bits 0xFFFF), every int 0x7EADBEEF, every row valid."""
+    shape = (spec.batch_size, spec.max_clips, spec.max_frames, spec.feat_dim)
+    if spec.feature_dtype == "bfloat16":
+        frames = torch.empty(shape, dtype=torch.bfloat16)
+        frames.view(torch.int16).fill_(-1)
+    else:
+        frames = torch.full(shape, float("nan"))
+    b, c, s, w = (spec.batch_size, spec.max_clips, spec.max_sentences,
+                  spec.max_words)
+    ints = {"frame_len": (b, c), "clip_len": (b,), "words": (b, s, w),
+            "word_len": (b, s), "sent_len": (b,), "video_ids": (b,)}
+    return Batch(frames=frames, valid=np.ones((b,), bool),
+                 **{k: np.full(v, 0x7EADBEEF, np.int32)
+                    for k, v in ints.items()})
+
+
+@pytest.mark.parametrize("case", CASES + ["f32_reused", "bf16_reused"])
+def test_padded_packer_matches_pad_batch_on_dirty_buffers(case):
+    """The padded entry points (``pack_into``, the pinned path's packer)
+    write every byte: into buffers pre-filled with NaN and junk, or reused
+    from a longer batch before a shorter one, each field equals
+    ``pad_batch``'s bit for bit."""
+    if case.endswith("_reused"):
+        dtype = case.split("_")[0]
+        longer, caps, _ = _examples("bf16_special" if dtype == "bf16"
+                                    else "f32_full")
+        examples = [dataclasses.replace(ex, clips=ex.clips[:1],
+                                        sentences=ex.sentences[:2])
+                    for ex in longer[:3]]
+        examples[1].clips[0] = examples[1].clips[0][:2]
+        dtype = {"bf16": "bfloat16", "f32": "float32"}[dtype]
+    else:
+        examples, caps, dtype = _examples(case)
+    spec = BucketSpec(**caps, feature_dtype=dtype)
+    out = _dirty_batch(spec)
+    if case.endswith("_reused"):
+        first = native.pack_into(longer, spec, out)
+        # the longer batch left data where the shorter one pads
+        assert first.valid.all() and (first.frame_len[:, 1:] > 0).any()
+    got = native.pack_into(examples, spec, out)
+    want = pad_batch(examples, spec)
+    assert got.frames is out.frames  # packed in place
+    assert got.frames.dtype == (torch.bfloat16 if dtype == "bfloat16"
+                                else torch.float32)
+    for f in FIELDS:
+        np.testing.assert_array_equal(_bits(getattr(got, f)),
+                                      _bits(getattr(want, f)), err_msg=f)
+    if case == "no_clips":
+        assert got.clip_len[1] == got.clip_len[6] == got.sent_len[3] == 0
+
+
+def test_pack_into_refuses_buffers_it_cannot_fill():
+    examples, caps, _ = _examples("f32_short")
+    spec = BucketSpec(**caps)
+    good = _dirty_batch(spec)
+    bad = {"frames": good.frames.to(torch.float64),
+           "words": np.zeros((8, 4, 6), np.int32),
+           "valid": np.zeros((8,), np.int32),
+           "clip_len": np.zeros((8, 2), np.int32)[:, 0]}
+    for name, value in bad.items():
+        with pytest.raises(ValueError, match=name):
+            native.pack_into(examples, spec,
+                             dataclasses.replace(good, **{name: value}))
+    with pytest.raises(ValueError, match="frames"):
+        native.pack_into(examples, spec, dataclasses.replace(
+            good, frames=good.frames.numpy()))
+    with pytest.raises(ValueError, match="batch of 5"):
+        native.pack_into(examples, dataclasses.replace(spec, batch_size=4),
+                         _dirty_batch(dataclasses.replace(spec,
+                                                          batch_size=4)))
+
+
 def test_private_jax_packer_loads_after_a_failed_shared_load(tmp_path,
                                                              monkeypatch):
     """A worker whose collection-time load failed (a half-written shared
@@ -167,9 +248,9 @@ def test_loader_packs_with_the_native_packer(monkeypatch):
     calls = []
     real = native.pack_batch_native
 
-    def counted(examples, spec):
+    def counted(examples, spec, **kw):
         calls.append(len(examples))
-        return real(examples, spec)
+        return real(examples, spec, **kw)
 
     monkeypatch.setattr(native, "pack_batch_native", counted)
     ds = SyntheticHierarchicalDataset(num_videos=11, feat_dim=6,
