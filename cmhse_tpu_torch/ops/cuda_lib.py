@@ -11,7 +11,9 @@ only when a kernel is asked for.
 With the recorder on (:mod:`cmhse_tpu_torch.utils.timing`): the span
 ``cuda_lib.load`` (the first :func:`library` call), with ``cuda_lib.build``
 inside it when this process compiles, and the ``builds`` counter. Kernel
-launches are counted in :data:`launches` whether it is on or not.
+launches are counted in :data:`launches` whether it is on or not; a launch
+recorded into a CUDA graph's capture is not one (the graph's replays run
+it, and launch nothing from the host).
 """
 
 from __future__ import annotations
@@ -82,6 +84,10 @@ _thread = threading.local()
 
 
 def count_launch(kernel: str, dtype: str, variant: str) -> None:
+    import torch
+
+    if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+        return
     key = (kernel, dtype, variant)
     with _launches_lock:
         launches[key] += 1

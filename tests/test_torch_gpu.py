@@ -1284,11 +1284,35 @@ def test_encode_gallery_through_prefetch_matches_pageable(cuda):
         [b.video_ids for b in host]))
 
 
+def _eager_step(state, batch, loss_cfg, mesh=None):
+    """One step run eagerly, as ``train_step`` runs the first batch of a
+    shape: no graph captured or replayed."""
+    from cmhse_tpu_torch.train.state import _update
+
+    metrics = _update(state, batch.to(state.model.device), loss_cfg, mesh)
+    state.step += 1
+    return state, metrics
+
+
+def _assert_states_equal(a, b):
+    """Every parameter and buffer, and Adam's ``exp_avg``, ``exp_avg_sq``
+    and ``step``, equal bit for bit."""
+    assert a.step == b.step
+    for (k, v), w in zip(a.model.state_dict().items(),
+                         b.model.state_dict().values()):
+        assert torch.equal(v, w), k
+    for pa, pb in zip(a.model.parameters(), b.model.parameters()):
+        for key in ("exp_avg", "exp_avg_sq", "step"):
+            assert torch.equal(a.optimizer.state[pa][key],
+                               b.optimizer.state[pb][key]), key
+
+
 def test_train_step_repeats_bitwise_and_graph_replay_matches(cuda):
-    """The card's train step is repeatable bit for bit (the loss's
-    scatter-adds included), and ``train_steps`` (a CUDA graph of K steps,
-    replayed from its second dispatch) is bitwise equal to K
-    ``train_step``s, the metrics too."""
+    """The card's eager step is repeatable bit for bit (the loss's
+    scatter-adds included); ``train_step`` (a CUDA graph of one step,
+    replayed from the second batch of the shape) and ``train_steps`` (a
+    graph of K steps, replayed from its second dispatch) are bitwise
+    equal to the eager steps, the metrics too."""
     from cmhse_tpu_torch.train import train_steps
     from cmhse_tpu_torch.train.loop import _grouped_host_batches
 
@@ -1297,7 +1321,7 @@ def test_train_step_repeats_bitwise_and_graph_replay_matches(cuda):
     (_, _, s0), (_, _, s1) = list(_grouped_host_batches(
         [tuple(host[:2]), tuple(host[2:])], 2))
     runs = []
-    for mode in ("eager", "eager", "graph"):
+    for mode in ("eager", "eager", "graph", "step"):
         model = CMHSE(cfg.model, 64,
                       generator=torch.Generator().manual_seed(1))
         state = create_train_state(cfg, model)
@@ -1308,19 +1332,202 @@ def test_train_step_repeats_bitwise_and_graph_replay_matches(cuda):
                 losses += m["loss"].tolist()
             assert state.graph_replays == 2
         else:
+            step = train_step if mode == "step" else _eager_step
             for b in host + host[:2]:
-                state, m = train_step(state, b, cfg.loss)
+                state, m = step(state, b, cfg.loss)
                 losses.append(float(m["loss"]))
+            assert state.graph_replays == (5 if mode == "step" else 0)
         runs.append((state, losses))
-    (a, la), (b, lb), (g, lg) = runs
-    assert la == lb == lg and a.step == g.step == 6
-    for k, v in a.model.state_dict().items():
-        assert torch.equal(v, b.model.state_dict()[k]), k
-        assert torch.equal(v, g.model.state_dict()[k]), k
-    for pa, pg in zip(a.model.parameters(), g.model.parameters()):
-        for key in ("exp_avg", "exp_avg_sq", "step"):
-            assert torch.equal(a.optimizer.state[pa][key],
-                               g.optimizer.state[pg][key]), key
+    (a, la), *others = runs
+    assert a.step == 6
+    for state, losses in others:
+        assert losses == la
+        _assert_states_equal(a, state)
+
+
+def _interleaved_batches():
+    """Batches of a didemo-like configuration (attention pools, no
+    decoders) packed to its buckets as the loader packs them, in the shape
+    order A, B, A, C, B, A; the last A is short, its padding rows
+    invalid."""
+    from cmhse_tpu_torch.config import DataConfig, LossConfig
+    from cmhse_tpu_torch.data import SyntheticHierarchicalDataset
+    from cmhse_tpu_torch.data.bucketing import BucketSpec, pad_batch
+
+    data = DataConfig(batch_size=8, feat_dim=16, vocab_size=64, max_clips=4,
+                      max_frames=24, max_sentences=4, max_words=12,
+                      frame_buckets=(6, 12, 24), word_buckets=(4, 8, 12),
+                      fixed_shape=False, group_by_length=True)
+    cfg = ExperimentConfig(
+        data=data, loss=LossConfig(recon_weight=0.0),
+        model=ModelConfig(embed_size=24, word_dim=12, feat_dim=16,
+                          rnn_hidden=24, hierarchical=True,
+                          attention_pool=True))
+    ds = SyntheticHierarchicalDataset(num_videos=45, feat_dim=16,
+                                      vocab_size=64, max_clips=4,
+                                      max_frames=24, max_words=12, seed=6)
+    shapes = {"A": (6, 4), "B": (12, 8), "C": (24, 12)}
+    batches = []
+    for i, name in enumerate("ABACBA"):
+        f, w = shapes[name]
+        spec = BucketSpec(batch_size=8, max_clips=4, max_frames=f,
+                          max_sentences=4, max_words=w, feat_dim=16)
+        batches.append(pad_batch([ds[j] for j in range(8 * i,
+                                                       min(8 * i + 8, 45))],
+                                 spec))
+    assert not batches[-1].valid.all() and batches[-1].valid.any()
+    return cfg, batches
+
+
+def test_train_step_graphs_interleaved_shapes_match_eager(cuda):
+    """Three batch shapes in the order A, B, A, C, B, A, with a short last
+    batch: the graph-backed ``train_step`` (three graphs in one memory
+    pool, replayed out of their capture order) against eager steps, bit
+    for bit: each step's every metric, read once all steps have run, then
+    every parameter and Adam's state."""
+    cfg, batches = _interleaved_batches()
+    runs = []
+    for step in (train_step, _eager_step):
+        model = CMHSE(cfg.model, 64, device=cuda,
+                      generator=torch.Generator().manual_seed(2))
+        state = create_train_state(cfg, model)
+        metrics = []
+        for b in batches:
+            state, m = step(state, b, cfg.loss)
+            metrics.append(m)  # read after every step has run
+        runs.append((state, metrics))
+    (graph, mg), (eager, me) = runs
+    assert len(graph.graphs) == 3 and graph.graph_replays == 3
+    assert graph.graph_pool is not None and eager.graphs == {}
+    for got, want in zip(mg, me):
+        assert got.keys() == want.keys()
+        for k in got:
+            assert torch.equal(got[k], want[k]), k
+    _assert_states_equal(graph, eager)
+
+
+def test_train_step_beside_a_live_autograd_graph_matches_eager(cuda):
+    """An autograd graph through the model kept alive from before the
+    steps (its gradient accumulators made on the default stream): the
+    card either captures the step or refuses the capture and keeps the
+    reason, and either way the steps equal eager steps bit for bit, and
+    the card's generator still draws outside a capture."""
+    cfg = _loop_cfg()
+    host = _loop_batches(cfg, n=24)
+    runs = []
+    for step in (train_step, _eager_step):
+        model = CMHSE(cfg.model, 64,
+                      generator=torch.Generator().manual_seed(5))
+        state = create_train_state(cfg, model)
+        b = host[0].to(cuda)
+        kept, _ = total_loss(model(b), b, cfg.loss)
+        losses = []
+        for hb in host:
+            state, m = step(state, hb, cfg.loss)
+            losses.append(m["loss"].cpu())
+        del kept
+        runs.append((state, losses))
+    (graph, lg), (eager, le) = runs
+    assert graph.graph_refused is not None or graph.graph_replays == 2
+    assert all(torch.equal(a, b) for a, b in zip(lg, le))
+    _assert_states_equal(graph, eager)
+    assert torch.isfinite(torch.randn(4, device=cuda)).all()
+
+
+def test_train_state_load_drops_step_graphs_and_steps_still_match(cuda):
+    """A ``load_state_dict`` between steps (here a roll back to the state
+    after the first step, Adam's tensors replaced) drops the captured
+    graphs; the steps after it, captured anew, match eager steps bit for
+    bit."""
+    import copy
+
+    cfg, batches = _interleaved_batches()
+    runs = []
+    for step in (train_step, _eager_step):
+        model = CMHSE(cfg.model, 64, device=cuda,
+                      generator=torch.Generator().manual_seed(3))
+        state = create_train_state(cfg, model)
+        state, _ = step(state, batches[0], cfg.loss)
+        saved = copy.deepcopy(state.state_dict())
+        for b in batches[1:4]:
+            state, _ = step(state, b, cfg.loss)
+        if step is train_step:
+            assert len(state.graphs) == 3 and state.graph_replays == 1
+        state.load_state_dict(saved)
+        assert state.graphs == {} and state.step == 1
+        losses = []
+        for b in batches[1:]:
+            state, m = step(state, b, cfg.loss)
+            losses.append(m["loss"].cpu())
+        runs.append((state, losses))
+    (graph, lg), (eager, le) = runs
+    assert graph.graph_replays == 1 + 2
+    assert all(torch.equal(a, b) for a, b in zip(lg, le))
+    _assert_states_equal(graph, eager)
+
+
+@pytest.mark.parametrize("bucketed", [False, True],
+                         ids=["fixed", "bucketed"])
+def test_kill_and_resume_on_card_matches_uninterrupted_run(cuda, tmp_path,
+                                                           monkeypatch,
+                                                           bucketed):
+    """``fit`` on the card, its steps graph-backed, killed mid-epoch and
+    resumed from its last snapshot, ends bitwise equal (parameters, Adam's
+    state, step) to the run that was never interrupted (the CPU's case is
+    ``tests/test_torch_loop.py``, which needs JAX)."""
+    import cmhse_tpu_torch.train.loop as loop_mod
+    from cmhse_tpu_torch.data import SyntheticHierarchicalDataset
+
+    class Preempted(RuntimeError):
+        pass
+
+    def cfg_at(name, **train):
+        cfg = _loop_cfg(tmp_path / name, num_epochs=2, lr_update=1,
+                        val_step=0, log_step=100, snapshot_step=1, **train)
+        if bucketed:
+            cfg = dataclasses.replace(cfg, data=dataclasses.replace(
+                cfg.data, fixed_shape=False, group_by_length=True,
+                frame_buckets=(4, 5, 7), word_buckets=(3, 5)))
+        return cfg
+
+    def ds():
+        return SyntheticHierarchicalDataset(num_videos=40, feat_dim=20,
+                                            vocab_size=64, max_clips=3,
+                                            max_frames=7, max_words=5,
+                                            seed=4)
+
+    real = loop_mod.train_step
+    shapes = []
+
+    def recording(state, batch, loss_cfg):
+        shapes.append(tuple(batch.frames.shape))
+        return real(state, batch, loss_cfg)
+
+    monkeypatch.setattr(loop_mod, "train_step", recording)
+    state_a, _ = loop_mod.fit(cfg_at("a"), ds(), None, device=cuda)
+    monkeypatch.undo()
+    assert state_a.step == 10 and state_a.graph_replays > 0
+    if bucketed:
+        assert len(set(shapes)) > 1, shapes
+
+    calls = {"n": 0}
+
+    def killer(state, batch, loss_cfg):
+        if calls["n"] >= 7:
+            raise Preempted()
+        calls["n"] += 1
+        return real(state, batch, loss_cfg)
+
+    cfg_b = cfg_at("b")
+    monkeypatch.setattr(loop_mod, "train_step", killer)
+    with pytest.raises(Preempted):
+        loop_mod.fit(cfg_b, ds(), None, device=cuda)
+    monkeypatch.undo()
+    resumed = dataclasses.replace(cfg_b, train=dataclasses.replace(
+        cfg_b.train, resume=cfg_b.train.checkpoint_dir))
+    state_b, _ = loop_mod.fit(resumed, ds(), None, device=cuda)
+    assert state_b.graph_replays > 0
+    _assert_states_equal(state_a, state_b)
 
 
 def test_checkpoint_moves_between_card_and_cpu(cuda, tmp_path):
@@ -1871,6 +2078,8 @@ def test_nccl_world_1_dp_step_equals_train_step_bitwise(cuda, tmp_path):
             dp, m2 = train_step(dp, b, exp.loss, mesh=mesh)
             for k in m1:
                 assert torch.equal(m1[k], m2[k]), k
+        # the second batch replayed the step captured with its collectives
+        assert dp.graph_refused is None and dp.graph_replays == 1
         for (name, a), b in zip(plain.model.state_dict().items(),
                                 dp.model.state_dict().values()):
             assert torch.equal(a, b), name
@@ -1885,7 +2094,7 @@ def test_nccl_world_1_dp_step_equals_train_step_bitwise(cuda, tmp_path):
         for _ in range(2):
             graph, _ = train_steps(graph, stacked, exp.loss, mesh=mesh)
             for b in batches:
-                eager, _ = train_step(eager, b, exp.loss, mesh=mesh)
+                eager, _ = _eager_step(eager, b, exp.loss, mesh=mesh)
         assert graph.graph_refused is None and graph.graph_replays == 1
         for (name, a), b in zip(graph.model.state_dict().items(),
                                 eager.model.state_dict().values()):

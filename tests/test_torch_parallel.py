@@ -228,15 +228,18 @@ def test_dp_step_at_world_1_equals_train_step_bitwise(group):
     ("CUDA error: operation not permitted when stream is capturing", True),
     ("gru_fwd failed: CUDA error 901 (operation failed due to an "
      "invalidated stream capture)", True),
+    # an autograd graph kept alive from before the step: its gradient
+    # accumulators run on the default stream
+    ("CUDA error: operation failed due to a previous error during capture",
+     True),
     ("gru_fwd failed: CUDA error 720 (too many blocks in cooperative "
      "launch)", False),
     ("NCCL error: remote process exited or there was a network error",
      False),
 ])
 def test_capture_refusal_is_told_from_a_failed_step(message, refused):
-    """Under a mesh, ``train_steps`` runs one step a dispatch only when
-    the card refused the capture; a failed launch or collective is
-    raised."""
+    """The card's step runs eagerly only when the card refused its
+    capture; a failed launch or collective is raised."""
     assert state_mod._capture_refused(RuntimeError(message)) is refused
 
 
@@ -250,6 +253,26 @@ def test_place_state_broadcasts_rank_0(group):
     assert place_state(state, mesh) is state and state.step == 1
     for k, v in state.model.state_dict().items():
         assert torch.equal(v, before[k]), k
+
+
+def test_place_state_keeps_every_tensor_in_place(group):
+    """The broadcasts write into the parameters, buffers and Adam's state
+    where they lie, so a captured step graph, which reads them by
+    address, stays valid across ``place_state``."""
+    cfg, batches = _tiny()
+    mesh = make_mesh(device="cpu")
+    state, _ = train_step(_state(cfg), batches[0], cfg.loss)
+    opt = state.optimizer
+
+    def ptrs():
+        return ([t.data_ptr() for t in state.model.parameters()]
+                + [t.data_ptr() for t in state.model.buffers()]
+                + [v.data_ptr() for p in state.model.parameters()
+                   for v in opt.state[p].values()])
+
+    before = ptrs()
+    place_state(state, mesh)
+    assert ptrs() == before
 
 
 def test_validate_metrics_under_a_mesh_equals_single_device(group):
