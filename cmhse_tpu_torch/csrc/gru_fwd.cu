@@ -32,50 +32,70 @@
 // 128 blocks) and keeps their three gate columns of W_h, 3U x H, in shared
 // memory for the whole time loop (96 KB in f32, 48 KB in bf16 at
 // H = 1024), loaded once. Each step, the block computes its columns of
-// h_{t-1} @ W_h for ALL B rows of the call, runs the gate math of its
+// h_{t-1} @ W_h for the rows live at step t, runs the gate math of its
 // units, and writes its units of outs[:, t] (and gates, final); then one
 // grid barrier. There is no exchange buffer: outs[:, t - 1] already holds
-// every row's whole state h_{t-1}, frozen rows included, and in bf16 it is
-// already the rounded operand of the product. The state is read with
-// L2-coherent loads (ld.global.cg), never through the read-only or L1
-// path, which the grid barrier does not make coherent. The f32 carry of
-// the block's own units is read back by the thread that wrote it: from
-// outs in f32 (the f32 output is the carry), from a private f32 scratch
-// [B, H] in bf16 (the carry is not the rounded output). No atomics: the
-// sums run in a fixed order, so the result is bitwise the same run to run.
+// every live row's whole state h_{t-1}, and in bf16 it is already the
+// rounded operand of the product. The state is read with L2-coherent loads
+// (cp.async.cg, ld.global.cg), never through the read-only or L1 path,
+// which the grid barrier does not make coherent. The f32 carry of the
+// block's own units is read back by the thread that wrote it: from outs in
+// f32 (the f32 output is the carry), from a private f32 scratch [B, H] in
+// bf16 (the carry is not the rounded output). No atomics: the sums run in a
+// fixed order, so the result is bitwise the same run to run.
 //
-// The product walks the batch in chunks of rows and its units in passes of
-// 8; for each, slabs of the state rows are staged in shared memory,
+// Live rows only. The wrapper sorts the rows once a call by length, longest
+// first (`order`), and counts the live rows of each step (`counts[t]`, the
+// rows with t < length), both on the device: the rows live at step t are
+// the prefix order[0 : counts[t]]. Only that prefix is walked, in chunks;
+// chunk row r is batch row order[c0 + r] (kept in shared memory for the
+// chunk), and each row's results go to its own position. A row keeps its
+// position in the prefix, and so its thread, from step to step. A row
+// leaves the prefix at the step its length ends; then its frozen state
+// (outs[:, t - 1], or h0) is written into every later step of outs (and
+// final) at once, one load and T - t stores, rather than copied a step at a
+// time. A step followed by one with no live row needs no grid barrier, and
+// the loop ends once no row is live. Each row's sum over depth runs in the
+// same order whichever rows share its chunk, so the row order changes no
+// bit, and gru_fwd_streamed.cu, which walks the same prefix, agrees bit for
+// bit.
+//
+// The product walks the chunk's live rows and its units in passes of 8; for
+// each, slabs of the state rows are staged in shared memory,
 // double-buffered (the next slab is in flight while the current one is
-// multiplied). A chunk in which no row runs at step t skips the product and
-// only copies the frozen state.
+// multiplied). Rows of a chunk past its live rows are not staged (their
+// sums are discarded).
 //   f32: chunks of 512 rows, 16-depth slabs staged by cp.async.cg. FFMA on
 //   the CUDA cores (TF32 would break the 1e-5 parity). A thread owns two
-//   units and 8 rows (r, r + 64, ...): per 4 depths six 16-byte loads of
-//   W_h and 8 of the state feed 192 FMAs.
+//   units and up to 8 rows (r, r + 64, ...): per 4 depths six 16-byte
+//   loads of W_h and kIters of the state feed 24 kIters FMAs, kIters (8,
+//   4, 2 or 1) the least that covers the chunk's live rows.
 //   bf16: chunks of 256 rows, 64-depth slabs; when H is a multiple of 8
 //   (every row 16-byte aligned) a three-stage ring of 16-byte cp.async.cg
 //   copies, two slabs in flight, otherwise 8-byte ld.global.cg loads
 //   through registers into two buffers. mma.sync.m16n8k16 (bf16 operands,
 //   f32 accumulation) on the tensor cores, fragments by ldmatrix from
 //   shared memory. A warp owns 32 rows (two m-tiles) and the pass's 8 units
-//   in each of the three gates (three n-tiles). A product of two bf16
-//   values is exact in f32, so the result is the plain version's up to
-//   summation order.
+//   in each of the three gates (three n-tiles); a warp past the live rows
+//   multiplies nothing. A product of two bf16 values is exact in f32, so
+//   the result is the plain version's up to summation order.
 //
 // Past fwd_max_hidden a block's slice of W_h no longer fits in shared
 // memory: gru_fwd_streamed.cu's kernel takes that H (W_h staged slab by
-// slab beside the state, one sweep of the state a step, live rows only),
-// with this kernel's arithmetic in its order.
+// slab beside the state, one sweep of the state a step), with this
+// kernel's arithmetic in its order.
 //
 // What bounds it on an H100 (video_low, 512 rows x 64 steps, H = 1024;
-// PERF.md): the product. In f32, 512 x 1024 x 24 FMAs a block a step run
-// well below the SM's FFMA rate: two warps a scheduler and all 255
-// registers in use, so the shared-memory loads are not hidden. In bf16 the
-// tensor cores leave the L2 reads of the state (1 MB a block a step) in
-// front, hidden by the three-stage ring only as far as two slabs in flight
-// cover L2 latency. Each step also pays the gate pass, the stores and one
-// grid barrier.
+// PERF.md): the product of the live rows, and at few live rows the fixed
+// cost of a step. In f32, n_t x 1024 x 24 FMAs a block a step run well
+// below the SM's FFMA rate: two warps a scheduler and all 255 registers in
+// use at kIters = 8, so the shared-memory loads are not hidden; as the
+// prefix shrinks the six W_h loads per 4 depths weigh more against the
+// kIters state loads. In bf16 the tensor cores leave the L2 reads of the
+// live state (up to 1 MB a block a step) in front, hidden by the
+// three-stage ring only as far as two slabs in flight cover L2 latency.
+// Each step also pays the staging's latency, the gate pass, the stores and
+// one grid barrier, whatever the number of live rows.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -144,33 +164,35 @@ __host__ __device__ size_t slice_elems(int H, int U) {
   return (size_t)(3 * U + Layout<E>::kPadRows) * w_stride<E>(H);
 }
 
-// the staging buffers and the W_h slice
+// the staging buffers, the W_h slice, then the chunk's batch rows
 template <typename E>
 size_t smem_bytes(int H, int U) {
   return Layout<E>::kStages * (size_t)stage_bytes<E>() +
-         slice_elems<E>(H, U) * sizeof(E);
+         slice_elems<E>(H, U) * sizeof(E) +
+         Layout<E>::kChunkRows * sizeof(int);
 }
 
-// bf16: one slab of the chunk's state rows into registers: thread t loads
-// the 8-byte piece (t + 256 q) % 16 of row (t + 256 q) / 16, so 16 threads
-// read one row's 128 contiguous bytes. Rows past `rows` and depths past H
-// read as 0 (H is a multiple of 4, so a piece is whole or absent). A row of
-// bf16 is 8-byte aligned only (H = 1100 is not a multiple of 8), so these
-// are 8-byte L2-coherent loads through registers rather than cp.async.
+// bf16: one slab of the chunk's state rows (chunk row r is batch row
+// rows_s[r]) into registers: thread t loads the 8-byte piece (t + 256 q) %
+// 16 of row (t + 256 q) / 16, so 16 threads read one row's 128 contiguous
+// bytes. Rows past `rows` and depths past H read as 0 (H is a multiple of
+// 4, so a piece is whole or absent). A row of bf16 is 8-byte aligned only
+// (H = 1100 is not a multiple of 8), so these are 8-byte L2-coherent loads
+// through registers rather than cp.async.
 using BL = Layout<__nv_bfloat16>;
 constexpr int kLoads = BL::kChunkRows * BL::kSlabBytes / 8 / kThreads;
 
 __device__ __forceinline__ void load_state(
     uint2 (&v)[kLoads], const __nv_bfloat16* __restrict__ src,
-    size_t row_stride, int rows, int k0, int H, int tid) {
+    size_t row_stride, const int* rows_s, int rows, int k0, int H, int tid) {
 #pragma unroll
   for (int q = 0; q < kLoads; ++q) {
     const int f = tid + kThreads * q;
     const int r = f / 16;
     const int k = k0 + (f % 16) * 4;
     v[q] = (r < rows && k < H)
-               ? __ldcg(reinterpret_cast<const uint2*>(src + r * row_stride +
-                                                       k))
+               ? __ldcg(reinterpret_cast<const uint2*>(
+                     src + (size_t)rows_s[r] * row_stride + k))
                : make_uint2(0u, 0u);
   }
 }
@@ -186,38 +208,43 @@ __device__ __forceinline__ void store_state(unsigned char* buf,
   }
 }
 
-// f32: one slab (16 depths) of the chunk's 512 state rows straight into
-// shared memory with 16-byte cp.async.cg (L2 only: coherent after the grid
-// barrier), 4 pieces a row, 8 a thread; rows past `rows` and depths past H
-// are zero-filled (src-size 0).
+// f32: one slab (16 depths) of the chunk's first `rows` state rows (batch
+// rows rows_s[r]) straight into shared memory with 16-byte cp.async.cg (L2
+// only: coherent after the grid barrier), 4 pieces a row, up to 8 a
+// thread; depths past H are zero-filled (src-size 0), rows past `rows` not
+// staged.
 using FL = Layout<float>;
 
 __device__ __forceinline__ void stage_f32(unsigned char* buf,
                                           const float* __restrict__ src,
-                                          size_t row_stride, int rows, int k0,
+                                          size_t row_stride,
+                                          const int* rows_s, int rows, int k0,
                                           int H, int tid) {
 #pragma unroll
   for (int q = 0; q < FL::kChunkRows * FL::kSlabBytes / 16 / kThreads; ++q) {
     const int f = tid + kThreads * q;
     const int r = f / 4;
     const int k = k0 + (f % 4) * 4;
-    const bool in = r < rows && k < H;
-    cp_async16(buf + r * FL::kRowBytes + (f % 4) * 16,
-               in ? src + r * row_stride + k : src, in);
+    if (r < rows) {
+      const bool in = k < H;
+      cp_async16(buf + r * FL::kRowBytes + (f % 4) * 16,
+                 in ? src + (size_t)rows_s[r] * row_stride + k : src, in);
+    }
   }
   commit_staged();
 }
 
 // acc[2 i + e][g] += h[row rg + 64 i] . W_h[:, gate g of unit j0 + e] over
-// the chunk's rows, for i < kIters (16 f32 depths a slab). Per 4 depths a
-// thread makes six 16-byte loads of W_h and kIters of the state for
-// 24 kIters FMAs. kIters is a template parameter so that no branch stands
-// between a state load and its FMAs.
+// the chunk's rows, for i < kIters (16 f32 depths a slab); a row past the
+// chunk's `rows` reads what its staging buffer holds, and its sums are
+// discarded. Per 4 depths a thread makes six 16-byte loads of W_h and
+// kIters of the state for 24 kIters FMAs. kIters is a template parameter so
+// that no branch stands between a state load and its FMAs.
 template <int kIters>
 __device__ __forceinline__ void product_f32(
     float (&acc)[16][3], unsigned char* stage, const float* ws, int WS, int U,
     int ja, int jb, int rg, const float* __restrict__ src,
-    size_t row_stride, int rows, int H, int tid) {
+    size_t row_stride, const int* rows_s, int rows, int H, int tid) {
   constexpr int kK = slab_depth<float>();
   const float* w[2][3];
 #pragma unroll
@@ -227,12 +254,12 @@ __device__ __forceinline__ void product_f32(
   }
   const int n_slabs = (H + kK - 1) / kK;
   // the previous product ended at a barrier: both buffers are free
-  stage_f32(stage, src, row_stride, rows, 0, H, tid);
+  stage_f32(stage, src, row_stride, rows_s, rows, 0, H, tid);
   for (int s = 0; s < n_slabs; ++s) {
     if (s + 1 < n_slabs) {
       // its buffer was last read in slab s - 1, which ended at a barrier
       stage_f32(stage + ((s + 1) % 2) * stage_bytes<float>(), src,
-                row_stride, rows, (s + 1) * kK, H, tid);
+                row_stride, rows_s, rows, (s + 1) * kK, H, tid);
       wait_staged<1>();
     } else {
       wait_staged<0>();
@@ -297,21 +324,26 @@ __device__ __forceinline__ void mma_slab(float (&c)[2][3][4],
   }
 }
 
-// bf16: one slab (64 depths) of the chunk's 256 state rows straight into
-// shared memory with 16-byte cp.async.cg, 8 pieces a row and a thread;
-// only when H is a multiple of 8 (every row 16-byte aligned).
+// bf16: one slab (64 depths) of the chunk's first `rows` state rows (batch
+// rows rows_s[r]) straight into shared memory with 16-byte cp.async.cg, 8
+// pieces a row, up to 8 a thread; only when H is a multiple of 8 (every
+// row 16-byte aligned). Depths past H are zero-filled, rows past `rows`
+// not staged (an m-tile's rows past them give sums that are discarded).
 __device__ __forceinline__ void stage_bf16(unsigned char* buf,
                                            const __nv_bfloat16* __restrict__ src,
-                                           size_t row_stride, int rows, int k0,
+                                           size_t row_stride,
+                                           const int* rows_s, int rows, int k0,
                                            int H, int tid) {
 #pragma unroll
   for (int q = 0; q < BL::kChunkRows * BL::kSlabBytes / 16 / kThreads; ++q) {
     const int f = tid + kThreads * q;
     const int r = f / 8;
     const int k = k0 + (f % 8) * 8;
-    const bool in = r < rows && k < H;
-    cp_async16(buf + r * BL::kRowBytes + (f % 8) * 16,
-               in ? src + r * row_stride + k : src, in);
+    if (r < rows) {
+      const bool in = k < H;
+      cp_async16(buf + r * BL::kRowBytes + (f % 8) * 16,
+                 in ? src + (size_t)rows_s[r] * row_stride + k : src, in);
+    }
   }
   commit_staged();
 }
@@ -324,7 +356,7 @@ template <bool kAsync>
 __device__ __forceinline__ void product_bf16(
     float (&c)[2][3][4], unsigned char* stage, const __nv_bfloat16* ws,
     int WS, int U, int p0, const __nv_bfloat16* __restrict__ src,
-    size_t row_stride, int rows, int H, int tid) {
+    size_t row_stride, const int* rows_s, int rows, int H, int tid) {
   constexpr int kK = slab_depth<__nv_bfloat16>();
   constexpr int kStage = stage_bytes<__nv_bfloat16>();
   const int lane = tid % 32, warp = tid / 32;
@@ -337,9 +369,9 @@ __device__ __forceinline__ void product_bf16(
   const size_t gate_stride = (size_t)U * WS;
   if constexpr (kAsync) {
     // the previous product ended at a barrier: every buffer is free
-    stage_bf16(stage, src, row_stride, rows, 0, H, tid);
+    stage_bf16(stage, src, row_stride, rows_s, rows, 0, H, tid);
     if (n_slabs > 1)
-      stage_bf16(stage + kStage, src, row_stride, rows, kK, H, tid);
+      stage_bf16(stage + kStage, src, row_stride, rows_s, rows, kK, H, tid);
     for (int s = 0; s < n_slabs; ++s) {
       if (s + 1 < n_slabs)
         wait_staged<1>();
@@ -349,8 +381,8 @@ __device__ __forceinline__ void product_bf16(
       // s - 1, whose buffer takes slab s + 2
       __syncthreads();
       if (s + 2 < n_slabs)
-        stage_bf16(stage + ((s + 2) % 3) * kStage, src, row_stride, rows,
-                   (s + 2) * kK, H, tid);
+        stage_bf16(stage + ((s + 2) % 3) * kStage, src, row_stride, rows_s,
+                   rows, (s + 2) * kK, H, tid);
       if (active)
         mma_slab(c, stage + (s % 3) * kStage, a_row, a_k, b_base,
                  gate_stride, s * kK);
@@ -358,13 +390,14 @@ __device__ __forceinline__ void product_bf16(
     __syncthreads();  // every thread is done with the last slabs
   } else {
     uint2 next[kLoads];
-    load_state(next, src, row_stride, rows, 0, H, tid);
+    load_state(next, src, row_stride, rows_s, rows, 0, H, tid);
     __syncthreads();
     store_state(stage, next, tid);
     __syncthreads();
     for (int s = 0; s < n_slabs; ++s) {
       if (s + 1 < n_slabs)
-        load_state(next, src, row_stride, rows, (s + 1) * kK, H, tid);
+        load_state(next, src, row_stride, rows_s, rows, (s + 1) * kK, H,
+                   tid);
       if (active)
         mma_slab(c, stage + (s % 2) * kStage, a_row, a_k, b_base,
                  gate_stride, s * kK);
@@ -380,7 +413,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 gru_fwd_kernel(const E* __restrict__ xw,            // [B, T, 3H]
                const E* __restrict__ w_h,           // [H, 3H]
                const float* __restrict__ b_h,       // [3H]
-               const int32_t* __restrict__ lengths, // [B]
+               const int32_t* __restrict__ order,   // [B]
+               const int32_t* __restrict__ counts,  // [T]
                const E* __restrict__ h_init,        // [B, H] (kWithH0)
                E* __restrict__ outs,                // [B, T, H]
                E* __restrict__ final_h,             // [B, H]
@@ -393,6 +427,8 @@ gru_fwd_kernel(const E* __restrict__ xw,            // [B, T, 3H]
   unsigned char* stage = smem;  // [kStages][L::kChunkRows][L::kRowBytes]
   // the block's [3U + pad][WS] slice, after the staging buffers
   E* ws = reinterpret_cast<E*>(smem + L::kStages * stage_bytes<E>());
+  // the chunk's batch rows, after the slice
+  int* rows_s = reinterpret_cast<int*>(ws + slice_elems<E>(H, U));
   const int WS = w_stride<E>(H);
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int u0 = blockIdx.x * U;
@@ -416,14 +452,16 @@ gru_fwd_kernel(const E* __restrict__ xw,            // [B, T, 3H]
   }
 
   for (int t = 0; t < T; ++t) {
+    const int n_t = counts[t];  // the live rows: order[0 : n_t]
     // the product's operand h_{t-1}: outs[:, t - 1], or h0 at t = 0
     const E* src = t > 0 ? outs + (size_t)(t - 1) * H : h_init;
     const size_t src_stride = t > 0 ? (size_t)T * H : (size_t)H;
-    for (int c0 = 0; c0 < B; c0 += L::kChunkRows) {
-      const int rows = min(L::kChunkRows, B - c0);
-      bool mine = false;
-      for (int r = tid; r < rows; r += kThreads) mine |= t < lengths[c0 + r];
-      const bool product = __syncthreads_or(mine) && (t > 0 || kWithH0);
+    const bool product = t > 0 || kWithH0;
+    for (int c0 = 0; c0 < n_t; c0 += L::kChunkRows) {
+      const int rows = min(L::kChunkRows, n_t - c0);
+      __syncthreads();  // the previous chunk's gate pass is done with rows_s
+      for (int r = tid; r < rows; r += kThreads) rows_s[r] = order[c0 + r];
+      __syncthreads();
       for (int p0 = 0; p0 < n_units; p0 += kPassUnits) {
         // the thread's (row, unit) pairs and their (r, z, n) products
         constexpr int kPairs = L::kPairs;
@@ -442,20 +480,19 @@ gru_fwd_kernel(const E* __restrict__ xw,            // [B, T, 3H]
             // W_h rows of units past the block's read unit 0 (discarded)
             const int ja = j0 < n_units ? j0 : 0;
             const int jb = j0 + 1 < n_units ? j0 + 1 : 0;
-            const float* s0 = src + (size_t)c0 * src_stride;
-            // the thread's rows that can hold a batch row: 8, 4, 2 or 1
+            // the thread's rows that can hold a live row: 8, 4, 2 or 1
             if (rows > 256)
-              product_f32<8>(acc, stage, ws, WS, U, ja, jb, rg, s0,
-                             src_stride, rows, H, tid);
+              product_f32<8>(acc, stage, ws, WS, U, ja, jb, rg, src,
+                             src_stride, rows_s, rows, H, tid);
             else if (rows > 128)
-              product_f32<4>(acc, stage, ws, WS, U, ja, jb, rg, s0,
-                             src_stride, rows, H, tid);
+              product_f32<4>(acc, stage, ws, WS, U, ja, jb, rg, src,
+                             src_stride, rows_s, rows, H, tid);
             else if (rows > 64)
-              product_f32<2>(acc, stage, ws, WS, U, ja, jb, rg, s0,
-                             src_stride, rows, H, tid);
+              product_f32<2>(acc, stage, ws, WS, U, ja, jb, rg, src,
+                             src_stride, rows_s, rows, H, tid);
             else
-              product_f32<1>(acc, stage, ws, WS, U, ja, jb, rg, s0,
-                             src_stride, rows, H, tid);
+              product_f32<1>(acc, stage, ws, WS, U, ja, jb, rg, src,
+                             src_stride, rows_s, rows, H, tid);
           }
         } else {
           float c[2][3][4];
@@ -466,13 +503,12 @@ gru_fwd_kernel(const E* __restrict__ xw,            // [B, T, 3H]
 #pragma unroll
               for (int e = 0; e < 4; ++e) c[mt][g][e] = 0.0f;
           if (product) {
-            const __nv_bfloat16* s0 = src + (size_t)c0 * src_stride;
             if (H % 8 == 0)
-              product_bf16<true>(c, stage, ws, WS, U, p0, s0, src_stride,
-                                 rows, H, tid);
+              product_bf16<true>(c, stage, ws, WS, U, p0, src, src_stride,
+                                 rows_s, rows, H, tid);
             else
-              product_bf16<false>(c, stage, ws, WS, U, p0, s0, src_stride,
-                                  rows, H, tid);
+              product_bf16<false>(c, stage, ws, WS, U, p0, src, src_stride,
+                                  rows_s, rows, H, tid);
           }
           // C fragment: c[.][.][2 h + e] is row lane / 4 + 8 h, column
           // 2 (lane % 4) + e of the 16 x 8 tile
@@ -490,11 +526,14 @@ gru_fwd_kernel(const E* __restrict__ xw,            // [B, T, 3H]
               }
         }
 
-        // gate math of the pairs; frozen rows copy the carried state
+        // gate math of the pairs, every one a live row-step. The two
+        // products that meet an addition are fused as written, so that no
+        // change around them can fuse them otherwise (a last-bit difference
+        // would compound over the steps).
 #pragma unroll
         for (int q = 0; q < kPairs; ++q) {
           if (prow[q] >= rows || plu[q] >= n_units) continue;
-          const int b = c0 + prow[q];
+          const int b = rows_s[prow[q]];
           const int u = u0 + plu[q];
           const size_t bu = (size_t)b * H + u;
           const size_t bt = (size_t)b * T + t;
@@ -505,23 +544,20 @@ gru_fwd_kernel(const E* __restrict__ xw,            // [B, T, 3H]
             h_prev = carry[bu];  // written by this thread at step t - 1
           else
             h_prev = outs[(bt - 1) * H + u];  // the f32 carry
-          float h_new = h_prev;
-          if (t < lengths[b]) {
-            const E* x = xw + bt * H3;
-            const float xr = to_f(x[u]), xz = to_f(x[H + u]),
-                        xn = to_f(x[2 * H + u]);
-            const float ghn = acc[q][2] + b_h[2 * H + u];
-            const float r = sigmoid_f(xr + (acc[q][0] + b_h[u]));
-            const float z = sigmoid_f(xz + (acc[q][1] + b_h[H + u]));
-            const float n = tanhf(xn + r * ghn);
-            h_new = (1.0f - z) * n + z * h_prev;
-            if constexpr (kSaveGates) {
-              E* gt = gates + bt * 4 * H + u;
-              gt[0] = from_f<E>(r);
-              gt[H] = from_f<E>(z);
-              gt[2 * H] = from_f<E>(n);
-              gt[3 * H] = from_f<E>(ghn);
-            }
+          const E* x = xw + bt * H3;
+          const float xr = to_f(x[u]), xz = to_f(x[H + u]),
+                      xn = to_f(x[2 * H + u]);
+          const float ghn = acc[q][2] + b_h[2 * H + u];
+          const float r = sigmoid_f(xr + (acc[q][0] + b_h[u]));
+          const float z = sigmoid_f(xz + (acc[q][1] + b_h[H + u]));
+          const float n = tanhf(fmaf(r, ghn, xn));
+          const float h_new = fmaf(z, h_prev, (1.0f - z) * n);
+          if constexpr (kSaveGates) {
+            E* gt = gates + bt * 4 * H + u;
+            gt[0] = from_f<E>(r);
+            gt[H] = from_f<E>(z);
+            gt[2 * H] = from_f<E>(n);
+            gt[3 * H] = from_f<E>(ghn);
           }
           outs[bt * H + u] = from_f<E>(h_new);
           if constexpr (kLowp) carry[bu] = h_new;
@@ -529,15 +565,35 @@ gru_fwd_kernel(const E* __restrict__ xw,            // [B, T, 3H]
         }
       }
     }
-    if (t + 1 < T) cg::this_grid().sync();  // outs[:, t] is complete
+    // the rows whose last live step was t - 1 (length t; at t = 0 the
+    // length-0 rows) keep their state from here on: outs[:, t - 1] (this
+    // block's units, written by this block) or h0, written into outs[:, t:]
+    // and final at once
+    const int dying = (t > 0 ? counts[t - 1] : B) - n_t;
+    for (int i = tid; i < dying * n_units; i += kThreads) {
+      const int b = order[n_t + i / n_units], u = u0 + i % n_units;
+      const size_t bu = (size_t)b * H + u;
+      const size_t b0 = (size_t)b * T;
+      const E v = t > 0 ? outs[(b0 + t - 1) * H + u]
+                        : kWithH0 ? h_init[bu] : from_f<E>(0.0f);
+      for (int s = t; s < T; ++s) outs[(b0 + s) * H + u] = v;
+      final_h[bu] = v;
+    }
+    if (n_t == 0) break;  // every row is written to the end
+    if (t + 1 < T) {
+      if (counts[t + 1] > 0)
+        cg::this_grid().sync();  // outs[:, t] is complete
+      else
+        __syncthreads();  // no product reads it: only this block's writes
+    }
   }
 }
 
 template <typename E, bool kSaveGates, bool kWithH0>
 int launch_gru_fwd(const void* xw, const void* w_h, const float* b_h,
-                   const int32_t* lengths, const void* h0, void* outs,
-                   void* final_h, void* gates, float* carry, int B, int T,
-                   int H, cudaStream_t stream) {
+                   const int32_t* order, const int32_t* counts,
+                   const void* h0, void* outs, void* final_h, void* gates,
+                   float* carry, int B, int T, int H, cudaStream_t stream) {
   const int sms = gru::device_sms();
   if (sms == 0) return (int)cudaErrorInvalidDevice;
   int U = units_per_block(H, sms);
@@ -549,30 +605,34 @@ int launch_gru_fwd(const void* xw, const void* w_h, const float* b_h,
   E* final_e = static_cast<E*>(final_h);
   E* gates_e = static_cast<E*>(gates);
   void* args[] = {(void*)&xw_e,    (void*)&w_e,     (void*)&b_h,
-                  (void*)&lengths, (void*)&h0_e,    (void*)&outs_e,
-                  (void*)&final_e, (void*)&gates_e, (void*)&carry,
-                  (void*)&B,       (void*)&T,       (void*)&H,
-                  (void*)&U};
+                  (void*)&order,   (void*)&counts,  (void*)&h0_e,
+                  (void*)&outs_e,  (void*)&final_e, (void*)&gates_e,
+                  (void*)&carry,   (void*)&B,       (void*)&T,
+                  (void*)&H,       (void*)&U};
   return gru::launch_cooperative(gru_fwd_kernel<E, kSaveGates, kWithH0>,
                                  grid, smem_bytes<E>(H, U), args, stream);
 }
 
 template <typename E>
 int dispatch_gru_fwd(const void* xw, const void* w_h, const float* b_h,
-                     const int32_t* lengths, const void* h0, void* outs,
-                     void* final_h, void* gates, float* carry, int B, int T,
-                     int H, cudaStream_t s) {
+                     const int32_t* order, const int32_t* counts,
+                     const void* h0, void* outs, void* final_h, void* gates,
+                     float* carry, int B, int T, int H, cudaStream_t s) {
   if (gates != nullptr && h0 != nullptr)
-    return launch_gru_fwd<E, true, true>(xw, w_h, b_h, lengths, h0, outs,
-                                         final_h, gates, carry, B, T, H, s);
+    return launch_gru_fwd<E, true, true>(xw, w_h, b_h, order, counts, h0,
+                                         outs, final_h, gates, carry, B, T,
+                                         H, s);
   if (gates != nullptr)
-    return launch_gru_fwd<E, true, false>(xw, w_h, b_h, lengths, h0, outs,
-                                          final_h, gates, carry, B, T, H, s);
+    return launch_gru_fwd<E, true, false>(xw, w_h, b_h, order, counts, h0,
+                                          outs, final_h, gates, carry, B, T,
+                                          H, s);
   if (h0 != nullptr)
-    return launch_gru_fwd<E, false, true>(xw, w_h, b_h, lengths, h0, outs,
-                                          final_h, gates, carry, B, T, H, s);
-  return launch_gru_fwd<E, false, false>(xw, w_h, b_h, lengths, h0, outs,
-                                         final_h, gates, carry, B, T, H, s);
+    return launch_gru_fwd<E, false, true>(xw, w_h, b_h, order, counts, h0,
+                                          outs, final_h, gates, carry, B, T,
+                                          H, s);
+  return launch_gru_fwd<E, false, false>(xw, w_h, b_h, order, counts, h0,
+                                         outs, final_h, gates, carry, B, T,
+                                         H, s);
 }
 
 }  // namespace
@@ -583,26 +643,31 @@ int dispatch_gru_fwd(const void* xw, const void* w_h, const float* b_h,
 // gates are f32, or bf16 when bf16 != 0; b_h is f32 either way; carry is
 // an f32 [B, H] scratch in bf16 (null in f32). h0 (the seeded variant) and
 // gates (the gate-saving variant) may each be null; the instantiation is
-// chosen by the element type and by which are given.
+// chosen by the element type and by which are given. order [B] (int32) is
+// the rows sorted by length, longest first, and counts [T] (int32) the live
+// rows of each step (the rows with t < length), both on the device.
 extern "C" int cmhse_gru_fwd(const void* xw, const void* w_h,
-                             const float* b_h, const int32_t* lengths,
-                             const void* h0, void* outs, void* final_h,
-                             void* gates, void* carry, int B, int T, int H,
-                             int bf16, void* stream) {
+                             const float* b_h, const int32_t* order,
+                             const int32_t* counts, const void* h0,
+                             void* outs, void* final_h, void* gates,
+                             void* carry, int B, int T, int H, int bf16,
+                             void* stream) {
   if (B <= 0 || T <= 0 || H <= 0 || H % 4 != 0 ||
       (bf16 != 0) != (carry != nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   float* c = static_cast<float*>(carry);
   if (bf16)
-    return dispatch_gru_fwd<__nv_bfloat16>(xw, w_h, b_h, lengths, h0, outs,
-                                           final_h, gates, c, B, T, H, s);
-  return dispatch_gru_fwd<float>(xw, w_h, b_h, lengths, h0, outs, final_h,
-                                 gates, c, B, T, H, s);
+    return dispatch_gru_fwd<__nv_bfloat16>(xw, w_h, b_h, order, counts, h0,
+                                           outs, final_h, gates, c, B, T, H,
+                                           s);
+  return dispatch_gru_fwd<float>(xw, w_h, b_h, order, counts, h0, outs,
+                                 final_h, gates, c, B, T, H, s);
 }
 
 // Largest H the resident variant takes on the current device: the block's
-// W_h slice and the staging buffers must fit in one block's shared memory.
+// W_h slice, the staging buffers and the chunk's rows must fit in one
+// block's shared memory.
 extern "C" int cmhse_gru_fwd_max_hidden(int bf16) {
   return bf16 ? gru::max_hidden(smem_bytes<__nv_bfloat16>)
               : gru::max_hidden(smem_bytes<float>);

@@ -44,9 +44,10 @@ LIB_NAME = "libcmhse_kernels.so"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # xw, w_h, b_h, lengths, h0, outs, final, gates, carry, B, T, H, bf16,
-    # stream
-    "cmhse_gru_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # xw, w_h, b_h, order, counts, h0, outs, final, gates, carry, B, T, H,
+    # bf16, stream
+    "cmhse_gru_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                      _P),
     "cmhse_gru_fwd_max_hidden": (_I,),
     # xw, w_h, b_h, order, counts, h0, outs, final, gates, carry, B, T, H,
     # bf16, stream

@@ -21,11 +21,16 @@ products outside the kernels, as the JAX package leaves them to XLA.
 What bounds them on an H100: ``gru_fwd`` is one cooperative grid, at most
 one block per SM, that splits the hidden units across the blocks; each
 block keeps its units' columns of ``W_h`` in shared memory for the whole
-time loop, computes them for every batch row each step from the previous
-step's ``outs`` (read from L2), and meets the other blocks at one grid
-barrier a step. Its f32 product runs in FFMA, its bf16 product on the
-tensor cores (``mma.sync``); at 512 rows x 64 steps the FMAs (f32) and the
-L2 reads of the state (bf16) bound it. ``gru_bwd`` is the same split run
+time loop, computes them each step for the rows still live from the
+previous step's ``outs`` (read from L2), and meets the other blocks at one
+grid barrier a step. The rows are ordered once a call by length
+(:func:`live_row_order`), so the rows live at a step are a prefix of them
+(:func:`live_counts` long); a row that leaves the prefix has its frozen
+state written into every later step at once, and the loop ends with the
+longest row. Its f32 product runs in FFMA, its bf16 product on the tensor
+cores (``mma.sync``); at 512 rows x 64 steps the FMAs of the live rows
+(f32) and the L2 reads of their state (bf16) bound it, and at few live rows
+the fixed cost of a step. ``gru_bwd`` is the same split run
 backwards: each block keeps its units' rows of ``W_h`` in shared memory,
 writes their gate gradients for every row, and after one grid barrier a
 step adds their share of the carried gradient's product for the live rows
@@ -43,10 +48,9 @@ streamed variant; its launches count under a variant ending in
 ``+streamed``. Each stages ``W_h`` slab by slab into shared memory beside
 the product's operand (``gru_fwd``'s the state, ``gru_bwd``'s the gate
 gradients), reads each live row's operand once a step for all of a block's
-units, and multiplies only the rows still live (the rows ordered once a
-call by length, :func:`live_row_order`, with :func:`live_counts` rows live
-at each step); ``gru_bwd``'s runs the resident variant's arithmetic in its
-order, so the two agree bit for bit.
+units, and multiplies only the rows still live, as the resident variants
+do; each runs its resident variant's arithmetic in its order, so the two
+agree bit for bit.
 
 Dispatch: a CPU tensor takes the plain versions; a CUDA tensor launches the
 kernels or raises. There is no fallback between the two, and a bf16 tensor
@@ -324,8 +328,8 @@ def _dtype_name(dt: torch.dtype) -> str:
 def live_row_order(lengths: torch.Tensor) -> torch.Tensor:
     """The batch rows ordered by length, longest first, equal lengths in
     row order (int32, on ``lengths``' device): the rows live at step t,
-    ``t < length``, are then a prefix of it, which ``gru_bwd``'s product
-    and the streamed ``gru_fwd``'s walk."""
+    ``t < length``, are then a prefix of it, which ``gru_fwd`` and
+    ``gru_bwd``'s product walk."""
     return torch.argsort(lengths, descending=True, stable=True).to(
         torch.int32)
 
@@ -388,9 +392,11 @@ def gru_forward(
     ``xw``/``w_h``/``h0`` in that dtype, an f32 ``b_h`` and int32
     ``lengths``; anything else raises. H not a multiple of 4 is padded
     (module docstring); H past :func:`fwd_max_hidden` takes the streamed
-    variant, which also takes the rows in :func:`live_row_order` and the
-    live rows of each step (:func:`live_counts`), both made here on the
-    card. Each launch counts in ``cuda_lib.launches`` under ("gru_fwd",
+    variant. Both variants also take the rows in :func:`live_row_order`
+    and the live rows of each step (:func:`live_counts`), made here on the
+    card and never read back to the host, so that a CUDA graph that
+    captures the call makes them anew from its ``lengths`` at every
+    replay. Each launch counts in ``cuda_lib.launches`` under ("gru_fwd",
     dtype, variant), the variant "encode", "with_h0", "save_gates" or
     "save_gates+with_h0", with "+streamed" appended past the resident
     limit.
@@ -430,20 +436,14 @@ def gru_forward(
         # rounded, so they cannot carry it)
         carry = (torch.empty(b, hdim, dtype=torch.float32, device=dev)
                  if bf16 else None)
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        if streamed:
-            order, counts = live_row_order(lengths), live_counts(lengths, t)
-            err = lib.cmhse_gru_fwd_streamed(
-                xw.data_ptr(), w_h.data_ptr(), b_h.data_ptr(),
-                order.data_ptr(), counts.data_ptr(), _ptr(h0),
-                outs.data_ptr(), final.data_ptr(), _ptr(gates), _ptr(carry),
-                b, t, hdim, bf16, stream)
-        else:
-            err = lib.cmhse_gru_fwd(
-                xw.data_ptr(), w_h.data_ptr(), b_h.data_ptr(),
-                lengths.data_ptr(), _ptr(h0), outs.data_ptr(),
-                final.data_ptr(), _ptr(gates), _ptr(carry), b, t, hdim, bf16,
-                stream)
+        order, counts = live_row_order(lengths), live_counts(lengths, t)
+        launch = (lib.cmhse_gru_fwd_streamed if streamed
+                  else lib.cmhse_gru_fwd)
+        err = launch(
+            xw.data_ptr(), w_h.data_ptr(), b_h.data_ptr(), order.data_ptr(),
+            counts.data_ptr(), _ptr(h0), outs.data_ptr(), final.data_ptr(),
+            _ptr(gates), _ptr(carry), b, t, hdim, bf16,
+            torch.cuda.current_stream(dev).cuda_stream)
     cuda_lib.check(err, "gru_fwd launch")
     flags = [f for f, on in (("save_gates", save_gates),
                              ("with_h0", h0 is not None)) if on]

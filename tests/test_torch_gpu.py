@@ -1969,6 +1969,152 @@ def test_gru_streamed_equals_resident_bitwise_many_chunks(cuda, dtype, h):
             assert torch.equal(a, c)
 
 
+def _live_gates(result, lengths):
+    """``(outs, final, gates at the live steps)`` of a gate-saving
+    forward: the gates of the other steps are left unwritten."""
+    t = result[0].shape[1]
+    live = torch.arange(t, device=lengths.device)[None, :] < lengths[:, None]
+    return result[0], result[1], result[2][live]
+
+
+# Lengths of one shape, B = 600 (past the f32 chunk of 512) x T = 9, that
+# give the resident gru_fwd's live prefix every form: mostly short rows in
+# random order; every row full; every row past T; every row 0; the trailing
+# steps with no live row.
+def _replay_lengths(b, t, seed):
+    rng = np.random.RandomState(seed)
+    full = np.full(b, t)
+    trail = rng.randint(0, t - 3, b)
+    return [_many_chunk_lengths(b, t, seed).numpy(), full, full + 5,
+            np.zeros(b), trail, rng.randint(0, t + 1, b)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gru_fwd_graph_replays_new_lengths_bitwise(cuda, dtype):
+    """The resident gru_fwd (save_gates) captured in a CUDA graph with one
+    set of lengths and replayed with others of the same shape: each
+    replay's outs, final and live gates equal an eager call's bit for bit,
+    so the row order and the live counts are made on the card at every
+    replay."""
+    dt = getattr(torch, dtype)
+    b, t, h = 600, 9, 1024
+    xw, w_h, b_h, _ = [a.to(cuda) for a in _gru_inputs(b, t, h, 23)]
+    xw, w_h = xw.to(dt), w_h.to(dt)
+    sets = [torch.from_numpy(x.astype(np.int32)).to(cuda)
+            for x in _replay_lengths(b, t, 23)]
+    static = sets[0].clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up off the capture
+        gru_kernel.gru_forward(xw, w_h, b_h, static, save_gates=True)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    cuda_lib.reset_launches()
+    with torch.cuda.graph(graph):
+        captured = gru_kernel.gru_forward(xw, w_h, b_h, static,
+                                          save_gates=True)
+    assert not cuda_lib.launches  # a captured launch is not counted
+    assert gru_kernel.fwd_max_hidden(dt) >= h  # the resident variant
+    for lengths in sets[1:] + sets[:1]:
+        static.copy_(lengths)
+        graph.replay()
+        want = gru_kernel.gru_forward(xw, w_h, b_h, lengths, save_gates=True)
+        torch.cuda.synchronize()
+        for g, w in zip(_live_gates(captured, lengths),
+                        _live_gates(want, lengths)):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("variant", ["encode", "save_gates", "save_gates_h0"])
+def test_gru_fwd_permuted_rows_permute_outputs_bitwise(cuda, dtype, variant):
+    """The resident gru_fwd walks the rows in length order: permuting the
+    batch rows (lengths, xw and h0 alike) permutes every output bit for
+    bit. B = 600 spans two f32 chunks and three bf16 ones."""
+    dt = getattr(torch, dtype)
+    b, t, h = 600, 7, 1024
+    xw, w_h, b_h, lengths = [a.to(cuda) for a in _gru_inputs(b, t, h, 29)]
+    xw, w_h = xw.to(dt), w_h.to(dt)
+    save = variant != "encode"
+    h0 = ((torch.randn(b, h, device=cuda) * 0.5).to(dt)
+          if variant == "save_gates_h0" else None)
+    perm = torch.randperm(b, generator=torch.Generator().manual_seed(29))
+    perm = perm.to(cuda)
+    got = gru_kernel.gru_forward(xw[perm].contiguous(), w_h, b_h,
+                                 lengths[perm].contiguous(),
+                                 None if h0 is None else h0[perm].contiguous(),
+                                 save_gates=save)
+    want = gru_kernel.gru_forward(xw, w_h, b_h, lengths, h0, save_gates=save)
+    assert torch.equal(got[0], want[0][perm])
+    assert torch.equal(got[1], want[1][perm])
+    if save:
+        assert torch.equal(_live_gates(got, lengths[perm])[2],
+                           _live_gates((want[0][perm], want[1][perm],
+                                        want[2][perm]), lengths[perm])[2])
+
+
+# (B, T, lengths) of the resident gru_fwd's walk at its edges: every row at
+# full length; every row 0; T past every length (the trailing steps have no
+# live row and need no barrier); B = 1; B = 513, one row past the f32 chunk
+LIVE_EDGES = {"full": (40, 6, "full"), "zero": (40, 6, "zero"),
+              "t_past": (40, 9, "t_past"), "b1": (1, 7, "random"),
+              "b513": (513, 5, "random")}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("variant", ["encode", "save_gates", "save_gates_h0"])
+@pytest.mark.parametrize("edge", sorted(LIVE_EDGES))
+def test_gru_fwd_live_prefix_edges_match_plain_and_streamed(cuda, dtype,
+                                                            variant, edge):
+    """The resident gru_fwd at the edges of its live prefix against the
+    plain version (in the bands above) and the streamed variant (bit for
+    bit)."""
+    dt = getattr(torch, dtype)
+    b, t, kind = LIVE_EDGES[edge]
+    h = 1024
+    xw, w_h, b_h, lengths = [a.to(cuda) for a in _gru_inputs(
+        b, t, h, seed=b + t)]
+    if kind == "full":
+        lengths.fill_(t)
+    elif kind == "zero":
+        lengths.zero_()
+    elif kind == "t_past":
+        lengths.remainder_(t - 3)
+    xw, w_h = xw.to(dt), w_h.to(dt)
+    save = variant != "encode"
+    h0 = ((torch.randn(b, h, device=cuda) * 0.5).to(dt)
+          if variant == "save_gates_h0" else None)
+    cuda_lib.reset_launches()
+    got = gru_kernel.gru_forward(xw, w_h, b_h, lengths, h0, save_gates=save)
+    name = {"save_gates_h0": "save_gates+with_h0"}.get(variant, variant)
+    assert cuda_lib.launches == {("gru_fwd", dtype, name): 1}
+    lib = cuda_lib.library()
+    saved = lib.cmhse_gru_fwd_max_hidden
+    try:  # the wrapper reads the limit through the library
+        lib.cmhse_gru_fwd_max_hidden = lambda bf16: 4
+        streamed = gru_kernel.gru_forward(xw, w_h, b_h, lengths, h0,
+                                          save_gates=save)
+    finally:
+        lib.cmhse_gru_fwd_max_hidden = saved
+    want = gru_kernel.gru_recurrence_plain(xw, w_h, b_h, lengths, h0,
+                                           save_gates=save)
+    torch.cuda.synchronize()
+    if save:
+        got, streamed, want = [_live_gates(r, lengths)
+                               for r in (got, streamed, want)]
+    # bf16: as in test_gru_fwd_streamed_live_rows_match_plain, a value past
+    # |2| may land one bf16 ulp (2^-7 of it) from the plain version's
+    band = (dict(atol=1e-5, rtol=0) if dt == torch.float32
+            else dict(atol=BF16_ATOL, rtol=2.0 ** -7))
+    for g, s, w in zip(got, streamed, want):
+        assert torch.equal(g, s)
+        torch.testing.assert_close(g, w, **band)
+    dead = lengths == 0  # a length-0 row keeps its start at every step
+    start = h0[dead] if h0 is not None else torch.zeros_like(got[1][dead])
+    assert torch.equal(got[1][dead], start)
+    assert torch.equal(got[0][dead], start[:, None].expand(-1, t, -1))
+
+
 def test_trainable_gru_at_h30_on_card_matches_cpu(cuda):
     """TrainableGRU forward and backward at H = 30 (padded to 32 on the
     card) against the CPU's plain path, seeded and not."""
