@@ -36,18 +36,18 @@ Phases (any failure raises and the script exits non-zero):
      64, random weights from the seed): encode a 512-video synthetic
      gallery, answer 8 text->video and 8 video->text top-10 requests, score
      it with ``validate_metrics(streaming=True)``; the first batch is
-     re-encoded on the CPU (plain versions) and must agree; 4b.
-     torch.profiler splits two batches' encode device time by kernel family;
-     4c. the same in the bf16 configuration (``dtype`` and
+     re-encoded on the CPU (plain versions) and must agree; then the
+     gallery's encode through the prefetch, timed, and two batches of it
+     under torch.profiler: the host-to-device copies off the compute
+     stream; 4c. the same in the bf16 configuration (``dtype`` and
      ``feature_dtype`` bfloat16) on the same weights and batches, plus the
      lowp rank count; embeddings held against the f32 model's, the first
-     batch re-encoded on the CPU in bf16; a profiler split of its encode;
+     batch re-encoded on the CPU in bf16;
   5. the training path at the same width: 8 ``train_step``s on one 64-video
      batch (finite losses and grad norms, the last loss below the first,
      6 + 6 + 2 kernel launches in the first, eager step, none in its
      graph's 7 replays), then ``validate_metrics`` on the
-     trained weights; 5b. torch.profiler splits one step's device time by
-     kernel family; 5c. one step at batch 8, card against the CPU's plain
+     trained weights; 5c. one step at batch 8, card against the CPU's plain
      path: loss, grad_norm and every parameter gradient; 5d. the same three
      in bf16 (only the bf16 GRU kernels may launch; card vs CPU on four
      batches with the hardest negatives pinned, in the bf16 bands of
@@ -60,13 +60,9 @@ Phases (any failure raises and the script exits non-zero):
      checkpoint seconds, launches per epoch); 6b. a run killed after step 5
      and resumed from its step-4 snapshot, against the uninterrupted run
      tensor by tensor; 6c. one epoch at two steps a dispatch against the
-     first run's checkpoint after one epoch;
-     6d. train steps with batches through the prefetch and through
-     pageable copies, timed in turns; 6e. eight steps at lr 1e-3 on phase
-     5's batch from weights drawn with numpy (the card's side of
-     ``scripts/lr_rise_check.py``). Phases 4 and 4c also time the encode
-     through the prefetch against the pageable ``Batch.to`` path, and 4b
-     shows on which stream the host-to-device copies ran;
+     first run's checkpoint after one epoch; 6e. eight steps at lr 1e-3
+     on phase 5's batch from weights drawn with numpy (the card's side of
+     ``scripts/lr_rise_check.py``);
   7. the command-line chain at the same width: 7a. the native packer
      against ``pad_batch`` on 64 of phase 6's videos, f32 and bf16 (bit for
      bit; host ms of each); then over a reference-layout directory written
@@ -210,7 +206,6 @@ FIT_VAL_VIDEOS = 256
 FIT_EPOCHS = 2
 FIT_SNAPSHOT = 4  # snapshot_step
 FIT_KILL_AFTER = 5  # 6b kills the second run after this many steps
-FIT_PIPELINE_STEPS = 6  # 6d's steps a timed window
 PACK_REPS = 20  # 7a: host timings a packer
 # phase 7's reference-layout data: ActivityNet-like lengths, as phase 4's
 CLI_TRAIN_VIDEOS = 384
@@ -1068,48 +1063,6 @@ def phase_train(torch, np, seed: int, bf16: bool = False) -> dict:
     return dict(counts=counts, state=state, batch=batch, loss_cfg=cfg.loss)
 
 
-def phase_train_breakdown(torch, state, batch, loss_cfg) -> None:
-    """5b: where one train step's device time goes (torch.profiler), by
-    kernel family, and the device's busy share of the step's wall time."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from cmhse_tpu_torch.train import train_step
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        train_step(state, batch, loss_cfg)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    families = {"gru_fwd": 0.0, "gru_bwd": 0.0, "simhinge": 0.0,
-                "matrix products": 0.0, "copies": 0.0, "other kernels": 0.0}
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA or \
-                e.key.startswith("Activity Buffer"):
-            continue
-        us = e.self_device_time_total
-        key = e.key.lower()
-        if "gru_fwd" in key:
-            families["gru_fwd"] += us
-        elif "gru_bwd" in key:
-            families["gru_bwd"] += us
-        elif "simhinge" in key:
-            families["simhinge"] += us
-        elif any(w in key for w in ("gemm", "gemv", "xmma", "cutlass")):
-            families["matrix products"] += us
-        elif key.startswith(("memcpy", "memset")) or "copy" in key:
-            families["copies"] += us
-        else:
-            families["other kernels"] += us
-    busy_ms = sum(families.values()) / 1e3
-    if busy_ms <= 0:
-        raise AssertionError("the profiler recorded no device time")
-    log(f"  one step: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms "
-        f"({100 * busy_ms / wall_ms:.1f}%)")
-    for name, us in families.items():
-        log(f"    {name}: {us / 1e3:.3f} ms ({100 * us / 1e3 / busy_ms:.1f}%)")
-
-
 def phase_train_parity(torch, np, seed: int) -> None:
     """5c: one cmhse_full step at batch 8 and full width, card against the
     CPU's plain path (``step_parity``)."""
@@ -1665,43 +1618,29 @@ def phase_serving_bf16(torch, np, f32: dict) -> dict:
     return dict(counts=counts, model=model, batches=batches)
 
 
-def encode_pageable(torch, model, batches):
-    """The encode as it ran before the prefetch: each batch copied from
-    pageable host memory by ``Batch.to`` on the compute stream, then
-    encoded."""
-    from cmhse_tpu_torch.eval.encode import encode_batch
-
-    out = [encode_batch(model, b) for b in batches]
-    return torch.cat([o[0] for o in out]), torch.cat([o[1] for o in out])
-
-
-def profile_families(torch, fn) -> dict:
-    """torch.profiler over ``fn()``: wall and device-busy ms, device time
-    by kernel family, and the streams the host-to-device copies and the
-    ``gru_fwd`` kernels ran on (None where the profiler gives no stream)."""
+def phase_encode_pipeline(torch, np, model, batches) -> None:
+    """The whole gallery's encode through the prefetch
+    (``encode_gallery_device``), timed twice; then two batches of it under
+    torch.profiler, whose host-to-device copies must have left the compute
+    stream (the one ``gru_fwd`` ran on)."""
     from torch.profiler import ProfilerActivity, profile
 
+    from cmhse_tpu_torch.eval import encode_gallery_device
+
+    n = sum(int(np.asarray(b.valid).sum()) for b in batches)
+    rates = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        encode_gallery_device(model, batches)
+        torch.cuda.synchronize()
+        rates.append(n / (time.perf_counter() - t0))
+    log(f"  encode {n} videos: prefetch {float(np.mean(rates)):.1f} "
+        f"videos/s (turns {rates[0]:.1f}, {rates[1]:.1f})")
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
+        encode_gallery_device(model, batches[:2])
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    families = {"gru_fwd": 0.0, "host-to-device copy": 0.0,
-                "matrix products": 0.0, "other kernels": 0.0}
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA or \
-                e.key.startswith("Activity Buffer"):
-            continue  # host-side ops, and the profiler's own buffer
-        us = e.self_device_time_total
-        if "gru_fwd" in e.key:
-            families["gru_fwd"] += us
-        elif e.key.startswith("Memcpy HtoD"):
-            families["host-to-device copy"] += us
-        elif any(w in e.key for w in ("gemm", "gemv", "xmma")):
-            families["matrix products"] += us
-        else:
-            families["other kernels"] += us
     streams = {"copy": set(), "gru_fwd": set()}
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA:
@@ -1711,79 +1650,17 @@ def profile_families(torch, fn) -> dict:
             streams["copy"].add(sid)
         elif "gru_fwd" in e.name:
             streams["gru_fwd"].add(sid)
-    busy_ms = sum(families.values()) / 1e3
-    if busy_ms <= 0:
-        raise AssertionError("the profiler recorded no device time")
-    return dict(wall_ms=wall_ms, busy_ms=busy_ms, families=families,
-                streams=streams)
-
-
-def phase_breakdown(torch, model, batches) -> None:
-    """Where the encode's device time goes: torch.profiler over two
-    full-width batches through ``encode_gallery_device`` (the prefetch),
-    device time summed by kernel family; in brackets the same two batches
-    through the pageable ``Batch.to`` path. Checks that the prefetch's
-    host-to-device copies left the compute stream."""
-    from cmhse_tpu_torch.eval import encode_gallery_device
-
-    runs = {"prefetch": profile_families(
-                torch, lambda: encode_gallery_device(model, batches[:2])),
-            "pageable": profile_families(
-                torch, lambda: encode_pageable(torch, model, batches[:2]))}
-    new, old = runs["prefetch"], runs["pageable"]
-    log(f"  2 batches: wall {new['wall_ms']:.3f} ms [{old['wall_ms']:.3f}], "
-        f"device busy {new['busy_ms']:.3f} ms [{old['busy_ms']:.3f}] "
-        f"({100 * new['busy_ms'] / new['wall_ms']:.1f}% "
-        f"[{100 * old['busy_ms'] / old['wall_ms']:.1f}%])")
-    for name, us in new["families"].items():
-        was = old["families"][name]
-        log(f"    {name}: {us / 1e3:.3f} ms "
-            f"({100 * us / 1e3 / new['busy_ms']:.1f}%) [{was / 1e3:.3f} ms, "
-            f"{100 * was / 1e3 / old['busy_ms']:.1f}%]")
-    for label, run in runs.items():
-        st = run["streams"]
-        known = None not in st["copy"] | st["gru_fwd"]
-        shared = bool(st["copy"] & st["gru_fwd"]) if known else None
-        log(f"  {label}: host-to-device copies on stream(s) "
-            f"{sorted(map(str, st['copy']))}, gru_fwd on "
-            f"{sorted(map(str, st['gru_fwd']))}: the copy "
-            + ("sits on the compute stream" if shared else
-               "is off the compute stream" if known else
-               "stream not reported by the profiler"))
-        if label == "prefetch" and shared:
-            raise AssertionError("the prefetch's copies ran on the compute "
-                                 "stream")
-
-
-def phase_encode_pipeline(torch, np, model, batches) -> dict:
-    """The whole gallery's encode through the prefetch
-    (``encode_gallery_device``) and through the pageable ``Batch.to`` path,
-    timed in turns (pageable, prefetch, prefetch, pageable) on the same
-    batches; the embeddings of the two paths must be equal."""
-    from cmhse_tpu_torch.eval import encode_gallery_device
-
-    n = sum(int(np.asarray(b.valid).sum()) for b in batches)
-    rates = {"prefetch": [], "pageable": []}
-    outs = {}
-    for label in ("pageable", "prefetch", "prefetch", "pageable"):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = (encode_gallery_device(model, batches)[:2]
-               if label == "prefetch" else
-               encode_pageable(torch, model, batches))
-        torch.cuda.synchronize()
-        rates[label].append(n / (time.perf_counter() - t0))
-        outs[label] = out
-    same = all(torch.equal(a, b) for a, b in zip(outs["prefetch"],
-                                                 outs["pageable"]))
-    new, old = (float(np.mean(rates[k])) for k in ("prefetch", "pageable"))
-    log(f"  encode {n} videos: prefetch {new:.1f} videos/s (turns "
-        f"{rates['prefetch'][0]:.1f}, {rates['prefetch'][1]:.1f}) "
-        f"[pageable {old:.1f}: {rates['pageable'][0]:.1f}, "
-        f"{rates['pageable'][1]:.1f}]; embeddings equal: {same}")
-    if not same:
-        raise AssertionError("the prefetch changed the embeddings")
-    return dict(prefetch=new, pageable=old)
+    known = None not in streams["copy"] | streams["gru_fwd"]
+    shared = bool(streams["copy"] & streams["gru_fwd"]) if known else None
+    log(f"  2 batches: host-to-device copies on stream(s) "
+        f"{sorted(map(str, streams['copy']))}, gru_fwd on "
+        f"{sorted(map(str, streams['gru_fwd']))}: the copy "
+        + ("sits on the compute stream" if shared else
+           "is off the compute stream" if known else
+           "stream not reported by the profiler"))
+    if shared:
+        raise AssertionError("the prefetch's copies ran on the compute "
+                             "stream")
 
 
 def phase_topk(torch, rng) -> None:
@@ -2073,49 +1950,6 @@ def phase_fit(torch, np, seed: int, train_ds, val_ds) -> dict:
         shutil.rmtree(root, ignore_errors=True)
     return dict(counts=counts, step_ms=float(np.median(timings["step"])),
                 epoch_s=[e["seconds"] for e in epochs])
-
-
-def phase_step_pipeline(torch, np, seed: int, train_ds) -> dict:
-    """6d: train steps at full width with their batches through the
-    prefetch (the loop's way) and through the pageable ``Batch.to`` path,
-    on the same FIT_PIPELINE_STEPS host batches, timed in turns (pageable,
-    prefetch, prefetch, pageable) after one untimed prefetch pass; a
-    window's ms a step is its wall time over its steps, one
-    synchronisation at its end."""
-    from cmhse_tpu_torch.config import get_preset
-    from cmhse_tpu_torch.data import Prefetcher, batches_from_dataset
-    from cmhse_tpu_torch.models import CMHSE
-    from cmhse_tpu_torch.train import create_train_state, train_step
-
-    cfg = get_preset("cmhse_full")
-    n = FIT_PIPELINE_STEPS * cfg.data.batch_size
-    host = list(batches_from_dataset(train_ds[:n], cfg.data, shuffle=False))
-    model = CMHSE(cfg.model, cfg.data.vocab_size,
-                  generator=torch.Generator().manual_seed(seed))
-    state = create_train_state(cfg, model)
-    pre = Prefetcher(model.device)
-
-    def window(label: str) -> float:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        if label == "prefetch":
-            for _, b in pre(host):
-                train_step(state, b, cfg.loss)
-        else:
-            for b in host:
-                train_step(state, b, cfg.loss)
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t0) * 1e3 / len(host)
-
-    window("prefetch")
-    ms = {"prefetch": [], "pageable": []}
-    for label in ("pageable", "prefetch", "prefetch", "pageable"):
-        ms[label].append(window(label))
-    new, old = (float(np.mean(ms[k])) for k in ("prefetch", "pageable"))
-    log(f"  {len(host)} steps a window: prefetch {new:.3f} ms a step (turns "
-        f"{ms['prefetch'][0]:.3f}, {ms['prefetch'][1]:.3f}) [pageable "
-        f"{old:.3f}: {ms['pageable'][0]:.3f}, {ms['pageable'][1]:.3f}]")
-    return dict(prefetch=new, pageable=old)
 
 
 def phase_lr_check(torch, np, seed: int) -> list:
@@ -4376,26 +4210,17 @@ def main() -> int:
     main_out = phase_main_path(torch, np, args.seed, args.videos)
     counts = main_out["counts"]
     phase_encode_pipeline(torch, np, main_out["model"], main_out["batches"])
-    phase("phase 4b: where the encode's device time goes (torch.profiler; "
-          "the pageable path in brackets)")
-    phase_breakdown(torch, main_out["model"], main_out["batches"])
     phase("phase 4c: serving path in bf16 (dtype and feature_dtype "
           "bfloat16), same weights and batches")
     bf16_serve = phase_serving_bf16(torch, np, main_out)
     bf16_counts = bf16_serve["counts"]
     phase_encode_pipeline(torch, np, bf16_serve["model"],
                           bf16_serve["batches"])
-    phase("phase 4c: where the bf16 encode's device time goes "
-          "(torch.profiler; the pageable path in brackets)")
-    phase_breakdown(torch, bf16_serve["model"], bf16_serve["batches"])
     del main_out, bf16_serve
     phase(f"phase 5: training path at full cmhse_full width ({TRAIN_STEPS} "
           "train_steps, then validate_metrics)")
     train_out = phase_train(torch, np, args.seed)
     tcounts = train_out["counts"]
-    phase("phase 5b: where one train step's device time goes (torch.profiler)")
-    phase_train_breakdown(torch, train_out["state"], train_out["batch"],
-                          train_out["loss_cfg"])
     del train_out
     phase("phase 5c: one train step at batch 8, card vs CPU")
     phase_train_parity(torch, np, args.seed)
@@ -4403,10 +4228,6 @@ def main() -> int:
           "then validate_metrics)")
     bf16_train = phase_train(torch, np, args.seed, bf16=True)
     bcounts = bf16_train["counts"]
-    phase("phase 5d: where one bf16 train step's device time goes "
-          "(torch.profiler)")
-    phase_train_breakdown(torch, bf16_train["state"], bf16_train["batch"],
-                          bf16_train["loss_cfg"])
     del bf16_train
     phase("phase 5d: one bf16 train step at batch 8, card vs CPU")
     phase_train_parity_bf16(torch, np, args.seed)
@@ -4418,8 +4239,6 @@ def main() -> int:
     train_ds, val_ds = fit_datasets(args.seed)
     fit_out = phase_fit(torch, np, args.seed, train_ds, val_ds)
     fcounts = fit_out["counts"]
-    phase("phase 6d: train steps with the prefetch and with pageable copies")
-    phase_step_pipeline(torch, np, args.seed, train_ds)
     phase("phase 6e: phase 5's batch, numpy-drawn weights, lr 1e-3 "
           "(scripts/lr_rise_check.py's card run)")
     phase_lr_check(torch, np, args.seed)

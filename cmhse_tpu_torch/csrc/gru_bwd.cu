@@ -44,11 +44,14 @@
 // dhn: stride H, depths 2H..3H); 2H is a multiple of 4, so every staged
 // piece lies wholly in one of them, however a slab straddles 2H.
 //
-// Only live rows enter the product. The wrapper orders the rows once a call
-// by length, descending and stable (`order`), so the rows live at step t
-// are the prefix order[0 : n_t]; the product walks that prefix in chunks.
-// Each row's arithmetic is its own and every sum runs in a fixed order, so
-// the order changes no result. A step with no live row needs neither the
+// Only live rows enter the product. It takes gru_fwd.cu's plan of the live
+// rows, made once a recurrence by the wrapper on the device and handed from
+// the forward to the backward: `order` sorts the rows by length, longest
+// first, and counts[t] is the number live at step t, so the rows live at
+// step t are the prefix order[0 : counts[t]], which the product walks in
+// chunks. All four GRU kernels take this plan and walk this prefix. Each
+// row's arithmetic is its own and every sum runs in a fixed order, so the
+// order changes no result. A step with no live row needs neither the
 // product nor the barrier, on every block alike.
 //
 // The f32 carry never leaves f32: it lives in dh0 itself in f32 and in a
@@ -396,6 +399,7 @@ gru_bwd_kernel(const E* __restrict__ gates,          // [B, T, 4H]
                const E* __restrict__ dfinal,         // [B, H] or null
                const int32_t* __restrict__ lengths,  // [B]
                const int32_t* __restrict__ order,    // [B] by length, desc.
+               const int32_t* __restrict__ counts,   // [T] live rows a step
                const E* __restrict__ w_h,            // [H, 3H]
                E* __restrict__ dxw,                  // [B, T, 3H]
                E* __restrict__ dhn_out,              // [B, T, H]
@@ -445,10 +449,7 @@ gru_bwd_kernel(const E* __restrict__ gates,          // [B, T, 4H]
       gru::bwd_gate_grads<E>(t, r1, sweep, u1, B, T, H, gates, outs, h_init,
                              douts, lengths, dxw, dhn_out, carry, db_part);
 
-    // rows live at step t: the prefix order[0 : n_t] (order sorts by length)
-    int n_t = 0;
-    for (int b0 = 0; b0 < B; b0 += kThreads)
-      n_t += __syncthreads_count(b0 + tid < B && t < lengths[b0 + tid]);
+    const int n_t = counts[t];  // live rows: the prefix order[0 : n_t]
     if (n_t == 0) continue;  // the same on every block: no barrier needed
 
     // ---- phase 2: carry[live, units] += operand[live] @ W_h[units]^T ----
@@ -540,9 +541,9 @@ template <typename E>
 int launch_gru_bwd(const void* gates, const void* outs, const void* h0,
                    const void* douts, const void* dfinal,
                    const int32_t* lengths, const int32_t* order,
-                   const void* w_h, void* dxw, void* dhn, float* db,
-                   void* dh0, float* carry, int B, int T, int H,
-                   cudaStream_t stream) {
+                   const int32_t* counts, const void* w_h, void* dxw,
+                   void* dhn, float* db, void* dh0, float* carry, int B,
+                   int T, int H, cudaStream_t stream) {
   const int sms = gru::device_sms();
   if (sms == 0) return (int)cudaErrorInvalidDevice;
   int U = units_per_block(H, sms);
@@ -558,12 +559,12 @@ int launch_gru_bwd(const void* gates, const void* outs, const void* h0,
   E* dxw_e = static_cast<E*>(dxw);
   E* dhn_e = static_cast<E*>(dhn);
   E* dh0_e = static_cast<E*>(dh0);
-  void* args[] = {(void*)&gates_e, (void*)&outs_e,  (void*)&h0_e,
+  void* args[] = {(void*)&gates_e, (void*)&outs_e,   (void*)&h0_e,
                   (void*)&douts_e, (void*)&dfinal_e, (void*)&lengths,
-                  (void*)&order,   (void*)&w_e,     (void*)&dxw_e,
-                  (void*)&dhn_e,   (void*)&db,      (void*)&dh0_e,
-                  (void*)&carry,   (void*)&B,       (void*)&T,
-                  (void*)&H,       (void*)&U};
+                  (void*)&order,   (void*)&counts,   (void*)&w_e,
+                  (void*)&dxw_e,   (void*)&dhn_e,    (void*)&db,
+                  (void*)&dh0_e,   (void*)&carry,    (void*)&B,
+                  (void*)&T,       (void*)&H,        (void*)&U};
   return gru::launch_cooperative(gru_bwd_kernel<E>, grid, smem, args,
                                  stream);
 }
@@ -573,25 +574,28 @@ int launch_gru_bwd(const void* gates, const void* outs, const void* h0,
 // H must be a multiple of 4, at most cmhse_gru_bwd_max_hidden(bf16), and
 // every pointer 16-byte aligned (the wrapper checks all three). gates, outs,
 // h0, douts, dfinal, w_h, dxw, dhn and dh0 are f32, or bf16 when bf16 != 0;
-// db [4H] is f32 either way. order is the rows sorted by length, descending
-// (any order of equal lengths). carry is an f32 [B, H] scratch in bf16 and
-// null in f32 (dh0 carries). h0, douts and dfinal may each be null.
+// db [4H] is f32 either way. order [B] (int32) is the rows sorted by
+// length, longest first (any order of equal lengths), and counts [T] (int32)
+// the live rows of each step (the rows with t < length), both on the device:
+// gru_fwd's plan. carry is an f32 [B, H] scratch in bf16 and null in f32
+// (dh0 carries). h0, douts and dfinal may each be null.
 extern "C" int cmhse_gru_bwd(const void* gates, const void* outs,
                              const void* h0, const void* douts,
                              const void* dfinal, const int32_t* lengths,
-                             const int32_t* order, const void* w_h, void* dxw,
-                             void* dhn, float* db, void* dh0, void* carry,
-                             int B, int T, int H, int bf16, void* stream) {
+                             const int32_t* order, const int32_t* counts,
+                             const void* w_h, void* dxw, void* dhn, float* db,
+                             void* dh0, void* carry, int B, int T, int H,
+                             int bf16, void* stream) {
   if (B <= 0 || T <= 0 || H <= 0 || H % 4 != 0 || dh0 == nullptr ||
       (bf16 != 0) != (carry != nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (bf16)
     return launch_gru_bwd<__nv_bfloat16>(
-        gates, outs, h0, douts, dfinal, lengths, order, w_h, dxw, dhn, db,
-        dh0, static_cast<float*>(carry), B, T, H, s);
+        gates, outs, h0, douts, dfinal, lengths, order, counts, w_h, dxw, dhn,
+        db, dh0, static_cast<float*>(carry), B, T, H, s);
   return launch_gru_bwd<float>(gates, outs, h0, douts, dfinal, lengths,
-                               order, w_h, dxw, dhn, db, dh0,
+                               order, counts, w_h, dxw, dhn, db, dh0,
                                static_cast<float*>(dh0), B, T, H, s);
 }
 

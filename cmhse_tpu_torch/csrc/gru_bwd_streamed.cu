@@ -20,7 +20,10 @@
 // and carry[live, units] += [dxw[:, t, 0:2H], dhn[:, t]] @ W_h[units]^T
 // over the live rows, the operand read from dxw and dhn with L2-only
 // copies (cp.async.cg, ld.global.cg), never through L1, which the grid
-// barrier does not make coherent. What differs:
+// barrier does not make coherent. The live rows are gru_bwd.cu's: the
+// prefix order[0 : counts[t]] of the plan the forward made, walked in
+// chunks; a step with no live row needs no product and no grid barrier, on
+// every block alike. What differs follows from where W_h lives:
 //
 // - W_h through shared memory. Each depth slab of the block's W_h rows is
 //   staged together with the operand slab, in one ring of cp.async stages
@@ -40,10 +43,6 @@
 //   U = 16) and 256 / S in bf16 (S >= 1), and each operand slab is read
 //   from L2 once for all of the block's units, up to 64 (H = 8,448 on 132
 //   SMs); past that the units go in groups of 64, each re-reading the chunk.
-// - Live rows from the wrapper: `order` sorts the rows by length, longest
-//   first, and counts[t] is the number live at step t, so the product walks
-//   the prefix order[0 : counts[t]] in chunks. A step with no live row
-//   needs no product and no grid barrier, on every block alike.
 // - bf16 with H not a multiple of 8 (the operand's rows 8-byte aligned
 //   only): the operand slab comes by 8-byte ld.global.cg through registers
 //   into two buffers, the W_h slab by cp.async beside it, as in gru_bwd.cu.
@@ -558,10 +557,8 @@ int launch(const void* gates, const void* outs, const void* h0,
 
 }  // namespace
 
-// cmhse_gru_bwd's contract (gru_bwd.cu), any H a multiple of 4 up to
-// kThreads x the SM count, plus the live rows of each step (counts [T],
-// int32 on the device: the rows with t < length, the length of the prefix
-// of order that step t multiplies).
+// cmhse_gru_bwd's contract and arguments (gru_bwd.cu), any H a multiple of
+// 4 up to kThreads x the SM count.
 extern "C" int cmhse_gru_bwd_streamed(
     const void* gates, const void* outs, const void* h0, const void* douts,
     const void* dfinal, const int32_t* lengths, const int32_t* order,

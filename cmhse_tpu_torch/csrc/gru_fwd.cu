@@ -44,10 +44,13 @@
 // bf16 (the carry is not the rounded output). No atomics: the sums run in a
 // fixed order, so the result is bitwise the same run to run.
 //
-// Live rows only. The wrapper sorts the rows once a call by length, longest
-// first (`order`), and counts the live rows of each step (`counts[t]`, the
-// rows with t < length), both on the device: the rows live at step t are
-// the prefix order[0 : counts[t]]. Only that prefix is walked, in chunks;
+// Live rows only. The wrapper makes a plan of the live rows once a
+// recurrence, on the device: it sorts the rows by length, longest first
+// (`order`), and counts the live rows of each step (`counts[t]`, the rows
+// with t < length), so the rows live at step t are the prefix
+// order[0 : counts[t]]. The training forward hands the same plan to the
+// backward (gru_bwd.cu), and all four GRU kernels walk that prefix. Only
+// that prefix is walked here, in chunks;
 // chunk row r is batch row order[c0 + r] (kept in shared memory for the
 // chunk), and each row's results go to its own position. A row keeps its
 // position in the prefix, and so its thread, from step to step. A row

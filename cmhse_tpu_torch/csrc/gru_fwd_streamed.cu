@@ -17,7 +17,15 @@
 // SMs)), rounded up to even: 16 at H = 2,048, 128 blocks), one grid barrier
 // a step, the product's operand h_{t-1} read from outs[:, t - 1] (or h0)
 // with L2-only copies (cp.async.cg, ld.global.cg), never through L1, which
-// the grid barrier does not make coherent. What differs:
+// the grid barrier does not make coherent. The same plan of the live rows
+// (gru_fwd.cu): only the prefix order[0 : counts[t]] enters the product,
+// in chunks, each row's results going to its own position; a chunk past
+// the prefix does no product. A row leaves the prefix at the step its
+// length ends; then its frozen state (outs[:, t - 1], or h0) is written
+// into every later step of outs (and final) at once, one load and T - t
+// stores. A step followed by one with no live row needs no grid barrier,
+// and the loop ends once no row is live. What differs, but for the gate
+// pass, follows from where W_h lives:
 //
 // - W_h through shared memory. Each depth slab of the block's 3U columns of
 //   W_h is staged together with the state slab, in one ring of cp.async
@@ -36,17 +44,6 @@
 //   at U = 16), and each of its state slabs is read from L2 once for all
 //   the block's units. Up to 64 units a block (H = 8,448 on 132 SMs); past
 //   that the units go in groups of 64, each re-reading the chunk.
-// - Live rows only. The wrapper sorts the rows once a call by length,
-//   longest first (`order`), and counts the live rows of each step
-//   (`counts[t]`, the rows with t < length): the rows live at step t are
-//   the prefix order[0 : counts[t]]. Only that prefix enters the product,
-//   in chunks, each row's results going to its own position; a chunk past
-//   the prefix does no product. A row leaves the prefix at the step its
-//   length ends; then its frozen state (outs[:, t - 1], or h0) is written
-//   into every later step of outs (and final) at once, one load and T - t
-//   stores, rather than copied a step at a time. A step followed by one
-//   with no live row needs no grid barrier, and the loop ends once no row
-//   is live.
 // - The gate pass loads the inputs of 8 cells (a thread's (row, unit)
 //   pairs) before it computes any, so that their latencies overlap.
 // - bf16 with H not a multiple of 8 (rows 8-byte aligned only): the state
@@ -714,10 +711,8 @@ int dispatch(const void* xw, const void* w_h, const float* b_h,
 
 }  // namespace
 
-// cmhse_gru_fwd's contract (gru_fwd.cu), any H a multiple of 4, plus the
-// rows sorted by length, longest first (order [B], int32), and the live
-// rows of each step (counts [T], int32: the rows with t < length), both on
-// the device.
+// cmhse_gru_fwd's contract and arguments (gru_fwd.cu), any H a multiple of
+// 4.
 extern "C" int cmhse_gru_fwd_streamed(const void* xw, const void* w_h,
                                       const float* b_h, const int32_t* order,
                                       const int32_t* counts, const void* h0,

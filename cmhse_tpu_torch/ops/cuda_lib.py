@@ -43,25 +43,21 @@ LIB_NAME = "libcmhse_kernels.so"
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+# The resident and streamed launchers of a GRU direction take one argument
+# list. xw, w_h, b_h, order, counts, h0, outs, final, gates, carry, B, T, H,
+# bf16, stream
+_GRU_FWD = (_P,) * 10 + (_I,) * 4 + (_P,)
+# gates, outs, h0, douts, dfinal, lengths, order, counts, w_h, dxw, dhn, db,
+# dh0, carry, B, T, H, bf16, stream
+_GRU_BWD = (_P,) * 14 + (_I,) * 4 + (_P,)
+# every function returns an int: a launcher its cudaError_t, the others a size
 _SIGNATURES = {
-    # xw, w_h, b_h, order, counts, h0, outs, final, gates, carry, B, T, H,
-    # bf16, stream
-    "cmhse_gru_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                      _P),
+    "cmhse_gru_fwd": _GRU_FWD,
+    "cmhse_gru_fwd_streamed": _GRU_FWD,
     "cmhse_gru_fwd_max_hidden": (_I,),
-    # xw, w_h, b_h, order, counts, h0, outs, final, gates, carry, B, T, H,
-    # bf16, stream
-    "cmhse_gru_fwd_streamed": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                               _I, _I, _P),
-    # gates, outs, h0, douts, dfinal, lengths, order, w_h, dxw, dhn, db, dh0,
-    # carry, B, T, H, bf16, stream
-    "cmhse_gru_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                      _I, _I, _I, _P),
+    "cmhse_gru_bwd": _GRU_BWD,
+    "cmhse_gru_bwd_streamed": _GRU_BWD,
     "cmhse_gru_bwd_max_hidden": (_I,),
-    # gates, outs, h0, douts, dfinal, lengths, order, counts, w_h, dxw, dhn,
-    # db, dh0, carry, B, T, H, bf16, stream
-    "cmhse_gru_bwd_streamed": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                               _P, _P, _I, _I, _I, _I, _P),
     # a, b, mask, row_diag, col_diag, keys, row_max, row_arg, col_max,
     # col_arg, M, N, D, margin, stream
     "cmhse_simhinge_pair": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
@@ -70,8 +66,6 @@ _SIGNATURES = {
     "cmhse_rankcount": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "cmhse_rankcount_smem_bytes": (_I,),
 }
-# functions of _SIGNATURES that return a size_t (the rest return an int)
-_SIZE_RESULTS: tuple[str, ...] = ()
 
 # Kernel launches by (kernel, dtype, variant), for proof that a run went
 # through the kernels: each wrapper adds one to its own key where it
@@ -190,8 +184,7 @@ def library() -> ctypes.CDLL:
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = list(argtypes)
-            fn.restype = (ctypes.c_size_t if name in _SIZE_RESULTS
-                          else ctypes.c_int)
+            fn.restype = ctypes.c_int
         lib.cmhse_error_string.argtypes = [ctypes.c_int]
         lib.cmhse_error_string.restype = ctypes.c_char_p
     return lib

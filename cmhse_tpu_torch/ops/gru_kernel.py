@@ -23,19 +23,25 @@ one block per SM, that splits the hidden units across the blocks; each
 block keeps its units' columns of ``W_h`` in shared memory for the whole
 time loop, computes them each step for the rows still live from the
 previous step's ``outs`` (read from L2), and meets the other blocks at one
-grid barrier a step. The rows are ordered once a call by length
-(:func:`live_row_order`), so the rows live at a step are a prefix of them
-(:func:`live_counts` long); a row that leaves the prefix has its frozen
-state written into every later step at once, and the loop ends with the
-longest row. Its f32 product runs in FFMA, its bf16 product on the tensor
-cores (``mma.sync``); at 512 rows x 64 steps the FMAs of the live rows
-(f32) and the L2 reads of their state (bf16) bound it, and at few live rows
-the fixed cost of a step. ``gru_bwd`` is the same split run
-backwards: each block keeps its units' rows of ``W_h`` in shared memory,
-writes their gate gradients for every row, and after one grid barrier a
-step adds their share of the carried gradient's product for the live rows
-only (the rows ordered once a call by length, :func:`live_row_order`); the
-L2 reads of that operand bound it. See the sources for the full notes.
+grid barrier a step. A row that leaves the live rows has its frozen state
+written into every later step at once, and the loop ends with the longest
+row. Its f32 product runs in FFMA, its bf16 product on the tensor cores
+(``mma.sync``); at 512 rows x 64 steps the FMAs of the live rows (f32) and
+the L2 reads of their state (bf16) bound it, and at few live rows the fixed
+cost of a step. ``gru_bwd`` is the same split run backwards: each block
+keeps its units' rows of ``W_h`` in shared memory, writes their gate
+gradients for every row, and after one grid barrier a step adds their
+share of the carried gradient's product for the live rows only; the L2
+reads of that operand bound it. See the sources for the full notes.
+
+The live rows: all four kernels take one plan, ``(order, counts)``, made
+once a recurrence on the card and never read back to the host. ``order``
+sorts the rows by length (:func:`live_row_order`), so the rows live at step
+t are the prefix ``order[0 : counts[t]]`` (:func:`live_counts`), which each
+kernel's product walks. :class:`TrainableGRU` makes the plan in its forward
+and hands the same tensors to ``gru_bwd``; :func:`gru_forward` and
+:func:`gru_backward`, called alone, make their own. A CUDA graph that
+captures a call makes the plan anew from its ``lengths`` at every replay.
 
 Every H runs on the card. The kernels' unit is 4 hidden units, so the
 wrappers pad each gate block of an H that is not a multiple of 4 with zero
@@ -50,7 +56,8 @@ the product's operand (``gru_fwd``'s the state, ``gru_bwd``'s the gate
 gradients), reads each live row's operand once a step for all of a block's
 units, and multiplies only the rows still live, as the resident variants
 do; each runs its resident variant's arithmetic in its order, so the two
-agree bit for bit.
+agree bit for bit. Where ``W_h`` lives is all that sets the streamed
+variants apart.
 
 Dispatch: a CPU tensor takes the plain versions; a CUDA tensor launches the
 kernels or raises. There is no fallback between the two, and a bf16 tensor
@@ -328,8 +335,8 @@ def _dtype_name(dt: torch.dtype) -> str:
 def live_row_order(lengths: torch.Tensor) -> torch.Tensor:
     """The batch rows ordered by length, longest first, equal lengths in
     row order (int32, on ``lengths``' device): the rows live at step t,
-    ``t < length``, are then a prefix of it, which ``gru_fwd`` and
-    ``gru_bwd``'s product walk."""
+    ``t < length``, are then a prefix of it, which every GRU kernel's
+    product walks."""
     return torch.argsort(lengths, descending=True, stable=True).to(
         torch.int32)
 
@@ -340,6 +347,15 @@ def live_counts(lengths: torch.Tensor, steps: int) -> torch.Tensor:
     :func:`live_row_order` that step t multiplies."""
     t = torch.arange(steps, device=lengths.device)
     return (lengths[:, None] > t[None, :]).sum(0, dtype=torch.int32)
+
+
+def _live_plan(x: torch.Tensor, lengths: torch.Tensor) -> tuple:
+    """The kernels' plan of the live rows of ``x`` ``[B, T, ...]``:
+    ``(order, counts)`` made on the card (module docstring); none on the
+    CPU, whose plain versions take no plan."""
+    if x.device.type == "cpu":
+        return ()
+    return live_row_order(lengths), live_counts(lengths, x.shape[1])
 
 
 def fwd_max_hidden(dtype: torch.dtype = torch.float32) -> int:
@@ -392,24 +408,28 @@ def gru_forward(
     ``xw``/``w_h``/``h0`` in that dtype, an f32 ``b_h`` and int32
     ``lengths``; anything else raises. H not a multiple of 4 is padded
     (module docstring); H past :func:`fwd_max_hidden` takes the streamed
-    variant. Both variants also take the rows in :func:`live_row_order`
-    and the live rows of each step (:func:`live_counts`), made here on the
-    card and never read back to the host, so that a CUDA graph that
-    captures the call makes them anew from its ``lengths`` at every
-    replay. Each launch counts in ``cuda_lib.launches`` under ("gru_fwd",
-    dtype, variant), the variant "encode", "with_h0", "save_gates" or
-    "save_gates+with_h0", with "+streamed" appended past the resident
-    limit.
+    variant. It makes the plan of the live rows for the call (module
+    docstring). Each launch counts in ``cuda_lib.launches`` under
+    ("gru_fwd", dtype, variant), the variant "encode", "with_h0",
+    "save_gates" or "save_gates+with_h0", with "+streamed" appended past
+    the resident limit.
     """
     _check(xw, w_h, b_h, lengths, h0)
+    return _gru_forward(xw, w_h, b_h, lengths, h0, save_gates,
+                        _live_plan(xw, lengths))
+
+
+def _gru_forward(xw, w_h, b_h, lengths, h0, save_gates: bool, plan):
+    """:func:`gru_forward` on the plan of the live rows,
+    :func:`_live_plan`'s."""
     if xw.device.type == "cpu":
         return gru_recurrence_plain(xw, w_h, b_h, lengths, h0, save_gates)
     hdim = xw.shape[-1] // 3
     if padded_hidden(hdim) != hdim:
         padded = pad_forward_operands(xw, w_h, b_h, h0, padded_hidden(hdim))
         return unpad_forward_results(
-            gru_forward(padded[0], padded[1], padded[2], lengths, padded[3],
-                        save_gates), hdim)
+            _gru_forward(padded[0], padded[1], padded[2], lengths, padded[3],
+                         save_gates, plan), hdim)
     dt = xw.dtype
     xw, w_h, b_h, h0 = _kernel_operands(
         "gru_fwd", dt, {"xw": xw, "w_h": w_h, "b_h": b_h, "h0": h0}, lengths)
@@ -436,7 +456,7 @@ def gru_forward(
         # rounded, so they cannot carry it)
         carry = (torch.empty(b, hdim, dtype=torch.float32, device=dev)
                  if bf16 else None)
-        order, counts = live_row_order(lengths), live_counts(lengths, t)
+        order, counts = plan
         launch = (lib.cmhse_gru_fwd_streamed if streamed
                   else lib.cmhse_gru_fwd)
         err = launch(
@@ -470,9 +490,9 @@ def gru_backward(
     contiguous tensors all in that dtype and int32 ``lengths``; anything
     else raises. H not a multiple of 4 is padded (module docstring); H past
     :func:`bwd_max_hidden` takes the streamed variant, up to 256 units a
-    block on one block an SM, which also takes the live rows of each step
-    (:func:`live_counts`, made here on the card). One launch a call,
-    counted in ``cuda_lib.launches`` under ("gru_bwd", dtype, "with_h0" or
+    block on one block an SM. It makes the plan of the live rows for the
+    call (module docstring). One launch a call, counted in
+    ``cuda_lib.launches`` under ("gru_bwd", dtype, "with_h0" or
     "zero_h0"), with "+streamed" appended past the resident limit.
     """
     b, t, h4 = gates.shape
@@ -486,18 +506,27 @@ def gru_backward(
         if x is not None and tuple(x.shape) != shape:
             raise ValueError(f"{name} must be {list(shape)}, got "
                              f"{tuple(x.shape)}")
+    if gates.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"gru_backward runs on cpu or cuda, not "
+                         f"{gates.device.type}")
+    return _gru_backward(gates, outs, lengths, w_h, douts, dfinal, h0,
+                         _live_plan(gates, lengths))
+
+
+def _gru_backward(gates, outs, lengths, w_h, douts, dfinal, h0, plan):
+    """:func:`gru_backward` on the plan of the live rows,
+    :func:`_live_plan`'s."""
     if gates.device.type == "cpu":
         return gru_backward_plain(gates, outs, lengths, w_h, douts, dfinal,
                                   h0)
-    if gates.device.type != "cuda":
-        raise ValueError(f"gru_backward runs on cpu or cuda, not "
-                         f"{gates.device.type}")
+    b, t, h4 = gates.shape
+    hdim = h4 // 4
     if padded_hidden(hdim) != hdim:
         padded = pad_backward_operands(gates, outs, w_h, douts, dfinal, h0,
                                        padded_hidden(hdim))
         return unpad_backward_results(
-            gru_backward(padded[0], padded[1], lengths, padded[2],
-                         padded[3], padded[4], padded[5]), hdim)
+            _gru_backward(padded[0], padded[1], lengths, padded[2],
+                          padded[3], padded[4], padded[5], plan), hdim)
     dt = gates.dtype
     douts = None if douts is None else douts.contiguous()
     dfinal = None if dfinal is None else dfinal.contiguous()
@@ -522,18 +551,16 @@ def gru_backward(
         # carry it; in f32 dh0 does)
         carry = (torch.empty(b, hdim, dtype=torch.float32, device=dev)
                  if dt == torch.bfloat16 else None)
-        order = live_row_order(lengths)
-        head = (gates.data_ptr(), outs.data_ptr(), _ptr(h0), _ptr(douts),
-                _ptr(dfinal), lengths.data_ptr(), order.data_ptr())
-        tail = (w_h.data_ptr(), dxw.data_ptr(), dhn.data_ptr(),
-                db.data_ptr(), dh0.data_ptr(), _ptr(carry), b, t, hdim,
-                int(dt == torch.bfloat16),
-                torch.cuda.current_stream(dev).cuda_stream)
-        if streamed:
-            err = lib.cmhse_gru_bwd_streamed(
-                *head, live_counts(lengths, t).data_ptr(), *tail)
-        else:
-            err = lib.cmhse_gru_bwd(*head, *tail)
+        order, counts = plan
+        launch = (lib.cmhse_gru_bwd_streamed if streamed
+                  else lib.cmhse_gru_bwd)
+        err = launch(
+            gates.data_ptr(), outs.data_ptr(), _ptr(h0), _ptr(douts),
+            _ptr(dfinal), lengths.data_ptr(), order.data_ptr(),
+            counts.data_ptr(), w_h.data_ptr(), dxw.data_ptr(),
+            dhn.data_ptr(), db.data_ptr(), dh0.data_ptr(), _ptr(carry), b, t,
+            hdim, int(dt == torch.bfloat16),
+            torch.cuda.current_stream(dev).cuda_stream)
     cuda_lib.check(err, "gru_bwd launch")
     cuda_lib.count_launch("gru_bwd", _dtype_name(dt),
                           ("zero_h0" if h0 is None else "with_h0")
@@ -546,7 +573,9 @@ class TrainableGRU(torch.autograd.Function):
     gate-saving forward and the BPTT backward: the port's
     ``pallas_gru_trainable`` after the input projection. The compute dtype
     is ``xw``'s: ``w_h`` and ``h0`` are rounded to it here, so an f32
-    parameter gets an f32 gradient. The backward returns ``dxw`` in the
+    parameter gets an f32 gradient. On the card the forward makes the plan
+    of the live rows once and saves it beside the gates for ``gru_bwd``
+    (module docstring). The backward returns ``dxw`` in the
     compute dtype (for the projection's backward), ``dW_h = h_prev^T [dr',
     dz', dhn]`` as one f32 matrix product of the compute-dtype streams (f32
     accumulation, never rounded to bf16), ``db_h`` from the kernel's f32
@@ -557,18 +586,20 @@ class TrainableGRU(torch.autograd.Function):
         ctx.set_materialize_grads(False)
         w_c = w_h.to(xw.dtype)
         h0_c = None if h0 is None else h0.to(xw.dtype)
-        outs, final, gates = gru_forward(xw, w_c, b_h, lengths, h0_c,
-                                         save_gates=True)
-        ctx.save_for_backward(gates, outs, w_c, lengths, h0_c)
+        _check(xw, w_c, b_h, lengths, h0_c)
+        plan = _live_plan(xw, lengths)
+        outs, final, gates = _gru_forward(xw, w_c, b_h, lengths, h0_c, True,
+                                          plan)
+        ctx.save_for_backward(gates, outs, w_c, lengths, h0_c, *plan)
         ctx.dtypes = (w_h.dtype, b_h.dtype, None if h0 is None else h0.dtype)
         return outs, final
 
     @staticmethod
     def backward(ctx, douts, dfinal):
-        gates, outs, w_c, lengths, h0 = ctx.saved_tensors
+        gates, outs, w_c, lengths, h0, *plan = ctx.saved_tensors
         b, t, hdim = outs.shape
-        dxw, dhn, db, dh0 = gru_backward(gates, outs, lengths, w_c, douts,
-                                         dfinal, h0)
+        dxw, dhn, db, dh0 = _gru_backward(gates, outs, lengths, w_c, douts,
+                                          dfinal, h0, plan)
         first = (h0.float() if h0 is not None
                  else outs.new_zeros(b, hdim, dtype=torch.float32))[:, None]
         h_prev = torch.cat([first, outs[:, :-1].float()], dim=1).reshape(

@@ -1,7 +1,7 @@
 """Encode throughput of the port in several trees, each in a fresh
 interpreter, in the order given (pass a tree twice to run it in turns):
 ``chip_smoke.py``'s phase 4 and 4c serving paths and their encode
-pipeline (through the prefetch and the pageable path), f32 and bf16.
+through the prefetch, f32 and bf16.
 
 Run on a machine with a CUDA card, from the repository root::
 

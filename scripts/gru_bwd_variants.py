@@ -12,8 +12,8 @@ loaded beside the others. Every variant runs K2 at video_low 512x64 and the
 backwards); each time is the mean of 10 calls (CUDA events), each error
 K2's largest against its plain version. The "clock split" variant also
 reports block 0's ``clock64()`` cycles by phase of the time loop: phase 1
-(gate gradients, every row), the live-row count, the grid barrier and
-the product. Prints the card's name and power limit first.
+(gate gradients, every row), the load of the step's live-row count
+(``counts[t]``), the grid barrier and the product. Prints the card's name and power limit first.
 """
 
 from __future__ import annotations
@@ -71,9 +71,9 @@ VARIANTS = {
          "  long long pc[4] = {0, 0, 0, 0};\n"
          "  for (int t = T - 1; t >= 0; --t) {\n"
          "    long long c_a = clock64();\n", 1),
-        ("    // rows live at step t: the prefix",
+        ("    const int n_t = counts[t];",
          "    long long c_b = clock64(); pc[0] += c_b - c_a;\n"
-         "    // rows live at step t: the prefix", 1),
+         "    const int n_t = counts[t];", 1),
         ("    if (n_t == 0) continue;",
          "    long long c_c = clock64(); pc[1] += c_c - c_b;\n"
          "    if (n_t == 0) continue;", 1),
@@ -191,7 +191,7 @@ def main() -> int:
         cycles = (ctypes.c_ulonglong * 4)()
         cuda_lib.check(libs["clock split"].cmhse_gru_bwd_prof(cycles),
                        "clock readout")
-        print(f"{label:16s} block 0 cycles: phase 1 {cycles[0]}, live count "
+        print(f"{label:16s} block 0 cycles: phase 1 {cycles[0]}, counts[t] "
               f"{cycles[1]}, grid barrier {cycles[2]}, product {cycles[3]}",
               flush=True)
     cuda_lib.library = plain_library

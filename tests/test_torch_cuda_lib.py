@@ -53,7 +53,7 @@ def test_extern_function_matches_its_binding(name):
     ret, kinds, source = FUNCTIONS[name]
     assert name in cuda_lib._SIGNATURES, (name, source)
     assert [KINDS[a] for a in cuda_lib._SIGNATURES[name]] == kinds, source
-    assert ret == ("size_t" if name in cuda_lib._SIZE_RESULTS else "int")
+    assert ret == "int"
 
 
 @pytest.mark.parametrize("name", sorted(cuda_lib._SIGNATURES))
@@ -61,9 +61,31 @@ def test_every_binding_is_defined_in_a_source(name):
     assert name in FUNCTIONS
 
 
-def test_size_results_are_the_size_t_functions():
-    assert set(cuda_lib._SIZE_RESULTS) == {
-        n for n, (ret, _, _) in FUNCTIONS.items() if ret == "size_t"}
+def test_every_launcher_returns_int():
+    assert {n: ret for n, (ret, _, _) in FUNCTIONS.items()
+            if n != ERROR_STRING} == {n: "int" for n in cuda_lib._SIGNATURES}
+
+
+def _params(name: str) -> list[str]:
+    """The parameter names of ``extern "C"`` function ``name``, in
+    order."""
+    source = cuda_lib.CSRC / FUNCTIONS[name][2]
+    m = next(m for m in EXTERN.finditer(source.read_text())
+             if m["name"] == name)
+    return [p.split()[-1].lstrip("*") for p in m["params"].split(",")]
+
+
+@pytest.mark.parametrize("direction", ["fwd", "bwd"])
+def test_gru_launchers_of_a_direction_take_one_argument_list(direction):
+    """The resident and streamed launchers of a GRU direction take the
+    same parameters, by name and kind, the live rows' plan (order, counts)
+    among them, and share one binding."""
+    resident, streamed = (f"cmhse_gru_{direction}",
+                          f"cmhse_gru_{direction}_streamed")
+    assert _params(resident) == _params(streamed)
+    assert {"order", "counts"} <= set(_params(resident))
+    assert FUNCTIONS[resident][1] == FUNCTIONS[streamed][1]
+    assert cuda_lib._SIGNATURES[resident] is cuda_lib._SIGNATURES[streamed]
 
 
 def test_library_binds_each_function_as_declared(monkeypatch):
@@ -81,8 +103,7 @@ def test_library_binds_each_function_as_declared(monkeypatch):
     for name, argtypes in cuda_lib._SIGNATURES.items():
         fn = getattr(fake, name)
         assert fn.argtypes == list(argtypes), name
-        assert fn.restype == (ctypes.c_size_t if name in cuda_lib._SIZE_RESULTS
-                              else ctypes.c_int), name
+        assert fn.restype == ctypes.c_int, name
     ret, kinds, _ = FUNCTIONS[ERROR_STRING]
     assert (ret, kinds) == ("const char*", ["int"])
     assert fake.cmhse_error_string.argtypes == [ctypes.c_int]

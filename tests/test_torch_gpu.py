@@ -2025,6 +2025,83 @@ def test_gru_fwd_graph_replays_new_lengths_bitwise(cuda, dtype):
             assert torch.equal(g, w)
 
 
+def _trainable_gru_grads(xw, w_h, b_h, lengths, h0, douts, dfinal):
+    """The gradients of ``TrainableGRU`` (its forward and backward) with
+    respect to xw, w_h, b_h and h0, for the cotangents douts and dfinal."""
+    outs, final = gru_kernel.TrainableGRU.apply(xw, w_h, b_h, lengths, h0)
+    return torch.autograd.grad((outs, final), (xw, w_h, b_h, h0),
+                               (douts, dfinal))
+
+
+# H = 1,024: both resident kernels; 2,048: both streamed ones
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("h", [1024, 2048])
+def test_trainable_gru_graph_replays_new_lengths_bitwise(cuda, dtype, h):
+    """TrainableGRU's forward and backward captured in one CUDA graph with
+    one set of lengths and replayed with others of the same shape: each
+    replay's gradients equal an eager call's bit for bit, so the plan of
+    the live rows that the forward makes and the backward takes is made
+    anew on the card at every replay."""
+    dt = getattr(torch, dtype)
+    b, t = 600, 9
+    xw, w_h, b_h, _ = [a.to(cuda) for a in _gru_inputs(b, t, h, 31)]
+    gen = torch.Generator(device=cuda).manual_seed(h)
+    h0 = torch.randn(b, h, device=cuda, generator=gen) * 0.5
+    douts = torch.randn(b, t, h, device=cuda, generator=gen).to(dt)
+    dfinal = torch.randn(b, h, device=cuda, generator=gen).to(dt)
+    xw = xw.to(dt).requires_grad_()
+    for x in (w_h, b_h, h0):
+        x.requires_grad_()
+    sets = [torch.from_numpy(x.astype(np.int32)).to(cuda)
+            for x in _replay_lengths(b, t, 31)]
+    static = sets[0].clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up off the capture
+        _trainable_gru_grads(xw, w_h, b_h, static, h0, douts, dfinal)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    cuda_lib.reset_launches()
+    with torch.cuda.graph(graph):
+        captured = _trainable_gru_grads(xw, w_h, b_h, static, h0, douts,
+                                        dfinal)
+    assert not cuda_lib.launches  # a captured launch is not counted
+    streamed = "+streamed" if h > 1024 else ""
+    assert (gru_kernel.fwd_max_hidden(dt) < h) == (h > 1024)
+    assert (gru_kernel.bwd_max_hidden(dt) < h) == (h > 1024)
+    for lengths in sets[1:] + sets[:1]:
+        static.copy_(lengths)
+        graph.replay()
+        cuda_lib.reset_launches()
+        want = _trainable_gru_grads(xw, w_h, b_h, lengths, h0, douts, dfinal)
+        torch.cuda.synchronize()
+        assert cuda_lib.launches == {
+            ("gru_fwd", dtype, "save_gates+with_h0" + streamed): 1,
+            ("gru_bwd", dtype, "with_h0" + streamed): 1}
+        for name, g, w in zip(("dxw", "dw_h", "db_h", "dh0"), captured,
+                              want):
+            assert torch.equal(g, w), name
+
+
+def test_trainable_gru_sorts_the_lengths_once(cuda, monkeypatch):
+    """One forward and backward of TrainableGRU on the card order the
+    rows by length once: the backward takes the forward's plan."""
+    calls = []
+    order = gru_kernel.live_row_order
+
+    def counted(lengths):
+        calls.append(lengths)
+        return order(lengths)
+
+    monkeypatch.setattr(gru_kernel, "live_row_order", counted)
+    xw, w_h, b_h, lengths = [a.to(cuda) for a in _gru_inputs(37, 9, 64, 37)]
+    xw.requires_grad_()
+    outs, final = gru_kernel.gru_recurrence(xw, w_h, b_h, lengths)
+    (outs.sum() + final.sum()).backward()
+    torch.cuda.synchronize()
+    assert xw.grad is not None and len(calls) == 1
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("variant", ["encode", "save_gates", "save_gates_h0"])
 def test_gru_fwd_permuted_rows_permute_outputs_bitwise(cuda, dtype, variant):
