@@ -19,7 +19,12 @@ Phases (any failure raises and the script exits non-zero):
      in bf16, with cuDNN's GRU in bf16 as the yardstick; 2e. both kernels
      (``gru_fwd`` in its encode and ``save_gates`` variants) at H = 2,048
      (past every resident W_h limit: the streamed variants), f32 and bf16,
-     and at H = 30 (padded to 32), at video_low's lengths;
+     and at H = 30 (padded to 32), at video_low's lengths; 2f. the
+     ``live_gemm`` kernel (the GRU's products over its live row-steps: the
+     input projection, dX, dW_i with db_i, dW_h) against its plain version
+     at video_low, text_low and video_high, at the main path's lengths and
+     at full density, with torch.matmul over every row-step as the
+     yardstick;
   3. the ``rankcount`` kernel against its plain version (counts exact) at
      Q=1024, N=100,000, D=1024 and at the main path's shape, with times;
      3b. the streaming top-k (plain torch ops) against the dense one at
@@ -45,7 +50,7 @@ Phases (any failure raises and the script exits non-zero):
      batch re-encoded on the CPU in bf16;
   5. the training path at the same width: 8 ``train_step``s on one 64-video
      batch (finite losses and grad norms, the last loss below the first,
-     6 + 6 + 2 kernel launches in the first, eager step, none in its
+     6 + 6 + 23 + 2 kernel launches in the first, eager step, none in its
      graph's 7 replays), then ``validate_metrics`` on the
      trained weights; 5c. one step at batch 8, card against the CPU's plain
      path: loss, grad_norm and every parameter gradient; 5d. the same three
@@ -184,6 +189,10 @@ LIB_BF16_ATOL = 0.25
 # gru_bwd vs the plain BPTT loop: max abs error <= this * max |reference| per
 # output (dxw, dhn, db, dh0), since the sums compound over T steps
 GRU_BWD_RTOL = 1e-4
+# live_gemm vs its plain version (cuBLAS over the gathered live rows): max
+# abs error <= this * max |reference| (f32 sums over up to 8k live
+# row-steps in another order)
+LIVE_GEMM_RTOL = 1e-5
 # one train step at batch 8, card vs CPU: loss and grad_norm relative errors;
 # each gradient tensor's max abs error relative to its largest entry (f32
 # sums in other orders through up to 64 BPTT steps and two hinge passes)
@@ -520,6 +529,129 @@ def phase_gru_train(torch, rng, shapes, h: int = 1024) -> tuple[list, list]:
             f"{library:.4f} ms  bound {bms:.4f} ms ({by})")
         del xw, outs, final, gates, w_outs, w_final, w_gates, got, want
     return fwd_rows, bwd_rows
+
+
+def live_gemm_cases(torch, rng, b: int, t: int, d: int, h: int,
+                    lengths_np):
+    """The four products over a GRU layer's row-steps (live_gemm.cu) at one
+    shape: name -> (kernel call, plain call, library call, live FLOPs,
+    bytes). The gradients are zero at dead row-steps, as gru_bwd gives
+    them; the library call is ``torch.matmul`` over every row-step, the
+    product the model made before the live row-steps were walked."""
+    import numpy as np
+
+    from cmhse_tpu_torch.ops import gru_kernel as gk
+    from cmhse_tpu_torch.ops import live_gemm as lg
+
+    dev = torch.device("cuda")
+    x, w_i, _, b_i, _ = gru_inputs(torch, rng, b, t, d, h)
+    gen = card_generator(torch, rng)
+    lengths = torch.from_numpy(lengths_np.astype(np.int32)).to(dev)
+    dead = ~(torch.arange(t, device=dev)[None, :] < lengths[:, None])
+    g = torch.randn(b, t, 3 * h, device=dev, generator=gen)
+    dhn = torch.randn(b, t, h, device=dev, generator=gen)
+    outs = torch.randn(b, t, h, device=dev, generator=gen)
+    g[dead], dhn[dead] = 0.0, 0.0
+    plan = gk._live_plan(x, lengths)
+    live = int(lengths_np.clip(0, t).sum())
+    x2, g2 = x.reshape(b * t, d), g.reshape(b * t, 3 * h)
+    first = torch.zeros(b, 1, h, device=dev)
+    n3 = 3 * h
+
+    def library_dw_h():
+        h_prev = torch.cat([first, outs[:, :-1]], dim=1).reshape(b * t, h)
+        return torch.cat([h_prev.T @ g[..., :2 * h].reshape(b * t, -1),
+                          h_prev.T @ dhn.reshape(b * t, h)], dim=1)
+
+    return {
+        "forward": (lambda: lg.rows_product(x, w_i, b_i, lengths, plan),
+                    lambda: lg.rows_product_plain(x, w_i, b_i, lengths),
+                    lambda: x2 @ w_i + b_i, 2.0 * live * d * n3,
+                    4.0 * (live * d + d * n3 + live * n3 + n3)),
+        "dX": (lambda: lg.rows_product(g, w_i, None, lengths, plan,
+                                       w_nk=True, zero_dead=True),
+               lambda: lg.rows_product_plain(g, w_i, None, lengths,
+                                             w_nk=True),
+               lambda: g2 @ w_i.T, 2.0 * live * d * n3,
+               4.0 * (live * n3 + d * n3 + b * t * d)),
+        "dW_i": (lambda: lg.rows_reduce(x, g, lengths, plan,
+                                        column_sums=True),
+                 lambda: lg.rows_reduce_plain(x, g, lengths,
+                                              column_sums=True),
+                 lambda: (x2.T @ g2, g2.sum(0)), 2.0 * live * (d + 1) * n3,
+                 4.0 * (live * d + live * n3 + (d + 1) * n3)),
+        "dW_h": (lambda: lg.rows_reduce(outs, g, lengths, plan,
+                                        g_cols=2 * h, g_tail=dhn,
+                                        shift=True),
+                 lambda: lg.rows_reduce_plain(outs, g, lengths, g_cols=2 * h,
+                                              g_tail=dhn, shift=True),
+                 library_dw_h, 2.0 * live * h * n3,
+                 4.0 * (live * h + live * n3 + h * n3)),
+    }, dead
+
+
+def phase_live_gemm(torch, rng, shapes, h: int = 1024) -> list:
+    """2f: the products over the GRU's live row-steps (live_gemm.cu), the
+    input projection, its dX, dW_i (with db_i) and dW_h, each against its
+    plain version (the live rows gathered), with times: the kernel, its
+    bound (the live FLOPs at the f32 peak), the plain version and
+    ``torch.matmul`` over every row-step. ``shapes``: (label, lengths int32
+    [B], T, D); each also at full density (every row T long). The forward
+    is compared on live rows (the kernel leaves dead ones unwritten); dX
+    must be zero on dead rows; the results of two calls equal bit for
+    bit."""
+    import numpy as np
+
+    rows = []
+    for label, lengths_np, t, d in shapes:
+        b = lengths_np.shape[0]
+        for density, lens in (("", lengths_np),
+                              (", full", np.full(b, t, np.int32))):
+            cases, dead = live_gemm_cases(torch, rng, b, t, d, h, lens)
+            live = int(lens.clip(0, t).sum())
+            for name, (kernel, plain, library, flops, nbytes) in \
+                    cases.items():
+                with torch.no_grad():
+                    got, again, want = (
+                        tuple(x for x in (r if isinstance(r, tuple) else (r,))
+                              if x is not None)
+                        for r in (kernel(), kernel(), plain()))
+                    torch.cuda.synchronize()
+                    if name == "forward":
+                        got, again, want = ((r[~dead],) for r in
+                                            (got[0], again[0], want[0]))
+                    if name == "dX" and bool(got[0][dead].any()):
+                        raise AssertionError(f"live_gemm dX {label}: a "
+                                             f"dead row is not zero")
+                    if not all(torch.equal(p, q) for p, q in
+                               zip(got, again)):
+                        raise AssertionError(f"live_gemm {name} {label}: "
+                                             f"two calls differ")
+                    err = max(((p - q).abs().max()
+                               / q.abs().max().clamp_min(1e-30)).item()
+                              if q.numel() else 0.0
+                              for p, q in zip(got, want))
+                    if not err <= LIVE_GEMM_RTOL:
+                        raise AssertionError(
+                            f"live_gemm {name} {label}{density}: error "
+                            f"{err} of the largest entry > {LIVE_GEMM_RTOL}")
+                    ms = cuda_ms(kernel)
+                    plain_ms = cuda_ms(plain, reps=3, warmup=1)
+                    library_ms = cuda_ms(library)
+                bms, by = bound_ms(flops, nbytes)
+                shape = f"{name} {label}{density}"
+                rows.append(dict(shape=shape, max_abs_err=err, ms=ms,
+                                 plain_ms=plain_ms, bound_ms=bms,
+                                 bound_by=by, library_ms=library_ms,
+                                 live_share=live / (b * t),
+                                 tflops=flops / ms / 1e9))
+                log(f"  2f live_gemm {shape}: err {err:.3g}  kernel "
+                    f"{ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s)  plain "
+                    f"{plain_ms:.4f} ms  torch.matmul (every row-step) "
+                    f"{library_ms:.4f} ms  bound {bms:.4f} ms ({by}, "
+                    f"{100.0 * live / (b * t):.1f}% live)")
+            del cases
+    return rows
 
 
 def phase_gru_bf16(torch, rng, enc_shapes, train_shapes,
@@ -1056,6 +1188,9 @@ def phase_train(torch, np, seed: int, bf16: bool = False) -> dict:
             f"gru_fwd {dt} save_gates+with_h0": 2,
             f"gru_bwd {dt} zero_h0": 4, f"gru_bwd {dt} with_h0": 2,
             "simhinge float32 pair": 2}
+    if dt == "float32":  # six GRUs' products; no dX for the frames' GRU
+        want.update({"live_gemm float32 rows": 11,
+                     "live_gemm float32 reduce": 12})
     # the first step launches from the host; the others replay its graph
     if step_counts != want or replays != TRAIN_STEPS - 1:
         raise AssertionError(f"launches {step_counts}, expected {want} in "
@@ -1524,7 +1659,8 @@ def phase_main_path(torch, np, seed: int, n_videos: int) -> dict:
     out = serve(torch, np, model, batches, qb, picks)
     counts = launch_counts()
     log(f"  launches on the main path: {counts}")
-    if set(counts) != {"gru_fwd float32 encode", "rankcount float32 f32"}:
+    if set(counts) != {"gru_fwd float32 encode", "live_gemm float32 rows",
+                       "rankcount float32 f32"}:
         raise AssertionError(f"serving launches {counts}")
     v, p, _ = out["encoded"]
     first = batches[0]
@@ -3653,7 +3789,10 @@ FLAT_VAL_VIDEOS = 100
 HIER_STEPS = 8
 PRESET_CLI_TIMEOUT_S = 600
 # (GRUs, ranking levels) a step: K1 save_gates and K2 once a GRU, K3 once a
-# level; none of these presets has decoders, so no seeded (with_h0) launch
+# level; none of these presets has decoders, so no seeded (with_h0) launch.
+# The products over a GRU's live row-steps: the projection and dX (but for
+# the frames' GRU, whose input needs no gradient) in the row form, dW_i and
+# dW_h in the reduction form.
 PRESET_SHAPE = {"didemo": (4, 2), "hier_anet": (4, 2),
                 "flat_anet_subset": (2, 1)}
 
@@ -3663,6 +3802,8 @@ def preset_step_launches(name: str) -> dict:
     grus, levels = PRESET_SHAPE[name]
     return {"gru_bwd float32 zero_h0": grus,
             "gru_fwd float32 save_gates": grus,
+            "live_gemm float32 reduce": 2 * grus,
+            "live_gemm float32 rows": 2 * grus - 1,
             "simhinge float32 pair": levels}
 
 
@@ -4192,6 +4333,12 @@ def main() -> int:
             log(f"  ptxas {source}: {line}")
     any_h = phase_gru_any_h(torch, rng, b0.frame_len.reshape(-1),
                             dc.max_frames, 500)
+    phase("phase 2f: live_gemm (the products over the GRU's live row-steps) "
+          "vs plain at video_low, text_low and video_high, the main path's "
+          "lengths and full density")
+    for line in kernel_resources("live_gemm.cu"):
+        log(f"  ptxas live_gemm.cu: {line}")
+    lg_rows = phase_live_gemm(torch, rng, enc_shapes[:3])
     phase("phase 3: rankcount vs plain (exact-arithmetic rows)")
     for line in kernel_resources("rankcount.cu"):
         log("  ptxas " + line)
@@ -4376,6 +4523,24 @@ def main() -> int:
                                 "nccl": resident("gru_bwd"),
                                 "bench": total(bcounts_bench, "gru_bwd"),
                                 "presets": total(pcounts, "gru_bwd")}),
+        entry("live_gemm", "live_gemm.cu",
+              "none (the products over the row-steps the JAX package leaves "
+              "to XLA)", lg_rows,
+              "serve+train+fit+cli+daemon+nccl+bench+presets",
+              sum(total(c, "live_gemm") for c in (
+                  counts, tcounts, fcounts, ccounts, dcounts, ncounts,
+                  bcounts_bench, pcounts)),
+              launches_by_path={"serve": total(counts, "live_gemm"),
+                                "train": total(tcounts, "live_gemm"),
+                                "fit": total(fcounts, "live_gemm"),
+                                "cli": total(ccounts, "live_gemm"),
+                                "daemon": total(dcounts, "live_gemm"),
+                                "nccl": total(ncounts, "live_gemm"),
+                                "bench": total(bcounts_bench, "live_gemm"),
+                                "presets": total(pcounts, "live_gemm")},
+              launches_train_by_variant={
+                  k: n for k, n in tcounts.items()
+                  if k.startswith("live_gemm")}),
         entry("simhinge", "simhinge.cu", "cmhse_tpu/ops/pallas_sim.py:58",
               sh_rows + prows["simhinge"], "train+fit+cli+nccl+bench+presets",
               total(tcounts, "simhinge") + total(bcounts, "simhinge")

@@ -29,8 +29,8 @@ from cmhse_tpu_torch.data.batch import Batch
 from cmhse_tpu_torch.device import resolve_device
 from cmhse_tpu_torch.models.encoders import (SequenceEncoder, WordEmbedding,
                                              _dense)
-from cmhse_tpu_torch.models.gru import gru_input_projection
-from cmhse_tpu_torch.ops.gru_kernel import gru_recurrence
+from cmhse_tpu_torch.models.gru import _project
+from cmhse_tpu_torch.ops.gru_kernel import _gru_recurrence, _live_plan
 from cmhse_tpu_torch.utils import timing
 
 COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -64,7 +64,9 @@ class ReconstructionDecoder(nn.Module):
 
     Routing: the recurrence is :func:`gru_recurrence` with the seeded h0 at
     every T — the seeded ``gru_fwd`` / ``gru_bwd`` variants on a CUDA tensor
-    (or a refusal), their plain versions on the CPU. The JAX package sends
+    (or a refusal), their plain versions on the CPU — on one plan of the
+    live rows with the input projection (in f32 on the card both take the
+    live row-steps only, as ``MaskedGRU``'s do). The JAX package sends
     decoders shorter than ``DECODER_PALLAS_MIN_T = 16`` steps to its scan
     instead, a threshold it measured on a TPU; the port does not carry it
     over. In f32 the two routes compute the same function. In bf16 they do
@@ -96,10 +98,12 @@ class ReconstructionDecoder(nn.Module):
         h0 = torch.tanh(self.init(high_emb))
         shifted = torch.cat([low_seq.new_zeros(b, 1, e), low_seq[:, :-1]],
                             dim=1)
-        xw = gru_input_projection(shifted.to(self.dtype), self.w_i,
-                                  self.b_i)
-        outs, _ = gru_recurrence(xw.contiguous(), self.w_h, self.b_h,
-                                 lengths.to(torch.int32), h0)
+        shifted = shifted.to(self.dtype)
+        lengths = lengths.to(torch.int32)
+        plan = _live_plan(shifted, lengths)
+        xw = _project(shifted, self.w_i, self.b_i, lengths, plan)
+        outs, _ = _gru_recurrence(xw.contiguous(), self.w_h, self.b_h,
+                                  lengths, h0, plan)
         return self.out(outs)
 
 

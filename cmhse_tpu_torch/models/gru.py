@@ -21,6 +21,16 @@ CUDA kernel on the card, its plain loop on the CPU; when autograd needs a
 gradient, its gate-saving variant and the ``gru_bwd`` backward (or their
 plain versions) through ``TrainableGRU``.
 
+On the card in f32 the products over the row-steps (the projection, its
+``dX``, ``dW_i`` with ``db_i``, and ``TrainableGRU``'s ``dW_h``) take the
+live row-steps only, ``t < length``
+(:mod:`cmhse_tpu_torch.ops.live_gemm`), on the plan of the live rows that
+``MaskedGRU`` makes once a layer for the recurrence too. So on the card the
+dead rows of ``xw`` are left unwritten (the recurrence never reads them) and
+the dead rows of ``dX`` are zeros, as the dense product gives them (the
+backward's gradients there are zeros). In bf16 and on the CPU the products
+are dense over every row-step, the JAX package's.
+
 Mixed precision (``dtype=torch.bfloat16``): the input is rounded to bf16,
 the projection multiplies bf16 operands with f32 accumulation, adds the f32
 ``b_i`` and rounds once; the recurrence runs in bf16 with an f32 carry; the
@@ -35,34 +45,53 @@ import math
 import torch
 from torch import nn
 
-from cmhse_tpu_torch.ops.gru_kernel import gru_recurrence, gru_recurrence_plain
+from cmhse_tpu_torch.ops import live_gemm
+from cmhse_tpu_torch.ops.gru_kernel import (_gru_recurrence, _live_plan,
+                                            gru_recurrence_plain)
 
 
 class _InputProjection(torch.autograd.Function):
     """``x @ w_i + b_i`` in ``x``'s dtype, with f32 accumulation and f32
     gradients of the parameters. In bf16 autograd of the casts would round
     ``dW_i`` to bf16 before it reaches the f32 parameter, a rounding the JAX
-    package's custom VJP does not make (``pallas_gru_grad.py:335-341``)."""
+    package's custom VJP does not make (``pallas_gru_grad.py:335-341``).
+    With ``lengths`` (and the plan of the live rows) every product takes
+    the live row-steps only (:mod:`cmhse_tpu_torch.ops.live_gemm`): the
+    forward and ``dX`` in the row form, ``dW_i`` with ``db_i`` in one
+    reduction; without, the products are dense."""
 
     @staticmethod
-    def forward(ctx, x, w_i, b_i):
+    def forward(ctx, x, w_i, b_i, lengths, *plan):
         w = w_i.to(x.dtype)
-        ctx.save_for_backward(x, w)
+        ctx.save_for_backward(x, w, lengths, *plan)
         ctx.dtypes = (w_i.dtype, b_i.dtype)
+        if lengths is not None:
+            return live_gemm.rows_product(x, w, b_i, lengths, plan)
         return (x.float() @ w.float() + b_i.float()).to(x.dtype)
 
     @staticmethod
     def backward(ctx, g):
-        x, w = ctx.saved_tensors
-        g = g.float().reshape(-1, g.shape[-1])
+        x, w, lengths, *plan = ctx.saved_tensors
+        need_x, need_w, need_b = ctx.needs_input_grad[:3]
         dx = dw = db = None
-        if ctx.needs_input_grad[0]:
+        if lengths is not None:
+            g = g.contiguous()
+            if need_x:
+                dx = live_gemm.rows_product(g, w, None, lengths, plan,
+                                            w_nk=True, zero_dead=True)
+            if need_w or need_b:
+                dw, db = live_gemm.rows_reduce(x, g, lengths, plan,
+                                               column_sums=True)
+            return (dx, dw if need_w else None, db if need_b else None,
+                    *[None] * (1 + len(plan)))
+        g = g.float().reshape(-1, g.shape[-1])
+        if need_x:
             dx = (g @ w.float().T).to(x.dtype).reshape(x.shape)
-        if ctx.needs_input_grad[1]:
+        if need_w:
             dw = (x.float().reshape(-1, x.shape[-1]).T @ g).to(ctx.dtypes[0])
-        if ctx.needs_input_grad[2]:
+        if need_b:
             db = g.sum(dim=0).to(ctx.dtypes[1])
-        return dx, dw, db
+        return dx, dw, db, None
 
 
 def gru_input_projection(x: torch.Tensor, w_i: torch.Tensor,
@@ -71,8 +100,23 @@ def gru_input_projection(x: torch.Tensor, w_i: torch.Tensor,
     ``x``'s dtype: ``w_i`` rounded to it, f32 products of the (exact)
     operands, the f32 ``b_i`` added, one rounding (the JAX package's
     ``gru_input_projection``). The backward gives f32 ``dW_i``/``db_i`` and
-    ``dx`` rounded to ``x``'s dtype."""
-    return _InputProjection.apply(x, w_i, b_i)
+    ``dx`` rounded to ``x``'s dtype. On the card in f32 it is the live
+    row-step kernel with every step live."""
+    if live_gemm.takes(x):
+        lengths = torch.full(x.shape[:1], x.shape[1], dtype=torch.int32,
+                             device=x.device)
+        return _InputProjection.apply(x, w_i, b_i, lengths,
+                                      *_live_plan(x, lengths))
+    return _InputProjection.apply(x, w_i, b_i, None)
+
+
+def _project(x, w_i, b_i, lengths, plan):
+    """The input projection of a GRU layer on its plan of the live rows:
+    the live row-steps only where :func:`live_gemm.takes` ``x``, else
+    dense over every step."""
+    if live_gemm.takes(x):
+        return _InputProjection.apply(x, w_i, b_i, lengths, *plan)
+    return _InputProjection.apply(x, w_i, b_i, None)
 
 
 def gru_sequence(
@@ -132,23 +176,27 @@ class MaskedGRU(nn.Module):
                 self.register_parameter(f"{direction}_{name}",
                                         nn.Parameter(p))
 
-    def _run(self, x, lengths, direction: str):
-        xw = gru_input_projection(x, getattr(self, f"{direction}_w_i"),
-                                  getattr(self, f"{direction}_b_i"))
-        return gru_recurrence(xw.contiguous(),
-                              getattr(self, f"{direction}_w_h"),
-                              getattr(self, f"{direction}_b_h"), lengths)
+    def _run(self, x, lengths, direction: str, plan):
+        xw = _project(x, getattr(self, f"{direction}_w_i"),
+                      getattr(self, f"{direction}_b_i"), lengths, plan)
+        return _gru_recurrence(xw.contiguous(),
+                               getattr(self, f"{direction}_w_h"),
+                               getattr(self, f"{direction}_b_h"), lengths,
+                               None, plan)
 
     def forward(self, x: torch.Tensor, lengths: torch.Tensor
                 ) -> tuple[torch.Tensor, torch.Tensor]:
         """Returns (outputs ``[B, T, H]`` or ``[B, T, 2H]``, final ``[B, H]``
-        or ``[B, 2H]``)."""
+        or ``[B, 2H]``). The plan of the live rows is made once, for both
+        directions (a flipped row keeps its length)."""
         x = x.to(self.dtype)
         lengths = lengths.to(torch.int32)
-        outs_f, final_f = self._run(x, lengths, "fwd")
+        plan = _live_plan(x, lengths)
+        outs_f, final_f = self._run(x, lengths, "fwd", plan)
         if not self.bidirectional:
             return outs_f, final_f
-        outs_b, final_b = self._run(flip_padded(x, lengths), lengths, "bwd")
+        outs_b, final_b = self._run(flip_padded(x, lengths), lengths, "bwd",
+                                    plan)
         outs_b = flip_padded(outs_b, lengths)
         return (torch.cat([outs_f, outs_b], dim=-1),
                 torch.cat([final_f, final_b], dim=-1))

@@ -35,7 +35,8 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
 SOURCES = ("gru_fwd.cu", "gru_fwd_streamed.cu", "gru_bwd.cu",
-           "gru_bwd_streamed.cu", "simhinge.cu", "rankcount.cu")
+           "gru_bwd_streamed.cu", "live_gemm.cu", "simhinge.cu",
+           "rankcount.cu")
 HEADERS = ("gru_common.cuh",)  # included by sources; part of the build hash
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -58,6 +59,16 @@ _SIGNATURES = {
     "cmhse_gru_bwd": _GRU_BWD,
     "cmhse_gru_bwd_streamed": _GRU_BWD,
     "cmhse_gru_bwd_max_hidden": (_I,),
+    # a, lda, w, ldw, w_nk, bias, c, ldc, work, splits, order, starts, B, T,
+    # N, K, stream
+    "cmhse_live_rows": (_P, _I, _P, _I, _I, _P, _P, _I, _P, _I, _P, _P, _I,
+                        _I, _I, _I, _P),
+    "cmhse_live_rows_splits": (_I, _I, _I),
+    # a, lda, shift, h0, g0, ldg0, g1, ldg1, n_split, dw, db, work, splits,
+    # order, starts, B, T, M, N, stream
+    "cmhse_live_reduce": (_P, _I, _I, _P, _P, _I, _P, _I, _I, _P, _P, _P, _I,
+                          _P, _P, _I, _I, _I, _I, _P),
+    "cmhse_live_reduce_splits": (_I, _I, _I),
     # a, b, mask, row_diag, col_diag, keys, row_max, row_arg, col_max,
     # col_arg, M, N, D, margin, stream
     "cmhse_simhinge_pair": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,

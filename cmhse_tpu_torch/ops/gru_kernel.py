@@ -13,10 +13,13 @@ state, the reconstruction decoder's). ``gru_bwd`` replaces
 ``h0``. Each runs in f32 or in bf16, the compute dtype of ``xw``; in bf16
 the streams, ``W_h`` and ``h0`` are bf16 while the carried state (and
 gradient), ``b_h`` and the bias sums stay f32, at the TPU kernels' rounding
-points (see the sources). The input projection ``x @ W_i + b_i`` and the
-weight-gradient products (``dW_h`` here, ``dW_i``/``dx`` in
-:func:`cmhse_tpu_torch.models.gru.gru_input_projection`) stay plain matrix
-products outside the kernels, as the JAX package leaves them to XLA.
+points (see the sources). The products over the B x T row-steps, the input
+projection ``x @ W_i + b_i`` and the weight gradients (``dW_h`` here,
+``dW_i``/``dx`` in :func:`cmhse_tpu_torch.models.gru.gru_input_projection`),
+are outside the recurrence's kernels: in f32 on the card they take the live
+row-steps only (:mod:`cmhse_tpu_torch.ops.live_gemm`, on the same plan);
+in bf16 and on the CPU they are dense matrix products, as the JAX package
+leaves them to XLA.
 
 What bounds them on an H100: ``gru_fwd`` is one cooperative grid, at most
 one block per SM, that splits the hidden units across the blocks; each
@@ -34,14 +37,19 @@ gradients for every row, and after one grid barrier a step adds their
 share of the carried gradient's product for the live rows only; the L2
 reads of that operand bound it. See the sources for the full notes.
 
-The live rows: all four kernels take one plan, ``(order, counts)``, made
-once a recurrence on the card and never read back to the host. ``order``
-sorts the rows by length (:func:`live_row_order`), so the rows live at step
-t are the prefix ``order[0 : counts[t]]`` (:func:`live_counts`), which each
-kernel's product walks. :class:`TrainableGRU` makes the plan in its forward
-and hands the same tensors to ``gru_bwd``; :func:`gru_forward` and
-:func:`gru_backward`, called alone, make their own. A CUDA graph that
-captures a call makes the plan anew from its ``lengths`` at every replay.
+The live rows: all four kernels take one plan, ``(order, counts,
+starts)``, made once a recurrence on the card and never read back to the
+host. ``order`` sorts the rows by length (:func:`live_row_order`), so the
+rows live at step t are the prefix ``order[0 : counts[t]]``
+(:func:`live_counts`), which each kernel's product walks; ``starts``, the
+live row-steps before each step, numbers them time-major for the products
+over the row-steps (:mod:`cmhse_tpu_torch.ops.live_gemm`). The model's
+GRUs (``MaskedGRU``, the reconstruction decoder) make the plan once a
+layer and hand it to the projection and to :class:`TrainableGRU`, which
+saves it for ``gru_bwd`` and ``dW_h``; :func:`gru_recurrence`,
+:func:`gru_forward` and :func:`gru_backward`, called alone, make their own.
+A CUDA graph that captures a call makes the plan anew from its ``lengths``
+at every replay.
 
 Every H runs on the card. The kernels' unit is 4 hidden units, so the
 wrappers pad each gate block of an H that is not a multiple of 4 with zero
@@ -68,7 +76,7 @@ from __future__ import annotations
 
 import torch
 
-from cmhse_tpu_torch.ops import cuda_lib
+from cmhse_tpu_torch.ops import cuda_lib, live_gemm
 
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -351,11 +359,15 @@ def live_counts(lengths: torch.Tensor, steps: int) -> torch.Tensor:
 
 def _live_plan(x: torch.Tensor, lengths: torch.Tensor) -> tuple:
     """The kernels' plan of the live rows of ``x`` ``[B, T, ...]``:
-    ``(order, counts)`` made on the card (module docstring); none on the
-    CPU, whose plain versions take no plan."""
+    ``(order, counts, starts)`` made on the card (module docstring), with
+    ``starts`` ``[T + 1]`` int32 the live row-steps before each step; none
+    on the CPU, whose plain versions take no plan."""
     if x.device.type == "cpu":
         return ()
-    return live_row_order(lengths), live_counts(lengths, x.shape[1])
+    counts = live_counts(lengths, x.shape[1])
+    starts = torch.nn.functional.pad(
+        torch.cumsum(counts, 0, dtype=torch.int32), (1, 0))
+    return live_row_order(lengths), counts, starts
 
 
 def fwd_max_hidden(dtype: torch.dtype = torch.float32) -> int:
@@ -456,7 +468,7 @@ def _gru_forward(xw, w_h, b_h, lengths, h0, save_gates: bool, plan):
         # rounded, so they cannot carry it)
         carry = (torch.empty(b, hdim, dtype=torch.float32, device=dev)
                  if bf16 else None)
-        order, counts = plan
+        order, counts, _ = plan
         launch = (lib.cmhse_gru_fwd_streamed if streamed
                   else lib.cmhse_gru_fwd)
         err = launch(
@@ -551,7 +563,7 @@ def _gru_backward(gates, outs, lengths, w_h, douts, dfinal, h0, plan):
         # carry it; in f32 dh0 does)
         carry = (torch.empty(b, hdim, dtype=torch.float32, device=dev)
                  if dt == torch.bfloat16 else None)
-        order, counts = plan
+        order, counts, _ = plan
         launch = (lib.cmhse_gru_bwd_streamed if streamed
                   else lib.cmhse_gru_bwd)
         err = launch(
@@ -569,25 +581,27 @@ def _gru_backward(gates, outs, lengths, w_h, douts, dfinal, h0, plan):
 
 
 class TrainableGRU(torch.autograd.Function):
-    """``(xw, w_h, b_h, lengths, h0) -> (outs, final)`` with the
+    """``(xw, w_h, b_h, lengths, h0, *plan) -> (outs, final)`` with the
     gate-saving forward and the BPTT backward: the port's
     ``pallas_gru_trainable`` after the input projection. The compute dtype
     is ``xw``'s: ``w_h`` and ``h0`` are rounded to it here, so an f32
-    parameter gets an f32 gradient. On the card the forward makes the plan
-    of the live rows once and saves it beside the gates for ``gru_bwd``
-    (module docstring). The backward returns ``dxw`` in the
+    parameter gets an f32 gradient. On the card it takes the caller's plan
+    of the live rows, or makes one, and saves it beside the gates for
+    ``gru_bwd`` (module docstring). The backward returns ``dxw`` in the
     compute dtype (for the projection's backward), ``dW_h = h_prev^T [dr',
-    dz', dhn]`` as one f32 matrix product of the compute-dtype streams (f32
-    accumulation, never rounded to bf16), ``db_h`` from the kernel's f32
-    bias sums, and ``dh0`` in the seeded variant."""
+    dz', dhn]`` in f32 (f32 accumulation of the compute-dtype streams,
+    never rounded to bf16: in f32 on the card over the live row-steps only,
+    :func:`cmhse_tpu_torch.ops.live_gemm.rows_reduce`; otherwise one dense
+    matrix product), ``db_h`` from the kernel's f32 bias sums, and ``dh0``
+    in the seeded variant."""
 
     @staticmethod
-    def forward(ctx, xw, w_h, b_h, lengths, h0):
+    def forward(ctx, xw, w_h, b_h, lengths, h0, *plan):
         ctx.set_materialize_grads(False)
         w_c = w_h.to(xw.dtype)
         h0_c = None if h0 is None else h0.to(xw.dtype)
         _check(xw, w_c, b_h, lengths, h0_c)
-        plan = _live_plan(xw, lengths)
+        plan = plan or _live_plan(xw, lengths)
         outs, final, gates = _gru_forward(xw, w_c, b_h, lengths, h0_c, True,
                                           plan)
         ctx.save_for_backward(gates, outs, w_c, lengths, h0_c, *plan)
@@ -600,17 +614,23 @@ class TrainableGRU(torch.autograd.Function):
         b, t, hdim = outs.shape
         dxw, dhn, db, dh0 = _gru_backward(gates, outs, lengths, w_c, douts,
                                           dfinal, h0, plan)
-        first = (h0.float() if h0 is not None
-                 else outs.new_zeros(b, hdim, dtype=torch.float32))[:, None]
-        h_prev = torch.cat([first, outs[:, :-1].float()], dim=1).reshape(
-            b * t, hdim)
-        dw_h = torch.cat(
-            [h_prev.T @ dxw[..., :2 * hdim].reshape(b * t, -1).float(),
-             h_prev.T @ dhn.reshape(b * t, hdim).float()], dim=1)
+        if live_gemm.takes(outs):
+            dw_h, _ = live_gemm.rows_reduce(outs, dxw, lengths, plan,
+                                            g_cols=2 * hdim, g_tail=dhn,
+                                            shift=True, h0=h0)
+        else:
+            first = (h0.float() if h0 is not None else
+                     outs.new_zeros(b, hdim, dtype=torch.float32))[:, None]
+            h_prev = torch.cat([first, outs[:, :-1].float()], dim=1).reshape(
+                b * t, hdim)
+            dw_h = torch.cat(
+                [h_prev.T @ dxw[..., :2 * hdim].reshape(b * t, -1).float(),
+                 h_prev.T @ dhn.reshape(b * t, hdim).float()], dim=1)
         db_h = torch.cat([db[:2 * hdim], db[3 * hdim:]])
         w_dtype, b_dtype, h0_dtype = ctx.dtypes
         return (dxw, dw_h.to(w_dtype), db_h.to(b_dtype), None,
-                dh0.to(h0_dtype) if ctx.needs_input_grad[4] else None)
+                dh0.to(h0_dtype) if ctx.needs_input_grad[4] else None,
+                *[None] * (len(ctx.needs_input_grad) - 5))
 
 
 def gru_recurrence(
@@ -629,10 +649,18 @@ def gru_recurrence(
     :class:`TrainableGRU` (the gate-saving ``gru_fwd`` and ``gru_bwd`` on
     the card, their plain versions on the CPU); otherwise it is
     :func:`gru_forward`, the encode path's kernel. A CUDA tensor the kernels
-    cannot take raises.
+    cannot take raises. It makes the plan of the live rows for the call.
     """
+    return _gru_recurrence(xw, w_h, b_h, lengths, h0,
+                           _live_plan(xw, lengths))
+
+
+def _gru_recurrence(xw, w_h, b_h, lengths, h0, plan):
+    """:func:`gru_recurrence` on the caller's plan of the live rows,
+    :func:`_live_plan`'s."""
     if torch.is_grad_enabled() and any(
             x is not None and x.requires_grad for x in (xw, w_h, b_h, h0)):
-        return TrainableGRU.apply(xw, w_h, b_h, lengths, h0)
-    return gru_forward(xw, w_h.to(xw.dtype), b_h, lengths,
-                       None if h0 is None else h0.to(xw.dtype))
+        return TrainableGRU.apply(xw, w_h, b_h, lengths, h0, *plan)
+    w_c, h0_c = w_h.to(xw.dtype), None if h0 is None else h0.to(xw.dtype)
+    _check(xw, w_c, b_h, lengths, h0_c)
+    return _gru_forward(xw, w_c, b_h, lengths, h0_c, False, plan)

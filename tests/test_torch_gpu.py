@@ -479,11 +479,15 @@ def test_train_step_on_card_matches_cpu(cuda):
         cuda_lib.reset_launches()
         loss, m = total_loss(model(b), b, exp.loss)
         loss.backward()
+        # six GRUs: each a projection and dW_i, dW_h; dX but for the
+        # frames' GRU (frames need no gradient)
         assert cuda_lib.launches == ({} if dev == "cpu" else {
             ("gru_fwd", "float32", "save_gates"): 4,
             ("gru_fwd", "float32", "save_gates+with_h0"): 2,
             ("gru_bwd", "float32", "zero_h0"): 4,
             ("gru_bwd", "float32", "with_h0"): 2,
+            ("live_gemm", "float32", "rows"): 11,
+            ("live_gemm", "float32", "reduce"): 12,
             ("simhinge", "float32", "pair"): 2})
         grads[str(dev)] = {k: p.grad.cpu() for k, p in
                            model.named_parameters()}
@@ -2077,7 +2081,9 @@ def test_trainable_gru_graph_replays_new_lengths_bitwise(cuda, dtype, h):
         torch.cuda.synchronize()
         assert cuda_lib.launches == {
             ("gru_fwd", dtype, "save_gates+with_h0" + streamed): 1,
-            ("gru_bwd", dtype, "with_h0" + streamed): 1}
+            ("gru_bwd", dtype, "with_h0" + streamed): 1,
+            **({("live_gemm", dtype, "reduce"): 1}  # dW_h
+               if dtype == "float32" else {})}
         for name, g, w in zip(("dxw", "dw_h", "db_h", "dh0"), captured,
                               want):
             assert torch.equal(g, w), name
@@ -2100,6 +2106,226 @@ def test_trainable_gru_sorts_the_lengths_once(cuda, monkeypatch):
     (outs.sum() + final.sum()).backward()
     torch.cuda.synchronize()
     assert xw.grad is not None and len(calls) == 1
+
+
+def test_masked_gru_makes_one_plan_for_its_products(cuda, monkeypatch):
+    """A bidirectional MaskedGRU's forward and backward on the card order
+    the rows by length once: both directions' projections, recurrences,
+    dX, dW_i and dW_h take that plan."""
+    from cmhse_tpu_torch.models import MaskedGRU
+
+    calls = []
+    order = gru_kernel.live_row_order
+
+    def counted(lengths):
+        calls.append(lengths)
+        return order(lengths)
+
+    monkeypatch.setattr(gru_kernel, "live_row_order", counted)
+    gru = MaskedGRU(20, 32, bidirectional=True,
+                    generator=torch.Generator().manual_seed(3)).to(cuda)
+    x = torch.randn(37, 9, 20, device=cuda, requires_grad=True)
+    lengths = torch.from_numpy(np.random.RandomState(4).randint(
+        0, 10, 37).astype(np.int32)).to(cuda)
+    cuda_lib.reset_launches()
+    outs, final = gru(x, lengths)
+    (outs.sum() + final.sum()).backward()
+    torch.cuda.synchronize()
+    assert len(calls) == 1
+    assert cuda_lib.launches == {
+        ("gru_fwd", "float32", "save_gates"): 2,
+        ("gru_bwd", "float32", "zero_h0"): 2,
+        ("live_gemm", "float32", "rows"): 4,
+        ("live_gemm", "float32", "reduce"): 4}
+
+
+# ---- the products over the GRU's live row-steps (csrc/live_gemm.cu) --------
+# Each form against its plain version (the live rows gathered, cuBLAS),
+# by max abs error relative to the largest entry: f32 sums over up to 8k
+# live row-steps (or K = 3,072) in another order.
+LIVE_GEMM_RTOL = 1e-5
+
+
+def _live_lengths(kind, b, t, seed):
+    """Lengths of ``b`` rows of ``t`` steps. "anet": anet_train's, 8 rows
+    a video with 1 + Poisson(2.65) of them live (in 1..8), frames 4..64 at
+    t = 64, words 1 + Poisson(12.5) in 4..32 at t = 32; at t = 8 (the
+    high-level layers, a row a video) 1 + Poisson(2.65) clips in 1..8;
+    "didemo": 11 rows in 12 live, in a length-grouped bucket (t/2..t);
+    "dead": all 0; "full": all t."""
+    rng = np.random.RandomState(seed)
+    if kind == "dead":
+        return np.zeros(b, np.int32)
+    if kind == "full":
+        return np.full(b, t, np.int32)
+    if kind == "didemo":
+        return np.where(rng.rand(b) < 11 / 12,
+                        rng.randint(t // 2, t + 1, b), 0).astype(np.int32)
+    if t == 8:
+        return np.clip(1 + rng.poisson(2.65, b), 1, 8).astype(np.int32)
+    rows = np.clip(1 + rng.poisson(2.65, b // 8), 1, 8)
+    out = np.zeros((b // 8, 8), np.int32)
+    for v, n in enumerate(rows):
+        out[v, :n] = (rng.randint(4, t + 1, n) if t == 64 else
+                      np.clip(1 + rng.poisson(12.5, n), 4, t))
+    return out.reshape(-1)
+
+
+def _live_operands(b, t, d, h, lengths_np, dev, seed):
+    """x, w_i, b_i, g (gradient of xw, zero at dead row-steps as gru_bwd
+    gives it), dhn (likewise), outs, h0, lengths, the plan, the dead
+    mask."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(*shape, device=dev, generator=gen)
+
+    lengths = torch.from_numpy(lengths_np.astype(np.int32)).to(dev)
+    dead = ~(torch.arange(t, device=dev)[None, :] < lengths[:, None])
+    x, g, dhn, outs = (randn(b, t, d), randn(b, t, 3 * h), randn(b, t, h),
+                       randn(b, t, h))
+    g[dead], dhn[dead] = 0.0, 0.0
+    w_i, b_i, h0 = randn(d, 3 * h) / d ** 0.5, randn(3 * h), randn(b, h)
+    return (x, w_i, b_i, g, dhn, outs, h0, lengths,
+            gru_kernel._live_plan(x, lengths), dead)
+
+
+def _live_forms(ops):
+    """Every form once: the projection, dX, dW_i with db_i, dW_h with and
+    without h0, the kernel's results beside the plain versions'."""
+    from cmhse_tpu_torch.ops import live_gemm as lg
+
+    x, w_i, b_i, g, dhn, outs, h0, lengths, plan, dead = ops
+    h = dhn.shape[-1]
+    got = {"xw": lg.rows_product(x, w_i, b_i, lengths, plan),
+           "dx": lg.rows_product(g, w_i, None, lengths, plan, w_nk=True,
+                                 zero_dead=True),
+           "dw_i": lg.rows_reduce(x, g, lengths, plan, column_sums=True),
+           "dw_h": lg.rows_reduce(outs, g, lengths, plan, g_cols=2 * h,
+                                  g_tail=dhn, shift=True),
+           "dw_h0": lg.rows_reduce(outs, g, lengths, plan, g_cols=2 * h,
+                                   g_tail=dhn, shift=True, h0=h0)}
+    want = {"xw": lg.rows_product_plain(x, w_i, b_i, lengths),
+            "dx": lg.rows_product_plain(g, w_i, None, lengths, w_nk=True),
+            "dw_i": lg.rows_reduce_plain(x, g, lengths, column_sums=True),
+            "dw_h": lg.rows_reduce_plain(outs, g, lengths, g_cols=2 * h,
+                                         g_tail=dhn, shift=True),
+            "dw_h0": lg.rows_reduce_plain(outs, g, lengths, g_cols=2 * h,
+                                          g_tail=dhn, shift=True, h0=h0)}
+    got["xw"], want["xw"] = got["xw"][~dead], want["xw"][~dead]
+    flat = {}
+    for name in got:
+        for i, (a, b) in enumerate(zip(*(
+                r if isinstance(r, tuple) else (r,)
+                for r in (got[name], want[name])))):
+            if a is not None:
+                flat[f"{name}.{i}"] = (a, b)
+    return flat
+
+
+def _assert_live_forms_match(flat):
+    for name, (a, b) in flat.items():
+        assert a.shape == b.shape, name
+        assert torch.isfinite(a).all(), name
+        if b.numel():
+            err = ((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+            assert err.item() <= LIVE_GEMM_RTOL, (name, err.item())
+
+
+@pytest.mark.parametrize("kind", ["anet", "didemo", "dead", "full"])
+@pytest.mark.parametrize("b,t,d", [(512, 64, 500), (512, 32, 300),
+                                   (64, 8, 1024)])
+def test_live_gemm_forms_match_plain(cuda, b, t, d, kind):
+    """The cells' video_low, text_low and high-level layers (H = 1,024;
+    the last's depth split in the row form): both forms against their
+    plain versions, dX zero on dead rows, and a second call equal to the
+    first bit for bit; two row-form and three reduction launches."""
+    lengths_np = _live_lengths(kind, b, t, seed=b + t + d)
+    ops = _live_operands(b, t, d, 1024, lengths_np, cuda, seed=d)
+    cuda_lib.reset_launches()
+    first = _live_forms(ops)
+    torch.cuda.synchronize()
+    assert cuda_lib.launches == {("live_gemm", "float32", "rows"): 2,
+                                 ("live_gemm", "float32", "reduce"): 3}
+    _assert_live_forms_match(first)
+    dead = ops[-1]
+    assert not first["dx.0"][0][dead].any()
+    for name, (a, _) in _live_forms(ops).items():
+        assert torch.equal(a, first[name][0]), name
+
+
+# D and H not multiples of 4 (4-byte copies), tiles cut by N and K, T = 1,
+# lengths 0 and past T; the row form's depth split (300 x 7 at D = 1,024,
+# 40 x 6 at D = 258 in 4-byte copies)
+@pytest.mark.parametrize("b,t,d,h", [(37, 9, 30, 6), (130, 3, 20, 44),
+                                     (5, 1, 8, 4), (300, 7, 1024, 64),
+                                     (9, 5, 13, 30), (40, 6, 258, 10)])
+def test_live_gemm_odd_shapes_match_plain(cuda, b, t, d, h):
+    rng = np.random.RandomState(b * t)
+    lengths_np = rng.randint(0, t + 3, b).astype(np.int32)
+    lengths_np[0], lengths_np[-1] = 0, t
+    ops = _live_operands(b, t, d, h, lengths_np, cuda, seed=h)
+    _assert_live_forms_match(_live_forms(ops))
+
+
+def test_live_gemm_never_reads_dead_rows(cuda):
+    """NaN in the dead rows of x, g (dxw) and dhn changes no bit of the
+    products: they are never read. NaN in the dead rows of xw changes no
+    bit of gru_fwd's outputs either, which is why the projection may leave
+    them unwritten."""
+    b, t, d, h = 512, 32, 300, 1024
+    lengths_np = _live_lengths("anet", b, t, seed=5)
+    ops = _live_operands(b, t, d, h, lengths_np, cuda, seed=6)
+    clean = _live_forms(ops)
+    x, w_i, b_i, g, dhn, outs, h0, lengths, plan, dead = ops
+    poisoned = [z.clone() for z in (x, g, dhn)]
+    for z in poisoned:
+        z[dead] = float("nan")
+    dirty = _live_forms((poisoned[0], w_i, b_i, poisoned[1], poisoned[2],
+                         outs, h0, lengths, plan, dead))
+    for name in ("xw.0", "dx.0", "dw_i.0", "dw_i.1", "dw_h.0", "dw_h0.0"):
+        assert torch.equal(dirty[name][0], clean[name][0]), name
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    w_h = torch.randn(h, 3 * h, device=cuda, generator=gen) / h ** 0.5
+    b_h = torch.randn(3 * h, device=cuda, generator=gen)
+    xw = torch.randn(b, t, 3 * h, device=cuda, generator=gen)
+    xw_nan = xw.clone()
+    xw[dead], xw_nan[dead] = 0.0, float("nan")
+    for save in (False, True):
+        want = gru_kernel.gru_forward(xw, w_h, b_h, lengths, h0,
+                                      save_gates=save)
+        got = gru_kernel.gru_forward(xw_nan, w_h, b_h, lengths, h0,
+                                     save_gates=save)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_live_gemm_step_graph_replays_new_lengths_bitwise(cuda):
+    """A graph-backed train_step captured on one batch and replayed on
+    another of the same shape with other lengths equals eager steps bit
+    for bit; the eager step ran both forms of the kernel."""
+    cfg = _loop_cfg()
+    host = _loop_batches(cfg, n=16)[:2]
+    assert host[0].frames.shape == host[1].frames.shape
+    assert not np.array_equal(host[0].frame_len, host[1].frame_len)
+    runs = []
+    for step in (train_step, _eager_step):
+        model = CMHSE(cfg.model, 64,
+                      generator=torch.Generator().manual_seed(8))
+        state = create_train_state(cfg, model)
+        cuda_lib.reset_launches()
+        metrics = []
+        for b in host:
+            state, m = step(state, b, cfg.loss)
+            metrics.append(m)
+        runs.append((state, metrics, dict(cuda_lib.launches)))
+    (graph, mg, lg), (eager, me, le) = runs
+    assert graph.graph_refused is None and graph.graph_replays == 1
+    assert lg[("live_gemm", "float32", "rows")] > 0
+    assert lg[("live_gemm", "float32", "reduce")] > 0
+    for got, want in zip(mg, me):
+        for k in got:
+            assert torch.equal(got[k], want[k]), k
+    _assert_states_equal(graph, eager)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -2390,6 +2616,8 @@ def test_bucketed_train_step_on_card_matches_cpu(cuda, which):
     _preset_step_on_card_matches_cpu(cuda, cfg, batch, {
         ("gru_fwd", "float32", "save_gates"): 4,
         ("gru_bwd", "float32", "zero_h0"): 4,
+        ("live_gemm", "float32", "rows"): 7,
+        ("live_gemm", "float32", "reduce"): 8,
         ("simhinge", "float32", "pair"): 2})
 
 
@@ -2414,4 +2642,6 @@ def test_flat_train_step_at_t128_on_card_matches_cpu(cuda):
     _preset_step_on_card_matches_cpu(cuda, cfg, batch, {
         ("gru_fwd", "float32", "save_gates"): 2,
         ("gru_bwd", "float32", "zero_h0"): 2,
+        ("live_gemm", "float32", "rows"): 3,
+        ("live_gemm", "float32", "reduce"): 4,
         ("simhinge", "float32", "pair"): 1})

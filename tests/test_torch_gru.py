@@ -167,3 +167,174 @@ def test_padding_to_a_multiple_of_4_is_exact(seeded, save_gates):
         np.testing.assert_allclose(got[0].numpy(), np.asarray(s_outs), **TOL)
         np.testing.assert_allclose(got[1].numpy(), np.asarray(s_final),
                                    **TOL)
+
+
+# ---- the products over the live row-steps (ops/live_gemm.py) ---------------
+# The plain versions of the kernel's two forms, on the CPU: lengths 0, T and
+# past T; D of the cells' layers, 500 (frames), 300 (words) and 1,024 (the
+# high-level GRUs and the decoders).
+LIVE_D = [500, 300, 1024]
+
+
+def _live_setup(d, h=8, t=5, seed=0):
+    """x, w_i, b_i, g and dhn (zero at dead row-steps, as gru_bwd gives
+    them), outs, h0, lengths and the dead mask."""
+    rng = np.random.RandomState(seed + d)
+    lengths = np.array([0, t, 3, 1, t + 2, 2, 4], np.int32)
+    b = lengths.size
+    arrays = [rng.randn(*shape).astype(np.float32) for shape in (
+        (b, t, d), (d, 3 * h), (3 * h,), (b, t, 3 * h), (b, t, h),
+        (b, t, h), (b, h))]
+    x, w_i, b_i, g, dhn, outs, h0 = map(torch.from_numpy, arrays)
+    lengths = torch.from_numpy(lengths)
+    dead = ~(torch.arange(t)[None, :] < lengths[:, None])
+    g[dead], dhn[dead] = 0.0, 0.0
+    return x, w_i, b_i, g, dhn, outs, h0, lengths, dead
+
+
+def _dense_dw_h(outs, g, dhn, h0):
+    """TrainableGRU's dense dW_h: h_prev^T [dr', dz', dhn] over every
+    row-step."""
+    b, t, h = outs.shape
+    first = (torch.zeros(b, h) if h0 is None else h0)[:, None]
+    h_prev = torch.cat([first, outs[:, :-1]], dim=1).reshape(b * t, h)
+    return torch.cat([h_prev.T @ g[..., :2 * h].reshape(b * t, -1),
+                      h_prev.T @ dhn.reshape(b * t, h)], dim=1)
+
+
+@pytest.mark.parametrize("d", LIVE_D)
+def test_live_gemm_plain_forms_match_dense_on_live_rows(d):
+    """The row form equals the dense product on live rows and is zero on
+    dead ones (so dX is, as the dense dX of zero gradients is); the
+    reduction form equals the dense dW_i, db_i and dW_h (with and without
+    h0); on CPU tensors the wrappers are the plain versions and launch
+    nothing."""
+    from cmhse_tpu_torch.ops import live_gemm as lg
+
+    x, w_i, b_i, g, dhn, outs, h0, lengths, dead = _live_setup(d)
+    b, t, _ = x.shape
+    xw = lg.rows_product_plain(x, w_i, b_i, lengths)
+    torch.testing.assert_close(xw[~dead], (x @ w_i + b_i)[~dead], **TOL)
+    assert not xw[dead].any()
+    dx = lg.rows_product_plain(g, w_i, None, lengths, w_nk=True)
+    torch.testing.assert_close(dx, g @ w_i.T, **TOL)
+    assert not dx[dead].any()
+    dw_i, db_i = lg.rows_reduce_plain(x, g, lengths, column_sums=True)
+    torch.testing.assert_close(dw_i, x.reshape(b * t, d).T
+                               @ g.reshape(b * t, -1), **TOL)
+    torch.testing.assert_close(db_i, g.sum(dim=(0, 1)), **TOL)
+    for s0 in (None, h0):
+        dw_h, none = lg.rows_reduce_plain(outs, g, lengths, g_cols=16,
+                                          g_tail=dhn, shift=True, h0=s0)
+        assert none is None
+        torch.testing.assert_close(dw_h, _dense_dw_h(outs, g, dhn, s0),
+                                   **TOL)
+    before = sum(cuda_lib.launches.values())
+    assert torch.equal(lg.rows_product(x, w_i, b_i, lengths, ()), xw)
+    assert torch.equal(lg.rows_product(g, w_i, None, lengths, (), w_nk=True,
+                                       zero_dead=True), dx)
+    got = lg.rows_reduce(x, g, lengths, (), column_sums=True)
+    assert torch.equal(got[0], dw_i) and torch.equal(got[1], db_i)
+    assert sum(cuda_lib.launches.values()) == before
+
+
+@pytest.mark.parametrize("d", LIVE_D)
+def test_live_gemm_plain_forms_never_read_dead_rows(d):
+    """NaN in the dead rows of x, g (dxw), dhn and outs changes no bit of
+    either form: the live rows of xw, dX (zero on dead rows), dW_i, db_i
+    and dW_h."""
+    from cmhse_tpu_torch.ops import live_gemm as lg
+
+    x, w_i, b_i, g, dhn, outs, h0, lengths, dead = _live_setup(d, seed=1)
+
+    def forms(x, g, dhn, outs):
+        return [lg.rows_product_plain(x, w_i, b_i, lengths)[~dead],
+                lg.rows_product_plain(g, w_i, None, lengths, w_nk=True),
+                *lg.rows_reduce_plain(x, g, lengths, column_sums=True),
+                lg.rows_reduce_plain(outs, g, lengths, g_cols=16,
+                                     g_tail=dhn, shift=True, h0=h0)[0]]
+
+    clean = forms(x, g, dhn, outs)
+    poisoned = [z.clone() for z in (x, g, dhn, outs)]
+    for z in poisoned:
+        z[dead] = float("nan")
+    for a, c in zip(forms(*poisoned), clean):
+        assert torch.equal(a, c)
+
+
+def _route_live_products_on_the_cpu(monkeypatch) -> list:
+    """Send the model's f32 GRU products through the live row-step path on
+    the CPU, where they take the plain versions: the card's routing, plan
+    and masks, checked here. Returns the forms called, as they are."""
+    from cmhse_tpu_torch.ops import live_gemm
+
+    monkeypatch.setattr(live_gemm, "takes",
+                        lambda x: x.dtype == torch.float32)
+    called = []
+    for name in ("rows_product", "rows_reduce"):
+        def form(*args, _real=getattr(live_gemm, name), _name=name, **kw):
+            called.append(_name)
+            return _real(*args, **kw)
+
+        monkeypatch.setattr(live_gemm, name, form)
+    return called
+
+
+def _grads_of(module, inputs, outputs):
+    loss = sum((o.float() * torch.linspace(-1, 1, o.numel()).reshape(
+        o.shape)).sum() for o in outputs)
+    return torch.autograd.grad(loss, [*inputs, *module.parameters()])
+
+
+@pytest.mark.parametrize("d,bidirectional", [(500, False), (300, True),
+                                             (1024, False)])
+def test_masked_gru_live_products_match_dense(monkeypatch, d, bidirectional):
+    """MaskedGRU through the live row-step products (the card's f32 path,
+    its plain versions here) against the dense products: the same
+    outputs and the same gradients of x and of every parameter. (A
+    bidirectional layer's flip takes lengths up to T.)"""
+    x, *_, lengths, _ = _live_setup(d, seed=2)
+    lengths = lengths.clamp(max=x.shape[1])
+    x.requires_grad_()
+    results, called = [], []
+    for live in (False, True):
+        if live:
+            called = _route_live_products_on_the_cpu(monkeypatch)
+        gru = MaskedGRU(d, 8, bidirectional,
+                        generator=torch.Generator().manual_seed(d))
+        outs = gru(x, lengths)
+        results.append((outs, _grads_of(gru, [x], outs)))
+    # each direction: the projection and dX, dW_i and dW_h
+    assert sorted(called) == ["rows_product"] * (2 + 2 * bidirectional) \
+        + ["rows_reduce"] * (2 + 2 * bidirectional)
+    (dense_outs, dense_grads), (outs, grads) = results
+    for a, w in zip(outs, dense_outs):
+        torch.testing.assert_close(a, w, **TOL)
+    for a, w in zip(grads, dense_grads):
+        torch.testing.assert_close(a, w, **TOL)
+
+
+def test_decoder_live_products_match_dense(monkeypatch):
+    """The reconstruction decoder (seeded h0, D = E = 1,024, lengths 0 and
+    T) through the live row-step products against the dense ones."""
+    from cmhse_tpu_torch.models import ReconstructionDecoder
+
+    rng = np.random.RandomState(3)
+    high = torch.from_numpy(rng.randn(5, 1024).astype(np.float32))
+    low = torch.from_numpy(rng.randn(5, 6, 1024).astype(np.float32))
+    lengths = torch.tensor([6, 0, 2, 6, 4], dtype=torch.int32)
+    high.requires_grad_()
+    low.requires_grad_()
+    results, called = [], []
+    for live in (False, True):
+        if live:
+            called = _route_live_products_on_the_cpu(monkeypatch)
+        dec = ReconstructionDecoder(1024, 8,
+                                    generator=torch.Generator().manual_seed(4))
+        pred = dec(high, low, lengths)
+        results.append((pred, _grads_of(dec, [high, low], [pred])))
+    assert sorted(called) == ["rows_product"] * 2 + ["rows_reduce"] * 2
+    (dense_pred, dense_grads), (pred, grads) = results
+    torch.testing.assert_close(pred, dense_pred, **TOL)
+    for a, w in zip(grads, dense_grads):
+        torch.testing.assert_close(a, w, **TOL)
