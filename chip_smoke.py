@@ -24,7 +24,10 @@ Phases (any failure raises and the script exits non-zero):
      input projection, dX, dW_i with db_i, dW_h) against its plain version
      at video_low, text_low and video_high, at the main path's lengths and
      at full density, with torch.matmul over every row-step as the
-     yardstick;
+     yardstick; 2g. its grouped forms (the routed experts' ``moe_*``
+     kernels) at DeepSeek-V2-Lite's widths on ``cmhse_dsv2_lite.train``'s
+     routing against their plain versions, timed beside a per-expert
+     ``torch.matmul`` loop;
   3. the ``rankcount`` kernel against its plain version (counts exact) at
      Q=1024, N=100,000, D=1024 and at the main path's shape, with times;
      3b. the streaming top-k (plain torch ops) against the dense one at
@@ -652,6 +655,115 @@ def phase_live_gemm(torch, rng, shapes, h: int = 1024) -> list:
                     f"{100.0 * live / (b * t):.1f}% live)")
             del cases
     return rows
+
+
+def phase_moe_grouped(torch, rng, rows: int = 16384, d: int = 2048,
+                      width: int = 1408, experts: int = 64, held: int = 32,
+                      k: int = 6, live_share: float = 0.19) -> list:
+    """2g: the routed experts' grouped products (live_gemm.cu's ``moe_*``
+    kernels) at DeepSeek-V2-Lite's widths on ``cmhse_dsv2_lite.train``'s
+    routing (512 sentences x 32 slots, ~19% live, top-6 of 64 experts, 32
+    held: ~300 slots an expert), each against its plain version, with
+    times: the kernel, its bound (the FLOPs at the f32 peak), and a
+    per-expert ``torch.matmul`` loop over the same groups (their slices
+    read to the host once, outside the timing)."""
+    from cmhse_tpu_torch.ops import live_gemm as lg
+
+    dev = torch.device("cuda")
+    gen = card_generator(torch, rng)
+    live = torch.rand(rows, device=dev, generator=gen) < live_share
+    top = torch.rand(rows, experts, device=dev, generator=gen).topk(k)
+    tok, assign, gstarts, _ = lg.moe_plan(top.indices, live, held, 0)
+    cap = rows * k
+    starts = gstarts.tolist()
+    groups = [(e, starts[e], starts[e + 1]) for e in range(held)
+              if starts[e + 1] > starts[e]]
+    slots = starts[held]
+
+    def randn(*shape):
+        return torch.randn(*shape, device=dev, generator=gen)
+
+    x, dy = randn(rows, d), randn(rows, d)
+    w_gu, w_down = randn(held, d, 2 * width) * d ** -0.5, \
+        randn(held, width, d) * width ** -0.5
+    act, d_gu = randn(cap, width), randn(cap, 2 * width)
+    scale = torch.rand(cap, device=dev, generator=gen)
+    tok_l, assign_l = tok.long(), assign.long()
+
+    def loop_rows(a, w, n, a_idx=None, c_idx=None, sc=None, w_nk=False):
+        out = torch.zeros(cap, n, device=dev)
+        for e, lo, hi in groups:
+            src = a[a_idx[lo:hi]] if a_idx is not None else a[lo:hi]
+            y = src @ (w[e].T if w_nk else w[e])
+            if sc is not None:
+                y = y * sc[lo:hi, None]
+            if c_idx is not None:
+                out[c_idx[lo:hi]] = y
+            else:
+                out[lo:hi] = y
+        return out
+
+    def loop_reduce(a, g, a_idx=None, g_idx=None):
+        out = torch.zeros(held, a.shape[1], g.shape[1], device=dev)
+        for e, lo, hi in groups:
+            aa = a[a_idx[lo:hi]] if a_idx is not None else a[lo:hi]
+            gg = g[g_idx[lo:hi]] if g_idx is not None else g[lo:hi]
+            out[e] = aa.T @ gg
+        return out
+
+    f = 2.0 * slots * d * width
+    cases = {
+        "gate/up (2048 -> 2 x 1408)": (
+            lambda: lg.moe_rows(x, w_gu, gstarts,
+                                torch.zeros(cap, 2 * width, device=dev),
+                                a_idx=tok),
+            lambda: loop_rows(x, w_gu, 2 * width, a_idx=tok_l), 2 * f),
+        "down (1408 -> 2048, scored)": (
+            lambda: lg.moe_rows(act, w_down, gstarts,
+                                torch.zeros(cap, d, device=dev),
+                                c_idx=assign, scale=scale),
+            lambda: loop_rows(act, w_down, d, c_idx=assign_l, sc=scale), f),
+        "dX of down (2048 -> 1408)": (
+            lambda: lg.moe_rows(dy, w_down, gstarts,
+                                torch.zeros(cap, width, device=dev),
+                                a_idx=tok, w_nk=True),
+            lambda: loop_rows(dy, w_down, width, a_idx=tok_l, w_nk=True),
+            f),
+        "dX of gate/up (2 x 1408 -> 2048)": (
+            lambda: lg.moe_rows(d_gu, w_gu, gstarts,
+                                torch.zeros(cap, d, device=dev),
+                                c_idx=assign, w_nk=True),
+            lambda: loop_rows(d_gu, w_gu, d, c_idx=assign_l, w_nk=True),
+            2 * f),
+        "dW of down (reduction)": (
+            lambda: lg.moe_reduce(act, dy, gstarts, g_idx=tok),
+            lambda: loop_reduce(act, dy, g_idx=tok_l), f),
+        "dW of gate/up (reduction)": (
+            lambda: lg.moe_reduce(x, d_gu, gstarts, a_idx=tok),
+            lambda: loop_reduce(x, d_gu, a_idx=tok_l), 2 * f),
+    }
+    out = []
+    for name, (kernel, loop, flops) in cases.items():
+        with torch.no_grad():
+            got, again, want = kernel(), kernel(), loop()
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                raise AssertionError(f"moe {name}: two calls differ")
+            err = ((got - want).abs().max()
+                   / want.abs().max().clamp_min(1e-30)).item()
+            if not err <= LIVE_GEMM_RTOL:
+                raise AssertionError(f"moe {name}: error {err} of the "
+                                     f"largest entry > {LIVE_GEMM_RTOL}")
+            ms = cuda_ms(kernel)
+            loop_ms = cuda_ms(loop, reps=5, warmup=1)
+        bms, by = bound_ms(flops, 0.0)
+        out.append(dict(shape=name, max_abs_err=err, ms=ms, loop_ms=loop_ms,
+                        bound_ms=bms, tflops=flops / ms / 1e9, slots=slots))
+        log(f"  2g moe {name}: err {err:.3g}  kernel {ms:.4f} ms "
+            f"({flops / ms / 1e9:.1f} TFLOP/s)  per-expert torch.matmul "
+            f"loop {loop_ms:.4f} ms  bound {bms:.4f} ms ({slots} slots in "
+            f"{len(groups)} experts)")
+    return out
 
 
 def phase_gru_bf16(torch, rng, enc_shapes, train_shapes,
@@ -4339,6 +4451,10 @@ def main() -> int:
     for line in kernel_resources("live_gemm.cu"):
         log(f"  ptxas live_gemm.cu: {line}")
     lg_rows = phase_live_gemm(torch, rng, enc_shapes[:3])
+    phase("phase 2g: the routed experts' grouped products (live_gemm.cu's "
+          "moe_* kernels) vs plain and a per-expert torch.matmul loop at "
+          "DeepSeek-V2-Lite's widths")
+    phase_moe_grouped(torch, rng)
     phase("phase 3: rankcount vs plain (exact-arithmetic rows)")
     for line in kernel_resources("rankcount.cu"):
         log("  ptxas " + line)

@@ -837,6 +837,10 @@ def build_context(checkpoint: str, data_path: str | None, split: str,
     mesh = (sharded_mesh("cpu" if resolve_device(device).type == "cpu"
                          else "gpu") if sharded else None)
     model, cfg = restore_for_eval(checkpoint, device=device)
+    if model.text_tower is not None:
+        raise NotImplementedError(
+            f"{checkpoint}: serving a model with a text tower is not "
+            "supported (the daemon serves the GRU sentence encoder)")
     data_path = data_path or cfg.data.data_path
     vocab = Vocabulary.load(find_vocab(data_path, vocab_path))
     dataset = PrecompDataset(data_path, split, vocab,

@@ -92,6 +92,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "Chrome trace (trace.json) into this dir, with the "
                         "port's spans and counters beside it (spans.json, "
                         "on the trace's own timebase)")
+    p.add_argument("--text_tower", default=None, metavar="FILE.json",
+                   help="a TextTowerConfig JSON file: the sentence encoder "
+                        "is that DeepSeek-V2 decoder stack instead of the "
+                        "word embedding and GRU (float32)")
     p.add_argument("--synthetic", action="store_true",
                    help="train on the synthetic dataset")
     p.add_argument("--synthetic_videos", type=int, default=256)
@@ -202,6 +206,13 @@ def main(argv=None) -> int:
 
     cfg = apply_overrides(get_preset(args.preset), args)
     print(f"config:\n{cfg.to_json()}")
+    text_tower = None
+    if args.text_tower:
+        from cmhse_tpu_torch.models.text_tower import TextTowerConfig
+
+        with open(args.text_tower) as f:
+            text_tower = TextTowerConfig.from_json(f.read())
+        print(f"text tower:\n{text_tower.to_json()}")
 
     vocab = None
     if args.synthetic:
@@ -237,7 +248,8 @@ def main(argv=None) -> int:
                                 feat_dim=cfg.data.feat_dim, flat=flat)
 
     with profiler_trace(args.profile_dir):
-        _, best_rsum = fit(cfg, train_ds, val_ds, vocab=vocab, device=device)
+        _, best_rsum = fit(cfg, train_ds, val_ds, vocab=vocab, device=device,
+                           text_tower=text_tower)
     print(f"done; best rsum {best_rsum:.2f}")
     return 0
 

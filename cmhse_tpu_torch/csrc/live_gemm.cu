@@ -70,6 +70,31 @@
 //   db is the product's extra row: the row M of a' reads 1 on every live
 //   row-step (a 16-byte unit {1, 0, 0, 0} in device memory stands in for
 //   it), so the column sums come from the same FMAs.
+//
+// The grouped forms (kernels moe_*): the routed experts of a mixture-of-
+// experts layer. Each group of slots has its own weight: the slots are the
+// assignments of tokens to the experts held here, sorted by expert on the
+// device (live_gemm.py's moe_plan), and gstarts[e] counts the slots before
+// expert e, so gstarts[G] is known only to the device.
+//
+//   row form        c[c_idx[s]] = scale[s] * (a[a_idx[s]] @ W_e)  for each
+//                   slot s of group e: the gate/up product (a gathered by
+//                   token), the down product (the router's score applied,
+//                   scattered to the token's assignment) and their dX (W_e
+//                   read as [N, K])
+//   reduction form  dW_e = sum over the slots s of group e of
+//                   a[a_idx[s]]^T g[g_idx[s]]
+//
+// They share the SGEMM core above. Row form: a persistent grid of one block
+// an SM walks the tiles (128 slots of one group x 128 columns), numbered
+// row-tile-major over the groups' row tiles in group order; each block
+// counts the row tiles before each group from gstarts once, finds a tile's
+// group by a binary search of those counts, and stops at its first tile past
+// the last group's. The grid is sized from the number of slots, which bounds
+// the row tiles (slots / 128 + G), never from gstarts. Reduction form: one
+// block a (group, 128 x 128 tile of dW_e), summing the group's slots in slot
+// order, no split; a group with no slot writes zeros. No atomics: the
+// results are bitwise the same from run to run.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -620,6 +645,241 @@ int launch_reduce(const float* a, int lda, int shift, const float* h0,
   return (int)cudaGetLastError();
 }
 
+
+// ---- the grouped forms (routed experts) ------------------------------------
+
+constexpr int MAX_GROUPS = 256;
+
+// Row tiles before each group (tiles_s[0 .. G]), counted by one thread.
+__device__ __forceinline__ void group_tiles(const int32_t* gstarts, int G,
+                                            int* tiles_s) {
+  if (threadIdx.x == 0) {
+    int acc = 0;
+    for (int g = 0; g < G; ++g) {
+      tiles_s[g] = acc;
+      acc += (__ldg(gstarts + g + 1) - __ldg(gstarts + g) + BM - 1) / BM;
+    }
+    tiles_s[G] = acc;
+  }
+  __syncthreads();
+}
+
+// Grouped row form. W_NK: each group's W is [N, K], else [K, N]; group e's
+// starts w_stride floats after group e - 1's. a_idx / c_idx null: the slot
+// itself; scale null: 1.
+template <bool W_NK, int VEC>
+__global__ void __launch_bounds__(NT, 1)
+    moe_rows_kernel(const float* __restrict__ a, int lda,
+                    const int32_t* __restrict__ a_idx,
+                    const float* __restrict__ w, int ldw, int w_stride,
+                    const float* __restrict__ scale, float* __restrict__ c,
+                    int ldc, const int32_t* __restrict__ c_idx,
+                    const int32_t* __restrict__ gstarts, int G, int N, int K,
+                    int n_tiles) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ int slot_s[BM];  // each tile row's slot; -1 past its group
+  __shared__ int arow_s[BM];  // and its row of a
+  __shared__ int tiles_s[MAX_GROUPS + 1];
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int mg = (warp / 2) * 4 + lane / 8, ng = (warp % 2) * 8 + lane % 8;
+  group_tiles(gstarts, G, tiles_s);
+  const int tiles = tiles_s[G] * n_tiles;
+  const int slabs = (K + BK - 1) / BK;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int mt = tile / n_tiles, n0 = (tile % n_tiles) * BN;
+    int lo = 0, hi = G;  // the last group with tiles_s[lo] <= mt
+    while (hi - lo > 1) {
+      const int mid = (lo + hi) >> 1;
+      if (tiles_s[mid] <= mt)
+        lo = mid;
+      else
+        hi = mid;
+    }
+    const int end = __ldg(gstarts + lo + 1);
+    const int m0 = __ldg(gstarts + lo) + (mt - tiles_s[lo]) * BM;
+    const float* wg = w + (size_t)lo * w_stride;
+    __syncthreads();  // the last tile's epilogue is done with slot_s
+    if (tid < BM) {
+      const int s = m0 + tid;
+      slot_s[tid] = s < end ? s : -1;
+      arow_s[tid] = s < end ? (a_idx != nullptr ? __ldg(a_idx + s) : s) : -1;
+    }
+    __syncthreads();
+    float acc[8][8];
+    mainloop<true, W_NK>(
+        acc, smem, slabs, mg, ng,
+        [&](int s, uint32_t a_dst, uint32_t b_dst) {
+          const int k0 = s * BK;
+          stage_kmajor<VEC>(a_dst, k0, K, tid, a, [&](int r) -> const float* {
+            const int ar = arow_s[r];
+            return ar < 0 ? nullptr : a + (size_t)ar * lda;
+          });
+          if constexpr (W_NK)
+            stage_kmajor<VEC>(b_dst, k0, K, tid, wg,
+                              [&](int r) -> const float* {
+                                return n0 + r < N ? wg + (size_t)(n0 + r) * ldw
+                                                  : nullptr;
+                              });
+          else
+            stage_mnmajor<VEC>(
+                b_dst, tid, wg, [&](int kr, int n) -> const float* {
+                  return k0 + kr < K && n0 + n < N
+                             ? wg + (size_t)(k0 + kr) * ldw + n0 + n
+                             : nullptr;
+                });
+        },
+        [](int) {});
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int r = frag_row<true>(mg, i), slot = slot_s[r];
+      if (slot < 0) continue;
+      float* out =
+          c + (size_t)(c_idx != nullptr ? __ldg(c_idx + slot) : slot) * ldc;
+      const float sc = scale != nullptr ? __ldg(scale + slot) : 1.0f;
+      if constexpr (!W_NK && VEC == 4) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int n = n0 + 64 * h + 4 * ng;
+          if (n >= N) continue;
+          float4 v = make_float4(acc[i][4 * h], acc[i][4 * h + 1],
+                                 acc[i][4 * h + 2], acc[i][4 * h + 3]);
+          if (scale != nullptr) {
+            v.x *= sc;
+            v.y *= sc;
+            v.z *= sc;
+            v.w *= sc;
+          }
+          *reinterpret_cast<float4*>(out + n) = v;
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int n = n0 + frag_row<W_NK>(ng, j);
+          if (n < N) out[n] = scale != nullptr ? acc[i][j] * sc : acc[i][j];
+        }
+      }
+    }
+  }
+}
+
+// Grouped reduction form: block (group e, tile) sums the group's slots;
+// dw [G, M, N].
+template <int VEC>
+__global__ void __launch_bounds__(NT, 2)
+    moe_reduce_kernel(const float* __restrict__ a, int lda,
+                      const int32_t* __restrict__ a_idx,
+                      const float* __restrict__ g, int ldg,
+                      const int32_t* __restrict__ g_idx,
+                      float* __restrict__ dw,
+                      const int32_t* __restrict__ gstarts, int M, int N,
+                      int n_tiles, int per_group) {
+  extern __shared__ __align__(16) float smem[];
+  constexpr int RING = STAGES + 1;
+  // rows of a and of g of the slots staged next (-1: none)
+  __shared__ int ra_s[RING][BK], rg_s[RING][BK];
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int mg = (warp / 2) * 4 + lane / 8, ng = (warp % 2) * 8 + lane % 8;
+  const int grp = blockIdx.x / per_group, tile = blockIdx.x % per_group;
+  const int m0 = (tile / n_tiles) * BM, n0 = (tile % n_tiles) * BN;
+  const int k_begin = __ldg(gstarts + grp), k_end = __ldg(gstarts + grp + 1);
+  const int slabs = (k_end - k_begin + BK - 1) / BK;
+  auto walk = [&](int s) {
+    if (tid < BK) {
+      const int k = k_begin + BK * s + tid;
+      int ra = -1, rg = -1;
+      if (k < k_end) {
+        ra = a_idx != nullptr ? __ldg(a_idx + k) : k;
+        rg = g_idx != nullptr ? __ldg(g_idx + k) : k;
+      }
+      ra_s[s % RING][tid] = ra;
+      rg_s[s % RING][tid] = rg;
+    }
+  };
+#pragma unroll
+  for (int s = 0; s < STAGES; ++s) walk(s);
+  __syncthreads();
+  float acc[8][8];
+  mainloop<false, false>(
+      acc, smem, slabs, mg, ng,
+      [&](int s, uint32_t a_dst, uint32_t b_dst) {
+        const int* ra = ra_s[s % RING];
+        const int* rg = rg_s[s % RING];
+        stage_mnmajor<VEC>(a_dst, tid, a, [&](int kr, int m) -> const float* {
+          const int r = ra[kr];
+          m += m0;
+          return r < 0 || m >= M ? nullptr : a + (size_t)r * lda + m;
+        });
+        stage_mnmajor<VEC>(b_dst, tid, g, [&](int kr, int n) -> const float* {
+          const int r = rg[kr];
+          n += n0;
+          return r < 0 || n >= N ? nullptr : g + (size_t)r * ldg + n;
+        });
+      },
+      [&](int s) { walk(s + STAGES); });
+  float* base = dw + (size_t)grp * M * N;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int m = m0 + frag_row<false>(mg, i);
+    if (m >= M) continue;
+    float* out = base + (size_t)m * N;
+    if constexpr (VEC == 4) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int n = n0 + 64 * h + 4 * ng;
+        if (n < N)
+          *reinterpret_cast<float4*>(out + n) =
+              make_float4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2],
+                          acc[i][4 * h + 3]);
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int n = n0 + frag_row<false>(ng, j);
+        if (n < N) out[n] = acc[i][j];
+      }
+    }
+  }
+}
+
+template <bool W_NK, int VEC>
+int launch_moe_rows(const float* a, int lda, const int* a_idx, const float* w,
+                    int ldw, int w_stride, const float* scale, float* c,
+                    int ldc, const int* c_idx, const int* gstarts, int G,
+                    int slots, int N, int K, cudaStream_t stream) {
+  auto kernel = moe_rows_kernel<W_NK, VEC>;
+  int resident = 0;
+  cudaError_t err = prepare(kernel, rows_smem<W_NK>(), &resident);
+  if (err != cudaSuccess) return (int)err;
+  const int n_tiles = (N + BN - 1) / BN;
+  // the most row tiles the groups can have: every slot in a group
+  const long long bound =
+      ((long long)(slots + BM - 1) / BM + G) * (long long)n_tiles;
+  if (bound > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const int grid = (int)(bound < resident ? bound : resident);
+  kernel<<<grid, NT, rows_smem<W_NK>(), stream>>>(
+      a, lda, a_idx, w, ldw, w_stride, scale, c, ldc, c_idx, gstarts, G, N, K,
+      n_tiles);
+  return (int)cudaGetLastError();
+}
+
+template <int VEC>
+int launch_moe_reduce(const float* a, int lda, const int* a_idx,
+                      const float* g, int ldg, const int* g_idx, float* dw,
+                      const int* gstarts, int G, int M, int N,
+                      cudaStream_t stream) {
+  auto kernel = moe_reduce_kernel<VEC>;
+  int resident = 0;
+  cudaError_t err = prepare(kernel, kReduceSmem, &resident);
+  if (err != cudaSuccess) return (int)err;
+  const int n_tiles = (N + BN - 1) / BN;
+  const long long per_group = (long long)((M + BM - 1) / BM) * n_tiles;
+  if (per_group * G > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  kernel<<<(unsigned)(per_group * G), NT, kReduceSmem, stream>>>(
+      a, lda, a_idx, g, ldg, g_idx, dw, gstarts, M, N, n_tiles,
+      (int)per_group);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Row form: c[rs] = a[rs] @ W (+ bias) for each live row-step rs = b * T + t
@@ -701,4 +961,56 @@ extern "C" int cmhse_live_reduce_splits(int rows_out, int N, int rows) {
   int splits = 1;
   const int err = reduce_splits(rows_out, N, rows, &splits);
   return err != 0 ? -err : splits;
+}
+
+// Grouped row form: for each slot s of group e (gstarts[e] <= s <
+// gstarts[e + 1], e < G), c[c_idx[s]] = scale[s] * (a[a_idx[s]] @ W_e),
+// W_e = w + e * w_stride, [K, N] or, with w_nk, [N, K] (row stride ldw);
+// a_idx / c_idx null read the slot itself, scale null 1. a rows of K (row
+// stride lda), c rows of N (row stride ldc); rows of c no slot names are
+// not written. `slots` bounds gstarts[G] (the grid is sized from it).
+extern "C" int cmhse_moe_rows(const float* a, int lda, const int* a_idx,
+                              const float* w, int ldw, int w_stride, int w_nk,
+                              const float* scale, float* c, int ldc,
+                              const int* c_idx, const int* gstarts, int G,
+                              int slots, int N, int K, void* stream) {
+  if (G <= 0 || G > MAX_GROUPS || slots < 0 || N <= 0 || K < 0 ||
+      w_stride < 0)
+    return (int)cudaErrorInvalidValue;
+  if (slots == 0) return (int)cudaSuccess;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const bool vec = aligned16(a) && aligned16(w) && aligned16(c) &&
+                   lda % 4 == 0 && ldw % 4 == 0 && ldc % 4 == 0 &&
+                   w_stride % 4 == 0 && K % 4 == 0 && N % 4 == 0;
+  if (w_nk)
+    return vec ? launch_moe_rows<true, 4>(a, lda, a_idx, w, ldw, w_stride,
+                                          scale, c, ldc, c_idx, gstarts, G,
+                                          slots, N, K, s)
+               : launch_moe_rows<true, 1>(a, lda, a_idx, w, ldw, w_stride,
+                                          scale, c, ldc, c_idx, gstarts, G,
+                                          slots, N, K, s);
+  return vec ? launch_moe_rows<false, 4>(a, lda, a_idx, w, ldw, w_stride,
+                                         scale, c, ldc, c_idx, gstarts, G,
+                                         slots, N, K, s)
+             : launch_moe_rows<false, 1>(a, lda, a_idx, w, ldw, w_stride,
+                                         scale, c, ldc, c_idx, gstarts, G,
+                                         slots, N, K, s);
+}
+
+// Grouped reduction form: dw [G, M, N], dw[e] = sum over the slots s of
+// group e of a[a_idx[s]]^T g[g_idx[s]] (a rows of M, row stride lda; g rows
+// of N, row stride ldg; a null index reads the slot itself). Every entry of
+// dw is written.
+extern "C" int cmhse_moe_reduce(const float* a, int lda, const int* a_idx,
+                                const float* g, int ldg, const int* g_idx,
+                                float* dw, const int* gstarts, int G, int M,
+                                int N, void* stream) {
+  if (G <= 0 || M <= 0 || N <= 0) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const bool vec = aligned16(a) && aligned16(g) && aligned16(dw) &&
+                   lda % 4 == 0 && ldg % 4 == 0 && M % 4 == 0 && N % 4 == 0;
+  return vec ? launch_moe_reduce<4>(a, lda, a_idx, g, ldg, g_idx, dw, gstarts,
+                                    G, M, N, s)
+             : launch_moe_reduce<1>(a, lda, a_idx, g, ldg, g_idx, dw, gstarts,
+                                    G, M, N, s);
 }

@@ -29,6 +29,16 @@ import numpy as np
 import torch
 
 
+def refuse_text_tower(names) -> None:
+    """Raise for a model whose sentence encoder is a text tower: the JAX
+    package and the reference's layout have no such encoder."""
+    if any(str(n).split(".")[0] == "text_tower" for n in names):
+        raise NotImplementedError(
+            "a model with a text tower (text_tower.*) has no JAX or "
+            "reference-layout counterpart: export, import and serving take "
+            "the GRU sentence encoder only")
+
+
 def params_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
     """JAX ``CMHSE`` params tree -> the port's ``state_dict``, every module
     included (the reconstruction decoders too).
@@ -58,7 +68,8 @@ def params_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
 def params_to_jax_tree(state_dict: Mapping[str, torch.Tensor]) -> dict:
     """The inverse of :func:`params_from_jax`: the port's ``state_dict`` ->
     a nested JAX-layout tree of float32 numpy arrays (every ``weight`` back
-    to a ``kernel`` by transpose)."""
+    to a ``kernel`` by transpose). A text tower's model is refused."""
+    refuse_text_tower(state_dict)
     tree: dict = {}
     for key, value in state_dict.items():
         *path, name = key.split(".")
@@ -246,6 +257,7 @@ def infer_model_structure(state_dict: dict,
     GRU's output width, 2H when bidirectional), the structure flags from
     which keys exist. The GRU readout ('last' or 'mean') has no parameters
     and cannot be inferred."""
+    refuse_text_tower(state_dict)
     pm = _prefixes(prefix_map)
     emb = _pop_required(dict(state_dict), f"{pm['word_embedding']}.weight",
                         pm["word_embedding"])

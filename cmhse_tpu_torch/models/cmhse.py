@@ -14,6 +14,11 @@ points; ``forward(batch)`` is the training forward and returns
 ``ModelConfig.dtype`` is the compute dtype: ``"float32"``, or
 ``"bfloat16"`` for the JAX package's mixed-precision configuration (bf16
 activations and embeddings, f32 parameters, f32 GRU carry and loss).
+
+With a :class:`~cmhse_tpu_torch.models.text_tower.TextTowerConfig` the
+sentence encoder (words -> sentence) is a DeepSeek-V2 decoder stack,
+``text_tower``, in place of ``word_embedding`` and ``text_low``; everything
+else is unchanged. The tower computes in float32 only.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ from cmhse_tpu_torch.device import resolve_device
 from cmhse_tpu_torch.models.encoders import (SequenceEncoder, WordEmbedding,
                                              _dense)
 from cmhse_tpu_torch.models.gru import _project
+from cmhse_tpu_torch.models.text_tower import TextTower, TextTowerConfig
 from cmhse_tpu_torch.ops.gru_kernel import _gru_recurrence, _live_plan
 from cmhse_tpu_torch.utils import timing
 
@@ -118,12 +124,16 @@ class CMHSE(nn.Module):
     same encoder weights with or without them. Submodule and parameter names
     follow the JAX params tree (see :mod:`cmhse_tpu_torch.interop`). With
     the recorder on (:mod:`cmhse_tpu_torch.utils.timing`) construction is
-    one ``model.init`` span.
+    one ``model.init`` span. ``text_tower``: the sentence encoder is that
+    decoder stack (:mod:`cmhse_tpu_torch.models.text_tower`), drawn after
+    ``video_low``, in place of ``word_embedding`` and ``text_low``; None
+    (``self.text_tower``) without.
     """
 
     def __init__(self, cfg: ModelConfig, vocab_size: int,
                  device: str | torch.device | None = None,
-                 generator: torch.Generator | None = None) -> None:
+                 generator: torch.Generator | None = None,
+                 text_tower: TextTowerConfig | None = None) -> None:
         super().__init__()
         with timing.span("model.init"):
             if cfg.dtype not in COMPUTE_DTYPES or \
@@ -141,14 +151,26 @@ class CMHSE(nn.Module):
             low_readout = "attn" if cfg.attention_pool else cfg.readout
             high_readout = "attn" if cfg.attention_pool else "last"
             e, h = cfg.embed_size, cfg.rnn_hidden
-            self.word_embedding = WordEmbedding(vocab_size, cfg.word_dim,
-                                                generator)
+            if text_tower is not None and dtype != torch.float32:
+                raise NotImplementedError(
+                    "the text tower computes in float32 only (got "
+                    f"dtype={cfg.dtype!r})")
+            self.text_tower_cfg = text_tower
+            if text_tower is None:
+                self.word_embedding = WordEmbedding(vocab_size, cfg.word_dim,
+                                                    generator)
             self.video_low = SequenceEncoder(cfg.feat_dim, e, h,
                                              low_readout, cfg.bidirectional,
                                              generator, dtype)
-            self.text_low = SequenceEncoder(cfg.word_dim, e, h, low_readout,
-                                            cfg.bidirectional, generator,
-                                            dtype)
+            if text_tower is None:
+                self.text_tower = None
+                self.text_low = SequenceEncoder(cfg.word_dim, e, h,
+                                                low_readout,
+                                                cfg.bidirectional, generator,
+                                                dtype)
+            else:
+                self.text_tower = TextTower(text_tower, vocab_size, e,
+                                            generator)
             if cfg.hierarchical:
                 self.video_high = SequenceEncoder(e, e, h, high_readout,
                                                   generator=generator,
@@ -166,7 +188,7 @@ class CMHSE(nn.Module):
 
     @property
     def device(self) -> torch.device:
-        return self.word_embedding.embedding.device
+        return self.video_low.gru.fwd_w_i.device
 
     def encode_video(self, frames: torch.Tensor, frame_len: torch.Tensor,
                      clip_len: torch.Tensor
@@ -194,8 +216,12 @@ class CMHSE(nn.Module):
         """words i32[B, S, W] -> (para_emb [B, E], sent_emb [B, S, E]) in
         the compute dtype."""
         b, smax, wmax = words.shape
-        vecs = self.word_embedding(words.reshape(b * smax, wmax))
-        sent_emb, _ = self.text_low(vecs, word_len.reshape(b * smax))
+        if self.text_tower is not None:
+            sent_emb = self.text_tower(words.reshape(b * smax, wmax),
+                                       word_len.reshape(b * smax))
+        else:
+            vecs = self.word_embedding(words.reshape(b * smax, wmax))
+            sent_emb, _ = self.text_low(vecs, word_len.reshape(b * smax))
         sent_emb = sent_emb.reshape(b, smax, -1)
         if not self.cfg.hierarchical:
             if smax != 1:
@@ -228,6 +254,8 @@ class CMHSE(nn.Module):
     def load_jax_params(self, params: dict) -> None:
         """Load a JAX ``CMHSE`` params tree (nested numpy arrays); see
         :func:`cmhse_tpu_torch.interop.params_from_jax`."""
-        from cmhse_tpu_torch.interop import params_from_jax
+        from cmhse_tpu_torch.interop import (params_from_jax,
+                                             refuse_text_tower)
 
+        refuse_text_tower(self.state_dict())
         self.load_state_dict(params_from_jax(params))

@@ -50,50 +50,6 @@ from cmhse_tpu_torch.ops.gru_kernel import (_gru_recurrence, _live_plan,
                                             gru_recurrence_plain)
 
 
-class _InputProjection(torch.autograd.Function):
-    """``x @ w_i + b_i`` in ``x``'s dtype, with f32 accumulation and f32
-    gradients of the parameters. In bf16 autograd of the casts would round
-    ``dW_i`` to bf16 before it reaches the f32 parameter, a rounding the JAX
-    package's custom VJP does not make (``pallas_gru_grad.py:335-341``).
-    With ``lengths`` (and the plan of the live rows) every product takes
-    the live row-steps only (:mod:`cmhse_tpu_torch.ops.live_gemm`): the
-    forward and ``dX`` in the row form, ``dW_i`` with ``db_i`` in one
-    reduction; without, the products are dense."""
-
-    @staticmethod
-    def forward(ctx, x, w_i, b_i, lengths, *plan):
-        w = w_i.to(x.dtype)
-        ctx.save_for_backward(x, w, lengths, *plan)
-        ctx.dtypes = (w_i.dtype, b_i.dtype)
-        if lengths is not None:
-            return live_gemm.rows_product(x, w, b_i, lengths, plan)
-        return (x.float() @ w.float() + b_i.float()).to(x.dtype)
-
-    @staticmethod
-    def backward(ctx, g):
-        x, w, lengths, *plan = ctx.saved_tensors
-        need_x, need_w, need_b = ctx.needs_input_grad[:3]
-        dx = dw = db = None
-        if lengths is not None:
-            g = g.contiguous()
-            if need_x:
-                dx = live_gemm.rows_product(g, w, None, lengths, plan,
-                                            w_nk=True, zero_dead=True)
-            if need_w or need_b:
-                dw, db = live_gemm.rows_reduce(x, g, lengths, plan,
-                                               column_sums=True)
-            return (dx, dw if need_w else None, db if need_b else None,
-                    *[None] * (1 + len(plan)))
-        g = g.float().reshape(-1, g.shape[-1])
-        if need_x:
-            dx = (g @ w.float().T).to(x.dtype).reshape(x.shape)
-        if need_w:
-            dw = (x.float().reshape(-1, x.shape[-1]).T @ g).to(ctx.dtypes[0])
-        if need_b:
-            db = g.sum(dim=0).to(ctx.dtypes[1])
-        return dx, dw, db, None
-
-
 def gru_input_projection(x: torch.Tensor, w_i: torch.Tensor,
                          b_i: torch.Tensor) -> torch.Tensor:
     """``x [B, T, D] @ w_i [D, 3H] + b_i`` for every step at once, in
@@ -102,21 +58,17 @@ def gru_input_projection(x: torch.Tensor, w_i: torch.Tensor,
     ``gru_input_projection``). The backward gives f32 ``dW_i``/``db_i`` and
     ``dx`` rounded to ``x``'s dtype. On the card in f32 it is the live
     row-step kernel with every step live."""
-    if live_gemm.takes(x):
-        lengths = torch.full(x.shape[:1], x.shape[1], dtype=torch.int32,
-                             device=x.device)
-        return _InputProjection.apply(x, w_i, b_i, lengths,
-                                      *_live_plan(x, lengths))
-    return _InputProjection.apply(x, w_i, b_i, None)
+    lengths = torch.full(x.shape[:1], x.shape[1], dtype=torch.int32,
+                         device=x.device)
+    plan = _live_plan(x, lengths) if live_gemm.takes(x) else ()
+    return live_gemm.live_product(x, w_i, b_i, lengths, plan)
 
 
 def _project(x, w_i, b_i, lengths, plan):
     """The input projection of a GRU layer on its plan of the live rows:
     the live row-steps only where :func:`live_gemm.takes` ``x``, else
     dense over every step."""
-    if live_gemm.takes(x):
-        return _InputProjection.apply(x, w_i, b_i, lengths, *plan)
-    return _InputProjection.apply(x, w_i, b_i, None)
+    return live_gemm.live_product(x, w_i, b_i, lengths, plan)
 
 
 def gru_sequence(

@@ -69,6 +69,12 @@ _SIGNATURES = {
     "cmhse_live_reduce": (_P, _I, _I, _P, _P, _I, _P, _I, _I, _P, _P, _P, _I,
                           _P, _P, _I, _I, _I, _I, _P),
     "cmhse_live_reduce_splits": (_I, _I, _I),
+    # a, lda, a_idx, w, ldw, w_stride, w_nk, scale, c, ldc, c_idx, gstarts,
+    # G, slots, N, K, stream
+    "cmhse_moe_rows": (_P, _I, _P, _P, _I, _I, _I, _P, _P, _I, _P, _P, _I,
+                       _I, _I, _I, _P),
+    # a, lda, a_idx, g, ldg, g_idx, dw, gstarts, G, M, N, stream
+    "cmhse_moe_reduce": (_P, _I, _P, _P, _I, _P, _P, _P, _I, _I, _I, _P),
     # a, b, mask, row_diag, col_diag, keys, row_max, row_arg, col_max,
     # col_arg, M, N, D, margin, stream
     "cmhse_simhinge_pair": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,

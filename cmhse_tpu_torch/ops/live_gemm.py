@@ -27,7 +27,22 @@ nothing by the data, so a CUDA graph may capture it; the launches count in
 takes f32 only (bf16 keeps ``torch.matmul``, chosen by :func:`takes`). On a
 CPU tensor each is its plain version, a product of the live rows gathered
 by the mask. The model's CPU path keeps the dense products, the JAX
-package's; :func:`takes` is where it chooses.
+package's; :func:`takes` is where it chooses. :class:`LiveProduct` is the
+autograd Function over both forms that the GRU's input projection and the
+text tower's token products share.
+
+The grouped forms multiply each group of rows by its own weight: the routed
+experts of a mixture-of-experts layer, whose rows are the assignments of
+tokens to the experts held here, sorted by expert (:func:`moe_plan`, made on
+the device with no host read). :func:`moe_rows` is the row form
+(``c[c_idx[s]] = scale[s] * a[a_idx[s]] @ w[e]`` for each slot s of group
+e), :func:`moe_reduce` the reduction form (``dw[e] = sum over the slots s of
+group e of a[a_idx[s]]^T g[g_idx[s]]``). On a CUDA tensor they launch the
+``moe_*`` kernels of ``csrc/live_gemm.cu``, whose grids are fixed by the
+shapes and whose tiles past the groups' device-side ends do nothing, so a
+CUDA graph captures them; launches count under ("live_gemm", "float32",
+"moe_rows" or "moe_reduce"). On a CPU tensor each is its plain version, a
+loop over the groups.
 """
 
 from __future__ import annotations
@@ -211,3 +226,229 @@ def rows_reduce(a: torch.Tensor, g: torch.Tensor, lengths: torch.Tensor,
     cuda_lib.check(err, "live_gemm reduce launch")
     cuda_lib.count_launch("live_gemm", "float32", "reduce")
     return dw, db
+
+
+class LiveProduct(torch.autograd.Function):
+    """``x @ w + b`` in ``x``'s dtype, with f32 accumulation and f32
+    gradients of the parameters: the GRU's input projection (``w`` its
+    ``w_i [D, 3H]``) and the text tower's token products (``w`` ``[K, N]``,
+    no ``b``). In bf16 autograd of the casts would round ``dW`` to bf16
+    before it reaches the f32 parameter, a rounding the JAX package's custom
+    VJP does not make (``pallas_gru_grad.py:335-341``). With ``lengths``
+    (and the plan of the live rows) every product takes the live row-steps
+    only: the forward and ``dX`` in the row form, ``dW`` with ``db`` in one
+    reduction; the forward's dead rows are left unwritten, or zeros with
+    ``zero_dead``, and ``dX``'s are zeros. Without ``lengths`` the products
+    are dense."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, lengths, zero_dead, *plan):
+        wc = w.to(x.dtype)
+        ctx.save_for_backward(x, wc, lengths, *plan)
+        ctx.dtypes = (w.dtype, None if b is None else b.dtype)
+        if lengths is not None:
+            return rows_product(x, wc, b, lengths, plan, zero_dead=zero_dead)
+        y = x.float() @ wc.float()
+        return (y if b is None else y + b.float()).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, lengths, *plan = ctx.saved_tensors
+        need_x, need_w, need_b = ctx.needs_input_grad[:3]
+        dx = dw = db = None
+        if lengths is not None:
+            g = g.contiguous()
+            if need_x:
+                dx = rows_product(g, w, None, lengths, plan, w_nk=True,
+                                  zero_dead=True)
+            if need_w or need_b:
+                # db from the same reduction whenever there is a bias
+                dw, db = rows_reduce(x, g, lengths, plan,
+                                     column_sums=ctx.dtypes[1] is not None)
+            return (dx, dw if need_w else None, db if need_b else None,
+                    *[None] * (2 + len(plan)))
+        g = g.float().reshape(-1, g.shape[-1])
+        if need_x:
+            dx = (g @ w.float().T).to(x.dtype).reshape(x.shape)
+        if need_w:
+            dw = (x.float().reshape(-1, x.shape[-1]).T @ g).to(ctx.dtypes[0])
+        if need_b:
+            db = g.sum(dim=0).to(ctx.dtypes[1])
+        return dx, dw, db, None, None
+
+
+def live_product(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None,
+                 lengths: torch.Tensor, plan, *,
+                 zero_dead: bool = False) -> torch.Tensor:
+    """:class:`LiveProduct` of ``x [B, T, K]``: on the live row-steps of the
+    plan where :func:`takes` ``x``, else dense over every row-step."""
+    if takes(x):
+        return LiveProduct.apply(x, w, b, lengths, zero_dead, *plan)
+    return LiveProduct.apply(x, w, b, None, False)
+
+
+# -- the grouped forms: routed experts ---------------------------------------
+
+
+def moe_plan(top_i: torch.Tensor, live: torch.Tensor, held: int,
+             offset: int) -> tuple:
+    """The routing plan of a mixture-of-experts layer, made on ``top_i``'s
+    device with no host read: ``top_i`` ``[R, k]`` the experts each row
+    chose, ``live`` ``[R]`` its live rows, the experts ``offset .. offset +
+    held - 1`` held here. The ``R * k`` assignments (row-major, assignment
+    ``r * k + j``) are sorted by held expert, stably; dead rows' and
+    assignments to experts not held go to a sentinel group past the end.
+    Returns ``(tok, assign, gstarts, valid)``: slot -> row ``[R * k]`` and
+    slot -> assignment ``[R * k]`` (int32), ``gstarts`` ``[held + 1]``
+    int32 the slots before each expert (``gstarts[held]`` the assignments
+    to held experts), ``valid`` ``[R * k]`` the slots below it."""
+    r, k = top_i.shape
+    dev = top_i.device
+    cap = r * k
+    e = top_i.long() - offset
+    key = torch.where((e >= 0) & (e < held) & live.reshape(-1, 1), e,
+                      held).reshape(-1)
+    groups = torch.arange(held + 1, device=dev)
+    # a stable counting sort: each assignment's rank within its group from
+    # a running count over the assignments, with no host read; the count
+    # runs along each group's row (a scan over the outer dimension of
+    # [R * k, groups] is far slower on the card)
+    running = (groups[:, None] == key[None, :]).to(torch.int32).cumsum(
+        1, dtype=torch.int32)
+    counts = (running[:, -1] if cap else
+              torch.zeros(held + 1, dtype=torch.int32, device=dev))
+    before = torch.nn.functional.pad(counts.cumsum(0, dtype=torch.int32),
+                                     (1, 0))
+    rank = running.gather(0, key[None, :])[0] - 1
+    pos = before[key] + rank
+    assign = torch.empty(cap, dtype=torch.int32, device=dev).scatter_(
+        0, pos.long(), torch.arange(cap, dtype=torch.int32, device=dev))
+    tok = torch.div(assign, k, rounding_mode="floor")
+    gstarts = before[:held + 1].contiguous()
+    valid = torch.arange(cap, device=dev) < gstarts[held]
+    return tok, assign, gstarts, valid
+
+
+def _groups(gstarts: torch.Tensor) -> list:
+    """(group, first slot, end) of each non-empty group, read on the host
+    (the plain versions only)."""
+    s = gstarts.tolist()
+    return [(e, s[e], s[e + 1]) for e in range(len(s) - 1) if s[e + 1] > s[e]]
+
+
+def _index(idx: torch.Tensor | None, lo: int, hi: int, dev) -> torch.Tensor:
+    if idx is None:
+        return torch.arange(lo, hi, device=dev)
+    return idx[lo:hi].long()
+
+
+def moe_rows_plain(a: torch.Tensor, w: torch.Tensor, gstarts: torch.Tensor,
+                   out: torch.Tensor, *, a_idx=None, c_idx=None, scale=None,
+                   w_nk: bool = False) -> torch.Tensor:
+    """Plain version of :func:`moe_rows`, a loop over the groups: writes
+    ``out`` in place and returns it."""
+    for e, lo, hi in _groups(gstarts):
+        we = w[e].float()
+        rows = a[_index(a_idx, lo, hi, a.device)].float() @ (
+            we.T if w_nk else we)
+        if scale is not None:
+            rows = rows * scale[lo:hi, None].float()
+        out[_index(c_idx, lo, hi, a.device)] = rows
+    return out
+
+
+def moe_reduce_plain(a: torch.Tensor, g: torch.Tensor, gstarts: torch.Tensor,
+                     *, a_idx=None, g_idx=None) -> torch.Tensor:
+    """Plain version of :func:`moe_reduce`, a loop over the groups."""
+    groups = gstarts.shape[0] - 1
+    dw = torch.zeros(groups, a.shape[-1], g.shape[-1], dtype=torch.float32,
+                     device=a.device)
+    for e, lo, hi in _groups(gstarts):
+        dw[e] = (a[_index(a_idx, lo, hi, a.device)].float().T
+                 @ g[_index(g_idx, lo, hi, a.device)].float())
+    return dw
+
+
+def _int32_operand(name: str, x: torch.Tensor | None, dev):
+    if x is None:
+        return None
+    if x.dtype != torch.int32 or x.device != dev or x.dim() != 1:
+        raise ValueError(f"the moe kernels take {name} as an int32 vector on "
+                         f"{dev}, got {x.dtype} {tuple(x.shape)} on "
+                         f"{x.device}")
+    return x.contiguous()
+
+
+def moe_rows(a: torch.Tensor, w: torch.Tensor, gstarts: torch.Tensor,
+             out: torch.Tensor, *, a_idx: torch.Tensor | None = None,
+             c_idx: torch.Tensor | None = None,
+             scale: torch.Tensor | None = None,
+             w_nk: bool = False) -> torch.Tensor:
+    """The grouped row form: for each slot s of group e (``gstarts[e] <= s <
+    gstarts[e + 1]``), ``out[c_idx[s]] = scale[s] * (a[a_idx[s]] @ w[e])``,
+    ``w`` ``[G, K, N]``, or ``[G, N, K]`` with ``w_nk``; an index or the
+    scale left None is the slot itself, or 1. ``a`` ``[., K]`` and ``out``
+    ``[., N]`` are f32 rows; rows of ``out`` no slot names are left as they
+    are. Returns ``out``."""
+    if a.device.type == "cpu":
+        return moe_rows_plain(a, w, gstarts, out, a_idx=a_idx, c_idx=c_idx,
+                              scale=scale, w_nk=w_nk)
+    groups = w.shape[0]
+    n, k = (w.shape[1], w.shape[2]) if w_nk else (w.shape[2], w.shape[1])
+    if a.dim() != 2 or a.shape[1] != k or out.dim() != 2 or \
+            out.shape[1] != n or tuple(gstarts.shape) != (groups + 1,):
+        raise ValueError(f"a {tuple(a.shape)}, w {tuple(w.shape)} (w_nk="
+                         f"{w_nk}), out {tuple(out.shape)} and gstarts "
+                         f"{tuple(gstarts.shape)} do not meet")
+    if not out.is_contiguous() or out.dtype != torch.float32:
+        raise ValueError("moe_rows writes a contiguous float32 out")
+    a, w, scale = _f32_operands("moe_rows", a=a, w=w, scale=scale)
+    dev = a.device
+    a_idx, c_idx, gstarts = (_int32_operand(nm, x, dev) for nm, x in (
+        ("a_idx", a_idx), ("c_idx", c_idx), ("gstarts", gstarts)))
+    slots = (a_idx if a_idx is not None else c_idx if c_idx is not None
+             else a).shape[0]
+    if slots == 0 or n == 0:
+        return out
+    lib = cuda_lib.library()
+    with torch.cuda.device(dev):
+        err = lib.cmhse_moe_rows(
+            a.data_ptr(), a.shape[1], _ptr(a_idx), w.data_ptr(), w.shape[2],
+            w.shape[1] * w.shape[2], int(w_nk), _ptr(scale), out.data_ptr(),
+            n, _ptr(c_idx), gstarts.data_ptr(), groups, slots, n, k,
+            torch.cuda.current_stream(dev).cuda_stream)
+    cuda_lib.check(err, "live_gemm moe_rows launch")
+    cuda_lib.count_launch("live_gemm", "float32", "moe_rows")
+    return out
+
+
+def moe_reduce(a: torch.Tensor, g: torch.Tensor, gstarts: torch.Tensor, *,
+               a_idx: torch.Tensor | None = None,
+               g_idx: torch.Tensor | None = None) -> torch.Tensor:
+    """The grouped reduction form: ``dw`` ``[G, M, N]``, ``dw[e]`` the sum
+    over the slots s of group e of ``a[a_idx[s]]^T g[g_idx[s]]`` (``a``
+    ``[., M]``, ``g`` ``[., N]``; an index left None is the slot itself).
+    A group with no slot gets zeros."""
+    if a.device.type == "cpu":
+        return moe_reduce_plain(a, g, gstarts, a_idx=a_idx, g_idx=g_idx)
+    groups = gstarts.shape[0] - 1
+    if a.dim() != 2 or g.dim() != 2 or groups < 1:
+        raise ValueError(f"a {tuple(a.shape)}, g {tuple(g.shape)} and "
+                         f"gstarts {tuple(gstarts.shape)} do not meet")
+    a, g = _f32_operands("moe_reduce", a=a, g=g)
+    dev = a.device
+    a_idx, g_idx, gstarts = (_int32_operand(nm, x, dev) for nm, x in (
+        ("a_idx", a_idx), ("g_idx", g_idx), ("gstarts", gstarts)))
+    m, n = a.shape[1], g.shape[1]
+    dw = torch.empty(groups, m, n, dtype=torch.float32, device=dev)
+    if m == 0 or n == 0:
+        return dw
+    lib = cuda_lib.library()
+    with torch.cuda.device(dev):
+        err = lib.cmhse_moe_reduce(
+            a.data_ptr(), m, _ptr(a_idx), g.data_ptr(), n, _ptr(g_idx),
+            dw.data_ptr(), gstarts.data_ptr(), groups, m, n,
+            torch.cuda.current_stream(dev).cuda_stream)
+    cuda_lib.check(err, "live_gemm moe_reduce launch")
+    cuda_lib.count_launch("live_gemm", "float32", "moe_reduce")
+    return dw

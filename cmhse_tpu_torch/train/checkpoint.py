@@ -4,7 +4,8 @@ epoch plus ``model_best.pth.tar`` when rsum improves, with ``--resume``).
 
 Layout: ``<dir>/ckpt/<step>`` (one ``torch.save`` file a checkpoint, the
 newest three kept), ``<dir>/config.json`` (the port's
-``ExperimentConfig.to_json``, which the JAX package's reads too) and
+``ExperimentConfig.to_json``, which the JAX package's reads too; with a
+text tower, ``<dir>/text_tower.json`` beside it) and
 ``<dir>/best`` (rewritten when rsum improves). A training checkpoint holds
 the model's and Adam's ``state_dict``, ``step``, ``epoch``, ``best_rsum``
 and ``groups_done``; ``best`` and :func:`eval_payload` hold the model,
@@ -36,6 +37,21 @@ from cmhse_tpu_torch.parallel.mesh import barrier, process_index
 MAX_TO_KEEP = 3
 
 
+TOWER_FILE = "text_tower.json"
+
+
+def load_text_tower(directory: str):
+    """The run directory's ``TextTowerConfig`` (``text_tower.json``), or
+    None when its model has the GRU sentence encoder."""
+    from cmhse_tpu_torch.models.text_tower import TextTowerConfig
+
+    path = os.path.join(_abs(directory), TOWER_FILE)
+    if not os.path.exists(path):
+        return None
+    with open(path) as f:
+        return TextTowerConfig.from_json(f.read())
+
+
 def _abs(path: str) -> str:
     return os.path.abspath(os.path.expanduser(path))
 
@@ -61,16 +77,25 @@ class CheckpointManager:
     """Save and restore a :class:`~cmhse_tpu_torch.train.state.TrainState`,
     the experiment config and the best-by-rsum checkpoint."""
 
-    def __init__(self, directory: str, cfg: ExperimentConfig | None = None):
+    def __init__(self, directory: str, cfg: ExperimentConfig | None = None,
+                 text_tower=None):
+        """``text_tower`` (a ``TextTowerConfig``) is written beside
+        ``config.json`` as ``text_tower.json``, which
+        :func:`restore_for_eval` reads."""
         self.directory = _abs(directory)
         self.ckpt_dir = os.path.join(self.directory, "ckpt")
         if process_index() == 0:
             os.makedirs(self.ckpt_dir, exist_ok=True)
-            if cfg is not None:
-                path = os.path.join(self.directory, "config.json")
+            texts = {"config.json": None if cfg is None else cfg.to_json(),
+                     TOWER_FILE: (None if text_tower is None
+                                  else text_tower.to_json())}
+            for name, text in texts.items():
+                if text is None:
+                    continue
+                path = os.path.join(self.directory, name)
                 tmp = f"{path}.tmp{os.getpid()}"
                 with open(tmp, "w") as f:
-                    f.write(cfg.to_json())
+                    f.write(text)
                 os.replace(tmp, path)
         barrier()
 
@@ -182,6 +207,7 @@ def restore_for_eval(directory: str, device: str | torch.device | None = None):
         if not steps:
             raise FileNotFoundError(f"no checkpoints under {directory}")
         payload = _load(os.path.join(directory, "ckpt", str(steps[-1])))
-    model = CMHSE(cfg.model, cfg.data.vocab_size, device=device)
+    model = CMHSE(cfg.model, cfg.data.vocab_size, device=device,
+                  text_tower=load_text_tower(directory))
     model.load_state_dict(payload["model"])
     return model, cfg

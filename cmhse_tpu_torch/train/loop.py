@@ -82,10 +82,13 @@ def _grouped_host_batches(group_tuples, spd: int):
                 for f in dataclasses.fields(Batch)})
 
 
-def build_model(cfg: ExperimentConfig, device: torch.device) -> CMHSE:
-    """The run's fresh model, its weights drawn from ``cfg.train.seed``."""
+def build_model(cfg: ExperimentConfig, device: torch.device,
+                text_tower=None) -> CMHSE:
+    """The run's fresh model, its weights drawn from ``cfg.train.seed``;
+    ``text_tower`` (a ``TextTowerConfig``) as :class:`CMHSE` takes it."""
     return CMHSE(cfg.model, cfg.data.vocab_size, device=device,
-                 generator=torch.Generator().manual_seed(cfg.train.seed))
+                 generator=torch.Generator().manual_seed(cfg.train.seed),
+                 text_tower=text_tower)
 
 
 def fit(
@@ -95,6 +98,7 @@ def fit(
     vocab=None,
     device: str | torch.device | None = None,
     use_mesh: bool | None = None,
+    text_tower=None,
 ) -> tuple:
     """Full training run; returns (state, best_rsum).
 
@@ -104,7 +108,10 @@ def fit(
     run trains, the card unless ``"cpu"`` is passed. ``use_mesh``: train
     over a mesh of ``cfg.train.mesh_shape`` / ``mesh_axes`` (one rank a
     device; a world of 1 without a process group); None builds one when a
-    process group is up.
+    process group is up. ``text_tower``: the sentence encoder is that
+    decoder stack (a :class:`~cmhse_tpu_torch.models.text_tower.
+    TextTowerConfig`), written beside ``config.json`` as
+    ``text_tower.json``.
     """
     device = resolve_device(device)
     mesh = None
@@ -136,8 +143,12 @@ def fit(
     # one writer of log.jsonl: the other ranks log nothing
     logger = JsonlLogger(os.path.join(cfg.train.checkpoint_dir, "log.jsonl"),
                          enabled=process_index() == 0)
-    ckpt = CheckpointManager(cfg.train.checkpoint_dir, cfg)
-    model = build_model(cfg, device)
+    if text_tower is not None and cfg.data.word2vec_path:
+        raise ValueError("word2vec vectors initialize the GRU's word "
+                         "embedding; a text tower has its own")
+    ckpt = CheckpointManager(cfg.train.checkpoint_dir, cfg,
+                             text_tower=text_tower)
+    model = build_model(cfg, device, text_tower)
     state = create_train_state(cfg, model)
 
     if cfg.data.word2vec_path:
@@ -283,8 +294,12 @@ def _fit_epochs(cfg, train_dataset, val_dataset, state, ckpt, logger,
                     collector.update(k, v)
                 print(f"epoch {epoch} step {global_step} lr {lr:.2e} "
                       f"{collector}")
+                # a text tower's running totals (tower.tokens,
+                # moe.assignments), read where the loss already waits
+                tower = getattr(state.model, "text_tower", None)
+                totals = tower.counters() if tower is not None else {}
                 logger.log("train_step", epoch=epoch, step=global_step,
-                           lr=lr, **means)
+                           lr=lr, **means, **totals)
 
             if (
                 val_dataset is not None

@@ -56,7 +56,9 @@ DIFFERENCES = {
         "dtype", _FLAX + "; the projection and l2norm are always on"),
     "models.AttentionPool": ("width, attn_dim, generator, dtype", _FLAX),
     "models.WordEmbedding": ("vocab_size, word_dim, generator", _FLAX),
-    "models.CMHSE": ("cfg, vocab_size, device, generator", _FLAX),
+    "models.CMHSE": ("cfg, vocab_size, device, generator, text_tower",
+                     _FLAX + "; `text_tower`: a DeepSeek-V2 decoder stack as "
+                     "the sentence encoder, which the JAX package lacks"),
     "models.ReconstructionDecoder": (
         "embed_size, rnn_hidden, generator, dtype", _FLAX),
     "models.gru_sequence": ("x, lengths, w_i, w_h, b_i, b_h, h0",

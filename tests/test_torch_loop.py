@@ -136,7 +136,7 @@ def test_fit_matches_jax_fit(tmp_path, monkeypatch):
     params0 = jax_create_state(jcfg, jax.random.PRNGKey(train["seed"]),
                                sample).params
 
-    def from_jax(cfg, device):
+    def from_jax(cfg, device, text_tower=None):
         m = CMHSE(cfg.model, cfg.data.vocab_size, device=device)
         m.load_jax_params(jax.tree.map(np.asarray, params0))
         return m

@@ -94,7 +94,7 @@ def _shapes_seen(monkeypatch, module, attr):
 
 def _carried_model(params):
     """``loop.build_model``'s stand-in: the JAX run's initial weights."""
-    def build(cfg, device):
+    def build(cfg, device, text_tower=None):
         m = CMHSE(cfg.model, cfg.data.vocab_size, device=device)
         m.load_jax_params(jax.tree.map(np.asarray, params))
         return m
